@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels.
+
+Every `*.cu` under `qwen3_tpu_torch/csrc/` compiles with nvcc (one process per
+source, all started together) into an object, and the objects link into one
+shared library with a plain C interface,
+`build/qwen3_tpu_torch/libqwen3_kernels.so` under the repository root. It is
+loaded with ctypes. The build runs at first use and again whenever a source
+is newer than the library; it never includes PyTorch's headers, so it takes
+seconds. nvcc is `$CUDA_HOME/bin/nvcc` (default `/usr/local/cuda`) or the
+first `nvcc` on PATH.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[2]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG.parent / "build" / "qwen3_tpu_torch"
+LIB = BUILD_DIR / "libqwen3_kernels.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# -fmad=false: no a*b+c contraction anywhere, so fp32 sums round as written
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures: pointers and the stream as c_void_p, every int as c_int
+SIGNATURES = {
+    "q8q8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "q8q8_matmul_stacked": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+last_build_log = ""
+
+
+def nvcc_path() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def stale() -> bool:
+    if not LIB.exists():
+        return True
+    built = LIB.stat().st_mtime
+    return any(p.stat().st_mtime > built
+               for p in list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def build(verbose: bool = False) -> float:
+    """Compile every source in parallel and link the library; returns the
+    wall seconds. `verbose` adds -Xptxas -v (registers, shared memory and
+    spills per kernel) to the log kept in `last_build_log`."""
+    global last_build_log
+    t0 = time.perf_counter()
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}"
+    extra = ["-Xptxas", "-v"] if verbose else []
+    procs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *ARCH, *FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    logs, failed = [], []
+    for src, _obj, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out.decode(errors='replace')}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    last_build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{last_build_log}")
+    tmp = BUILD_DIR / f"libqwen3_kernels.{tag}.so"
+    link = subprocess.run(
+        [nvcc, *ARCH, "-shared", "-o", str(tmp),
+         *(str(obj) for _s, obj, _p in procs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    for _s, obj, _p in procs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n"
+                           + link.stdout.decode(errors="replace"))
+    os.replace(tmp, LIB)  # atomic: a concurrent loader never sees half a file
+    return time.perf_counter() - t0
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built first if missing or stale."""
+    global _lib
+    if _lib is None:
+        if stale():
+            build()
+        lib = ctypes.CDLL(str(LIB))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

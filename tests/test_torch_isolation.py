@@ -1,0 +1,97 @@
+"""The port stands alone: no module of `qwen3_tpu_torch/` (nor the root
+`chip_smoke.py`) imports JAX, ml_dtypes or the JAX package, importing every
+port module leaves JAX unloaded, and asking for the card where there is none
+raises instead of running on the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "qwen3_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "qwen3_tpu")
+
+
+def _port_sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _module_names():
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PKG.rglob("*.py") if p.name != "__main__.py")
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import_in_source(path):
+    for name in _imported_roots(path):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_importing_every_port_module_leaves_jax_unloaded():
+    mods = _module_names()
+    assert len(mods) > 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cuda_engine_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from qwen3_tpu_torch.config import PRESETS
+    from qwen3_tpu_torch.io.checkpoint import write_checkpoint
+    from qwen3_tpu_torch.io.synthetic import (
+        synthetic_tokenizer,
+        synthetic_weights,
+    )
+    from qwen3_tpu_torch.io.tokenizer_bin import write_tokenizer_bin
+    from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = PRESETS["tiny"]
+    path = str(tmp_path / "tiny.bin")
+    write_checkpoint(path, synthetic_weights(cfg, seed=0))
+    write_tokenizer_bin(path + ".tokenizer",
+                        synthetic_tokenizer(cfg.vocab_size))
+    assert EngineConfig(path=path).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(EngineConfig(path=path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(EngineConfig(path=path, device="cuda"))
+
+
+def test_chip_smoke_fails_without_a_card():
+    """The chip script exits non-zero and prints no result line when
+    torch.cuda.is_available() is false."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,171 @@
+"""The Q8_0 x Q8_0 matmul of the PyTorch port against the JAX package's
+Pallas kernels (q8_q8_matmul_stacked / q8_q8_matmul_tiled in interpret mode),
+on weights repacked by the JAX package's repack_tiles and un-tiled by the
+port, plus the CUDA kernel against its plain version where a card exists.
+
+Tolerance against JAX. The group dots are exact integers in both packages,
+and both sum the fp32 terms dot * (xs * ws) in the same order. They still
+differ in the last bits, because XLA:CPU, which runs the interpret-mode
+kernel, contracts the sum into fused multiply-adds: it computes
+fma(dot0, p0, dot1 * p1), then fma(dot_i, p_i, acc). The port rounds every
+product and every sum (the CUDA kernel with __fmul_rn/__fadd_rn), so its
+kernel and plain version agree bit for bit with each other, and each step
+differs from XLA:CPU's by at most one rounding of a partial sum. The bound
+below is two such roundings per group term, 2 * ng * 2^-24 times the sum of
+the terms' magnitudes.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from qwen3_tpu.ops.pallas.q8_matmul import (  # noqa: E402
+    q8_q8_matmul_stacked as jax_stacked,
+    q8_q8_matmul_tiled as jax_tiled,
+    repack_tiles,
+)
+from qwen3_tpu.ops.q8 import quantize_act as jax_quantize_act  # noqa: E402
+from qwen3_tpu_torch.models.qwen3 import untile  # noqa: E402
+from qwen3_tpu_torch.ops.cuda import q8_matmul as tq  # noqa: E402
+
+
+def _inputs(seed, b, n, d, g, layers=None):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, n)).astype(np.float32)
+    lead = () if layers is None else (layers,)
+    wq = rng.integers(-127, 128, size=lead + (d, n)).astype(np.int8)
+    ws = (0.02 / 127 * (0.5 + rng.random(lead + (d, n // g)))).astype(
+        np.float32)
+    xq, xs = jax_quantize_act(jnp.asarray(x), g)
+    return np.array(xq), np.array(xs), wq, ws
+
+
+def _assert_fp32_sum_close(got, want, xq, xs, wq, ws, g):
+    """|got - want| <= 2 * ng * 2^-24 * sum_g |dot_g * xs_g * ws_g|."""
+    mag = tq.q8q8_matmul_plain(torch.from_numpy(np.abs(xq)),
+                               torch.from_numpy(xs),
+                               torch.from_numpy(np.abs(wq)),
+                               torch.from_numpy(ws), g).numpy()
+    bound = 2 * (xq.shape[-1] // g) * 2.0 ** -24 * mag
+    err = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    assert np.all(err <= bound), float(np.max(err / np.maximum(bound, 1e-30)))
+
+
+def _jax_packed(wq, ws, g):
+    # the JAX package's pallas layout: [.., n, d] transposed, then tiled
+    qt, st = repack_tiles(np.ascontiguousarray(np.swapaxes(wq, -1, -2)),
+                          np.ascontiguousarray(np.swapaxes(ws, -1, -2)), g)
+    return qt, st
+
+
+# (n, G): one k-tile (128/32 -> tk = n), two tiles (1024/32 and 1024/64,
+# tk = 512), three tiles (1536/64)
+SHAPES = [(128, 32), (1024, 32), (1024, 64), (1536, 64)]
+
+
+@pytest.mark.parametrize("b", [1, 7, 64])
+@pytest.mark.parametrize("n,g", SHAPES)
+def test_tiled_plain_matches_jax(b, n, g):
+    """Classifier kernel. d = 1152 has no tile >= 512 dividing it, so
+    repack_tiles zero-pads it to 2048 columns; the port keeps 1152."""
+    d = 1152
+    xq, xs, wq, ws = _inputs(b * 1000 + n + g, b, n, d, g)
+    qt, st = _jax_packed(wq, ws, g)
+    assert qt.shape[0] * qt.shape[2] == 2048  # padded on the JAX side
+    want = np.asarray(jax_tiled(jnp.asarray(xq), jnp.asarray(xs),
+                                jnp.asarray(qt), jnp.asarray(st), g,
+                                interpret=True))[:, :d]
+    w_q, w_s = untile(qt, d), untile(st, d)
+    np.testing.assert_array_equal(w_q, wq)
+    got = tq.q8_q8_matmul_tiled(torch.from_numpy(xq), torch.from_numpy(xs),
+                                torch.from_numpy(w_q), torch.from_numpy(w_s),
+                                g).numpy()
+    _assert_fp32_sum_close(got, want, xq, xs, wq, ws, g)
+
+
+@pytest.mark.parametrize("b", [1, 7, 64])
+@pytest.mark.parametrize("n,g", SHAPES)
+def test_stacked_plain_matches_jax(b, n, g):
+    """Layer kernel on a 3-layer stack, layers 0 and 2."""
+    d = 384
+    xq, xs, wq, ws = _inputs(b * 7 + n + g, b, n, d, g, layers=3)
+    qt, st = _jax_packed(wq, ws, g)
+    w_q = torch.from_numpy(untile(qt, d))
+    w_s = torch.from_numpy(untile(st, d))
+    for layer in (0, 2):
+        want = np.asarray(jax_stacked(jnp.asarray(xq), jnp.asarray(xs),
+                                      jnp.asarray(qt), jnp.asarray(st),
+                                      jnp.int32(layer), g, interpret=True))
+        got = tq.q8_q8_matmul_stacked(torch.from_numpy(xq),
+                                      torch.from_numpy(xs), w_q, w_s, layer,
+                                      g).numpy()
+        _assert_fp32_sum_close(got, want, xq, xs, wq[layer], ws[layer], g)
+
+
+def test_plain_matches_xla_fma_order_bitwise():
+    """Pins the tolerance's reason: written in XLA:CPU's contracted order
+    (fmas emulated in float64, exact here: an integer below 2^24 times an
+    fp32 value needs 48 bits), the plain version's group terms reproduce
+    the JAX kernel bit for bit."""
+    b, n, d, g = 3, 128, 1152, 32
+    xq, xs, wq, ws = _inputs(11, b, n, d, g)
+    qt, st = _jax_packed(wq, ws, g)
+    want = np.asarray(jax_tiled(jnp.asarray(xq), jnp.asarray(xs),
+                                jnp.asarray(qt), jnp.asarray(st), g,
+                                interpret=True))[:, :d]
+    dots = np.einsum("bgk,dgk->gbd",
+                     xq.reshape(b, n // g, g).astype(np.float64),
+                     wq.reshape(d, n // g, g).astype(np.float64))
+    p = (xs.T[:, :, None] * ws.T[:, None, :]).astype(np.float32)   # xs * ws
+    acc = np.float32(dots[1] * p[1])
+    acc = np.float32(dots[0] * p[0] + acc)
+    for i in range(2, n // g):
+        acc = np.float32(dots[i] * p[i] + acc)
+    np.testing.assert_array_equal(acc, want)
+
+
+def test_plain_group_dots_are_exact_integers():
+    """The plain version's fp32 group dots equal int64 dots at the extreme
+    |dot| = 64 * 127 * 127 (no int8 wrap, no fp32 rounding)."""
+    g, n, d = 64, 512, 3
+    xq = torch.full((1, n), -127, dtype=torch.int8)
+    xs = torch.ones(1, n // g)
+    wq = torch.full((d, n), -127, dtype=torch.int8)
+    ws = torch.ones(d, n // g)
+    out = tq.q8q8_matmul_plain(xq, xs, wq, ws, g)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, torch.full((1, d), float(n * 127 * 127)))
+
+
+def test_groups_per_tile_matches_jax_pick_tile():
+    from qwen3_tpu.ops.pallas.q8_matmul import _pick_tile
+
+    for n, g in [(128, 32), (256, 32), (512, 32), (1024, 64), (3072, 64),
+                 (1536, 64), (9728, 64), (640, 64)]:
+        assert tq.groups_per_tile(n, g) * g == _pick_tile(n, 8 * g, 512)
+
+
+def test_cpu_tensors_take_plain_version_and_count_nothing():
+    xq, xs, wq, ws = _inputs(3, 2, 128, 64, 32)
+    tq.reset_launches()
+    out = tq.q8_q8_matmul_tiled(torch.from_numpy(xq), torch.from_numpy(xs),
+                                torch.from_numpy(wq), torch.from_numpy(ws),
+                                32)
+    assert out.shape == (2, 64)
+    assert tq.LAUNCHES == {"stacked": 0, "tiled": 0}
+
+
+def test_non_cpu_tensor_never_takes_plain_version():
+    """A tensor that is not on the CPU goes to the kernel's launcher, which
+    refuses what the kernel does not take; there is no fallback."""
+    xq = torch.empty(1, 128, dtype=torch.int8, device="meta")
+    xs = torch.empty(1, 4, device="meta")
+    wq = torch.empty(64, 128, dtype=torch.int8, device="meta")
+    ws = torch.empty(64, 4, device="meta")
+    with pytest.raises(ValueError, match="must be on"):
+        tq.q8_q8_matmul_tiled(xq, xs, wq, ws, 32)
+    with pytest.raises(ValueError, match="power of two"):
+        tq.q8_q8_matmul_tiled(xq, xs, wq, ws, 48)
