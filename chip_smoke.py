@@ -65,6 +65,16 @@ MATRICES = {           # name: (n = in, d = out)
 BATCHES = (1, 64, 256, 512)    # decode, and the prefill ladder's blocks
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (data sheet)
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
+FP32_OPS_PER_S = 67e12         # H100 SXM fp32 peak outside the tensor cores
+# flash attention at qwen3-0.6b's shape, in the CLI's default 32768-row cache
+FLASH_H, FLASH_KV, FLASH_D, FLASH_S = 16, 8, 128, 32768
+FLASH_DEPTHS = (0, 255, 256, 8191, 16384, 32767)   # decode positions
+FLASH_BLOCKS = (64, 512)                           # prefill block rows
+FLASH_STARTS = (0, 8192, 32256)                    # prefill block starts
+FLASH_TIMED = (("flash_decode", 8192, 1), ("flash_decode", 16384, 1),
+               ("flash_decode", 32767, 1), ("flash_prefill", 8192, 64),
+               ("flash_prefill", 8192, 512), ("flash_prefill", 32256, 512))
+FLASH_DEPTH = 8192             # --attn auto switches to flash here
 REPS, WARMUP = 20, 3
 SLEEP_CYCLES = 4_000_000       # a ~2 ms device spin queued before each timed run
 
@@ -214,6 +224,173 @@ def phase_kernels(torch):
     return rows
 
 
+def flash_bound_ms(q_rows, rows_read, score_pairs):
+    """The least time for one flash launch: the bytes it must move (the
+    queries and the output in f32, the int8 K/V values and their f32 scales
+    of the rows it reads, once each) over the memory rate, or its fp32
+    operations (2 for q . k and 2 for p v per score pair and head dim) over
+    the fp32 peak."""
+    nbytes = 2 * 4 * q_rows * FLASH_H * FLASH_D + \
+        2 * rows_read * FLASH_KV * (FLASH_D + 4)
+    ops = 4 * score_pairs * FLASH_H * FLASH_D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_cache(torch, dtype, layers, gen):
+    """K and V for `layers` layers of one slot at FLASH_S rows, random
+    normal; int8 through the port's KV encode (values and scales)."""
+    from qwen3_tpu_torch.runtime import kvcache as kvc
+
+    out = []
+    for _ in range(2):
+        x = torch.randn(layers, 1, FLASH_S, FLASH_KV, FLASH_D, device="cuda",
+                        generator=gen)
+        if dtype == "int8":
+            out.append(kvc.quantize_heads(x))
+        else:
+            out.append((x.to(getattr(torch, dtype)), None))
+        del x
+    (k, ks), (v, vs) = out
+    return k, v, ks, vs
+
+
+def phase_flash_kernels(torch):
+    """Both flash kernels against their plain versions on the card in the
+    three KV dtypes, in a 32768-row cache at qwen3-0.6b's attention shape
+    (16 heads over 8 kv heads of 128): decode at depths 0, 255, 256, 8191,
+    16384 and 32767, prefill blocks of 64 and 512 rows starting at 0, 8192
+    and 32256, each within 2e-5 * max(1, max|plain|) (the JAX package's
+    flash tolerance). Then times for int8 (the main path's cache) over a
+    28-layer cache, a layer per run, so that no run finds its rows in L2:
+    the kernel, its plain version and the library yardstick
+    (scaled_dot_product_attention on K/V dequantized once to f32)."""
+    import torch.nn.functional as F
+
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    rows = []
+    err = {"flash_decode": 0.0, "flash_prefill": 0.0}
+
+    def check(name, got, want, label):
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"{name} {label}: non-finite kernel output")
+        diff = (got - want).abs().max().item()
+        tol = 2e-5 * max(1.0, want.abs().max().item())
+        err[name] = max(err[name], diff)
+        if diff > tol:
+            fail(f"{name} {label}: kernel vs plain max_abs_diff {diff:.3e} "
+                 f"> {tol:.3e}")
+        return diff
+
+    for dtype in ("float32", "bfloat16", "int8"):
+        k, v, ks, vs = flash_cache(torch, dtype, 1, gen)
+        kl, vl = k[0], v[0]
+        ksl = None if ks is None else ks[0]
+        vsl = None if vs is None else vs[0]
+        diffs = []
+        for depth in FLASH_DEPTHS:
+            q = torch.randn(1, FLASH_H, FLASH_D, device="cuda", generator=gen)
+            pos = torch.tensor([depth], dtype=torch.int32, device="cuda")
+            want = fd.flash_decode_plain(q, kl, vl, pos, ksl, vsl,
+                                         live=depth + 1)
+            got = fd.flash_decode_gqa(q, kl, vl, pos, ksl, vsl,
+                                      live=depth + 1)
+            diffs.append(check("flash_decode", got, want,
+                               f"{dtype} depth {depth}"))
+        for t in FLASH_BLOCKS:
+            for start in FLASH_STARTS:
+                q = torch.randn(1, t, FLASH_H, FLASH_D, device="cuda",
+                                generator=gen)
+                qpos = torch.arange(start, start + t, dtype=torch.int32,
+                                    device="cuda")
+                want = fd.flash_prefill_plain(q, kl, vl, qpos, ksl, vsl,
+                                              live=start + t)
+                got = fd.flash_prefill_gqa(q, kl, vl, qpos, ksl, vsl)
+                diffs.append(check("flash_prefill", got, want,
+                                   f"{dtype} T {t} start {start}"))
+        log(f"flash kernels vs plain, {dtype} KV: max_abs_diff per case "
+            f"(decode at {list(FLASH_DEPTHS)}, then prefill T x start "
+            f"{[(t, s) for t in FLASH_BLOCKS for s in FLASH_STARTS]}): "
+            f"{[float(f'{d:.3e}') for d in diffs]}")
+        del k, v, ks, vs, kl, vl, ksl, vsl
+        torch.cuda.empty_cache()
+
+    k, v, ks, vs = flash_cache(torch, "int8", L, gen)
+    for kind, depth, t in FLASH_TIMED:
+        n = depth + t if kind == "flash_prefill" else depth + 1
+        # the library yardstick's K/V: each layer's live rows dequantized
+        # once to f32, heads first
+        kf = (k[:, 0, :n].float() * ks[:, 0, :n, :, None]).transpose(1, 2)
+        vf = (v[:, 0, :n].float() * vs[:, 0, :n, :, None]).transpose(1, 2)
+        if kind == "flash_decode":
+            q = torch.randn(1, FLASH_H, FLASH_D, device="cuda",
+                            generator=gen)
+            pos = torch.tensor([depth], dtype=torch.int32, device="cuda")
+            mask = None
+            pairs = n
+
+            def kernel(i, q=q, pos=pos, n=n):
+                return fd.flash_decode_gqa(q, k[i % L], v[i % L], pos,
+                                           ks[i % L], vs[i % L], live=n)
+
+            def plain(i, q=q, pos=pos, n=n):
+                return fd.flash_decode_plain(q, k[i % L], v[i % L], pos,
+                                             ks[i % L], vs[i % L], live=n)
+
+            q_lib = q[:, :, None, :]                     # [1, H, 1, D]
+        else:
+            q = torch.randn(1, t, FLASH_H, FLASH_D, device="cuda",
+                            generator=gen)
+            pos = torch.arange(depth, depth + t, dtype=torch.int32,
+                               device="cuda")
+            mask = (torch.arange(n, device="cuda")[None, :]
+                    <= pos[:, None])                     # [T, n]
+            pairs = int((pos.long() + 1).sum())
+
+            def kernel(i, q=q, pos=pos):
+                return fd.flash_prefill_gqa(q, k[i % L], v[i % L], pos,
+                                            ks[i % L], vs[i % L])
+
+            def plain(i, q=q, pos=pos, n=n):
+                return fd.flash_prefill_plain(q, k[i % L], v[i % L], pos,
+                                              ks[i % L], vs[i % L], live=n)
+
+            q_lib = q.transpose(1, 2)                    # [1, H, T, D]
+
+        def library(i, q_lib=q_lib, mask=mask):
+            return F.scaled_dot_product_attention(
+                q_lib, kf[i % L][None], vf[i % L][None], attn_mask=mask,
+                enable_gqa=True)
+
+        got = kernel(0)
+        check(kind, got, plain(0), f"int8 timed case depth {depth} T {t}")
+        lib = library(0)
+        lib = lib[:, :, 0] if kind == "flash_decode" else lib.transpose(1, 2)
+        lib_diff = (lib - got).abs().max().item()
+        bnd, by = flash_bound_ms(t, n, pairs)
+        row = dict(kernel=kind, depth=depth, T=t, rows_read=n,
+                   kernel_ms=device_ms(torch, kernel),
+                   plain_ms=device_ms(torch, plain),
+                   library_ms=device_ms(torch, library), bound_ms=bnd,
+                   bound_by=by, library_vs_kernel_max_abs_diff=lib_diff)
+        rows.append(row)
+        log("flash " + json.dumps(row))
+        del kf, vf
+        torch.cuda.empty_cache()
+    log("flash library_ms = scaled_dot_product_attention(enable_gqa=True, a "
+        "boolean position mask for prefill) on K/V dequantized once to f32: "
+        "it reads 4 bytes per cached value where the kernels read 1 and a "
+        "scale per row; timed here, never called by the port")
+    del k, v, ks, vs
+    torch.cuda.empty_cache()
+    return rows, err
+
+
 def check_sampler(torch, n_rows=64, vocab=151936, seed=0):
     """The sampler on the card against its run on the CPU (which
     tests/test_torch_runtime.py holds to the JAX package) on the same
@@ -336,35 +513,61 @@ def run_cli(argv, stdin_text=""):
 def checked_run(torch, label, argv, stdin_text=""):
     """One CLI run with the launch-count check: every forward pass (prefill
     block or decode step) launches the stacked kernel 4 x 28 times and the
-    classifier kernel once."""
+    classifier kernel once; every pass that resolved to flash attention
+    launches a flash kernel 28 times (decode steps flash decode, prefill
+    blocks flash prefill), and no other pass launches one."""
     from qwen3_tpu_torch.models import qwen3 as model
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
     from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
 
-    before = dict(qm.LAUNCHES), dict(model.CALLS)
+    before = dict(qm.LAUNCHES), dict(fd.LAUNCHES), dict(model.CALLS)
     t0 = time.perf_counter()
     out, err = run_cli(argv, stdin_text)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: qm.LAUNCHES[k] - before[0][k] for k in qm.LAUNCHES}
-    blocks = model.CALLS["forward"] - before[1]["forward"]
-    steps = model.CALLS["decode_forward"] - before[1]["decode_forward"]
+    launches.update({k: fd.LAUNCHES[k] - before[1][k] for k in fd.LAUNCHES})
+    calls = {k: model.CALLS[k] - before[2][k] for k in model.CALLS}
+    blocks, steps = calls["forward"], calls["decode_forward"]
     passes = blocks + steps
     if steps == 0 or blocks == 0:
         fail(f"{label}: no prefill block or no decode step ran")
-    if launches != {"stacked": 4 * L * passes, "tiled": passes}:
+    want = {"stacked": 4 * L * passes, "tiled": passes,
+            "flash_decode": L * calls["decode_forward_flash"],
+            "flash_prefill": L * calls["forward_flash"]}
+    if launches != want:
         fail(f"{label}: launches {launches} for {blocks} prefill blocks and "
-             f"{steps} decode steps (want stacked {4 * L * passes}, "
-             f"tiled {passes})")
+             f"{steps} decode steps ({calls['forward_flash']} and "
+             f"{calls['decode_forward_flash']} of them flash); want {want}")
     metrics = re.findall(r"\[(pp|tg|t/ms|tok/s) ([0-9.]+)(?:ms)?\]", err)
-    log(f"{label}: {len(out)} stdout bytes, {blocks} prefill blocks, "
-        f"{steps} decode steps, launches {launches}, wall {wall:.2f} s, "
-        f"cli {metrics}")
+    log(f"{label}: {len(out)} stdout bytes, {blocks} prefill blocks "
+        f"({calls['forward_flash']} flash), {steps} decode steps "
+        f"({calls['decode_forward_flash']} flash), launches {launches}, "
+        f"wall {wall:.2f} s, cli {metrics}")
     return out, err, dict(blocks=blocks, steps=steps, launches=launches,
-                          metrics=metrics)
+                          calls=calls, metrics=metrics)
+
+
+def reset_counts():
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+
+    qm.reset_launches()
+    fd.reset_launches()
+
+
+def read_counts():
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+
+    return {**qm.LAUNCHES, **fd.LAUNCHES}
 
 
 def phase_end_to_end(torch, path: str):
-    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+    """The first slice's path (depth < 8192: completion at -c 4096, seeded
+    twice, chat), then the long-context path (see phase_long_context), each
+    with the launch counts set to 0 just before it and read just after.
+    Returns ({path: counts}, runs)."""
     from qwen3_tpu_torch.runtime.decode_loop import prefill_plan
     from qwen3_tpu_torch.tokenizer import Tokenizer
 
@@ -376,7 +579,7 @@ def phase_end_to_end(torch, path: str):
     if max(w for _, w in plan) != 512:
         fail("the prompt does not reach a 512-row prefill block")
 
-    qm.reset_launches()
+    reset_counts()
     runs = {}
     out, err, runs["greedy"] = checked_run(
         torch, "greedy", base + ["-m", "completion", "-i", PROMPT, "-t", "0",
@@ -399,12 +602,179 @@ def phase_end_to_end(torch, path: str):
         stdin_text="Tell me about the clockmaker.\nAnd the children?\n\n")
     if err.count("[t/ms") != 2:
         fail("chat: expected two turns with metrics")
-    total = dict(qm.LAUNCHES)
-    log(f"main path launches (all phase-4 runs): {total}")
-    return total, runs
+    counts = {"short": read_counts()}
+    log(f"main path launches below depth 8192 (the runs above): "
+        f"{counts['short']}")
+    if min(counts["short"][k] for k in ("stacked", "tiled")) == 0:
+        fail("a matmul kernel of the path was never launched")
+
+    reset_counts()
+    runs.update(phase_long_context(torch, path))
+    counts["long"] = read_counts()
+    log(f"main path launches at long context (the runs above): "
+        f"{counts['long']}")
+    if min(counts["long"].values()) == 0:
+        fail("a kernel of the long-context path was never launched")
+    return counts, runs
+
+
+LONG_PROMPT = (
+    "Once upon a time there was a small town at the edge of a forest, and "
+    "in the town there lived an old clockmaker and the children who came to "
+    "watch him work. "
+) * 71
+
+
+def phase_long_context(torch, path: str):
+    """The long-context path through the CLI: a completion with every CLI
+    default (no -c: the context is 32768; int8 KV; --attn auto) on an
+    8378-token prompt, so its prefill blocks cross depth 8192 and every
+    decode step runs flash decode; the same seeded twice, with equal stdout;
+    and --attn flash at -c 4096 on the short prompt, where prefill and
+    decode run flash from position 0. Each run's flash launches must be 28
+    per flash-resolved pass (checked_run), and the passes must resolve as
+    the JAX engine's rule says: a prefill block by its start, a decode
+    chunk by its first step's depth."""
+    from qwen3_tpu_torch.runtime.decode_loop import prefill_plan
+    from qwen3_tpu_torch.tokenizer import Tokenizer
+
+    base = [path, "--device", "cuda"]
+    n_long = len(Tokenizer.from_file(path).encode(LONG_PROMPT))
+    plan = prefill_plan(n_long, 0, 64, 32768)
+    flash_blocks = sum(off >= FLASH_DEPTH for off, _ in plan)
+    log(f"long prompt: {n_long} tokens, prefill plan "
+        f"{[w for _, w in plan]}, {flash_blocks} blocks start at or past "
+        f"{FLASH_DEPTH}")
+    if not n_long > FLASH_DEPTH or flash_blocks == 0:
+        fail("the long prompt does not cross depth 8192")
+    runs = {}
+    greedy = base + ["-m", "completion", "-i", LONG_PROMPT, "-t", "0", "-s",
+                     "42", "--max-tokens", "32"]
+    out, _, runs["long_greedy"] = checked_run(torch, "long greedy", greedy)
+    seeded = base + ["-m", "completion", "-i", LONG_PROMPT, "-t", "0.8",
+                     "-p", "0.9", "-s", "7", "--max-tokens", "32"]
+    out1, _, runs["long_seeded_1"] = checked_run(torch, "long seeded run 1",
+                                                 seeded)
+    out2, _, runs["long_seeded_2"] = checked_run(torch, "long seeded run 2",
+                                                 seeded)
+    if out1 != out2:
+        fail("long seeded: the two runs printed different bytes")
+    for name in ("long_greedy", "long_seeded_1", "long_seeded_2"):
+        c = runs[name]["calls"]
+        if (c["forward"] != len(plan) or c["forward_flash"] != flash_blocks
+                or c["decode_forward_flash"] != c["decode_forward"]):
+            fail(f"{name}: passes {c}; want {len(plan)} prefill blocks, "
+                 f"{flash_blocks} of them flash, and every decode step flash")
+    if not out.startswith(LONG_PROMPT.encode()):
+        fail("long greedy: stdout does not start with the prompt")
+    _, _, runs["flash_4096"] = checked_run(
+        torch, "--attn flash -c 4096", base + [
+            "-m", "completion", "-i", PROMPT, "-t", "0.8", "-s", "5", "-c",
+            "4096", "--attn", "flash", "--max-tokens", "32"])
+    c = runs["flash_4096"]["calls"]
+    if (c["forward_flash"] != c["forward"]
+            or c["decode_forward_flash"] != c["decode_forward"]):
+        fail(f"--attn flash: passes {c}; want every pass flash")
+    return runs
 
 
 # -- phase 5 -------------------------------------------------------------------
+
+class Forcing:
+    """The rounding steps of a forward pass, a Q8 activation quantization
+    (before each matmul) or an int8 KV encode, recorded on the card and
+    replayed on the CPU. Under spy("record") each step runs and keeps its
+    input and outputs (on the host); under spy("forced") each step returns
+    the recorded outputs, in order, and keeps the input it was given."""
+
+    def __init__(self):
+        from qwen3_tpu_torch.models import qwen3 as model
+        from qwen3_tpu_torch.runtime import kvcache as kvc
+
+        self.sites = {"q8": (model, "quantize_act"),
+                      "kv": (kvc, "quantize_heads")}
+        self.rounding = {k: getattr(*w) for k, w in self.sites.items()}
+        self.card_log = {k: [] for k in self.sites}
+        self.cpu_in = {k: [] for k in self.sites}
+
+    def _record(self, kind):
+        def step(x, *rest):
+            out = self.rounding[kind](x, *rest)
+            self.card_log[kind].append((x.cpu(), [t.cpu() for t in out]))
+            return out
+        return step
+
+    def _forced(self, kind):
+        def step(x, *rest):
+            self.cpu_in[kind].append(x)
+            return self.card_log[kind][len(self.cpu_in[kind]) - 1][1]
+        return step
+
+    @contextlib.contextmanager
+    def spy(self, how):
+        """how: None (the plain steps), "record" or "forced"."""
+        for kind, (mod, name) in self.sites.items():
+            setattr(mod, name, getattr(self, "_" + how)(kind) if how
+                    else self.rounding[kind])
+        try:
+            yield
+        finally:
+            for kind, (mod, name) in self.sites.items():
+                setattr(mod, name, self.rounding[kind])
+
+    def check(self, torch, label, card, forced_cpu, cfg, need_gap=True):
+        """Every step's input on the CPU within 1e-5 of the card's max|.|,
+        every step on the CPU bit for bit from the card's input, the logits
+        [positions, V] within 1e-3 * max|logits|, and the argmax equal at
+        the position whose CPU top-2 gap is widest (which must exceed the
+        tolerance when `need_gap`). Returns the logits' max_abs_diff."""
+        want_steps = {"q8": 4 * cfg.n_layers + 1, "kv": 2 * cfg.n_layers}
+        rel, unequal = {}, {}
+        for kind in self.sites:
+            rel[kind] = [((c - x).abs().max() / x.abs().max()).item()
+                         for (x, _), c in zip(self.card_log[kind],
+                                              self.cpu_in[kind])]
+            g = (cfg.group_size,) if kind == "q8" else ()
+            unequal[kind] = [
+                i for i, (x, outs) in enumerate(self.card_log[kind])
+                if not all(map(torch.equal, self.rounding[kind](x, *g),
+                               outs))]
+        tol = 1e-3 * forced_cpu.abs().max().item()
+        diff = (card - forced_cpu).abs().max().item()
+        top2 = torch.topk(forced_cpu, 2, dim=-1).values
+        gaps = top2[:, 0] - top2[:, 1]
+        t = int(gaps.argmax())
+        argmax = int(card[t].argmax()), int(forced_cpu[t].argmax())
+        for kind in self.sites:
+            worst = max(rel[kind])
+            log(f"{label} step by step, {kind} rounding: {len(rel[kind])} "
+                f"steps, CPU input vs the card's max|diff|/max|x| worst "
+                f"{worst:.3e} (step {rel[kind].index(worst)}), median "
+                f"{statistics.median(rel[kind]):.3e}; steps whose output on "
+                f"the CPU from the card's input differs: {unequal[kind]}")
+        log(f"{label} step by step: logits max_abs_diff {diff:.3e}, "
+            f"tolerance {tol:.3e}; argmax at position {t} (CPU top-2 gap "
+            f"{gaps[t].item():.3e}) {argmax[0]} / {argmax[1]}")
+        if {k: len(v) for k, v in rel.items()} != want_steps:
+            fail(f"{label}: rounding steps "
+                 f"{({k: len(v) for k, v in rel.items()})}, want {want_steps}")
+        if max(max(r) for r in rel.values()) > 1e-5:
+            fail(f"{label}: an op between two rounding steps disagrees on "
+                 f"the card")
+        if any(unequal.values()):
+            fail(f"{label}: a rounding step on the card differs from the "
+                 f"CPU's")
+        if diff > tol:
+            fail(f"{label}: logits on the card disagree with the CPU plain "
+                 f"path")
+        if need_gap and gaps[t].item() <= tol:
+            fail(f"{label}: no position's CPU top-2 gap exceeds the "
+                 f"tolerance")
+        if argmax[0] != argmax[1]:
+            fail(f"{label}: argmax on the card differs from the CPU plain "
+                 f"path")
+        return diff
+
 
 def phase_plain_path(torch, path: str):
     """One 64-token prefill block at full size on the card and on the CPU
@@ -432,27 +802,10 @@ def phase_plain_path(torch, path: str):
     one ulp down. The card must stay within twice that spread (and may
     always differ by 1e-3 * max|logits|)."""
     from qwen3_tpu_torch.models import qwen3 as model
-    from qwen3_tpu_torch.runtime import kvcache as kvc
     from qwen3_tpu_torch.tokenizer import Tokenizer
 
     ids = Tokenizer.from_file(path).encode(PROMPT)[:64]
-    steps = {"q8": (model, "quantize_act"), "kv": (kvc, "quantize_heads")}
-    rounding = {k: getattr(*where) for k, where in steps.items()}
-    card_log = {k: [] for k in steps}       # (input, outputs), on the host
-    cpu_in = {k: [] for k in steps}
-
-    def record(kind):
-        def step(x, *rest):
-            out = rounding[kind](x, *rest)
-            card_log[kind].append((x.cpu(), [t.cpu() for t in out]))
-            return out
-        return step
-
-    def forced(kind):
-        def step(x, *rest):
-            cpu_in[kind].append(x)
-            return card_log[kind][len(cpu_in[kind]) - 1][1]
-        return step
+    forcing = Forcing()
 
     def logits_of(params, cfg, device, nudge=0.0, spy=None):
         if nudge:   # emb_s only: a tied classifier keeps its own reference
@@ -460,68 +813,24 @@ def phase_plain_path(torch, path: str):
                 params["emb_s"], torch.full_like(params["emb_s"], nudge)))
         k, v = model.init_kv_cache(cfg, 1, 256, "int8", device)
         toks = torch.tensor([ids], device=device)
-        for kind, (mod, name) in steps.items():
-            setattr(mod, name, spy(kind) if spy else rounding[kind])
-        try:
+        with forcing.spy(spy):
             logits, _, _ = model.forward(params, cfg, toks, k, v, 0,
                                          all_logits=True)
-        finally:
-            for kind, (mod, name) in steps.items():
-                setattr(mod, name, rounding[kind])
         return logits[0].float().cpu()                      # [64, V]
 
     cfg, params = model.load_params(path, max_seq_len=256, device="cuda")
-    card = logits_of(params, cfg, "cuda", spy=record)
+    card = logits_of(params, cfg, "cuda", spy="record")
     card_nudged = logits_of(params, cfg, "cuda", float("inf"))[-1]
     del params
     cfg, params = model.load_params(path, max_seq_len=256, device="cpu")
-    forced_cpu = logits_of(params, cfg, "cpu", spy=forced)
+    forced_cpu = logits_of(params, cfg, "cpu", spy="forced")
     free = {s: logits_of(params, cfg, "cpu", s)[-1]
             for s in (0.0, float("inf"), float("-inf"))}
     del params
     if card.shape != (64, cfg.vocab_size) or not torch.isfinite(card).all():
         fail(f"prefill logits: shape {tuple(card.shape)} or non-finite")
-
-    # step by step
-    want_steps = {"q8": 4 * cfg.n_layers + 1, "kv": 2 * cfg.n_layers}
-    rel, unequal = {}, {}
-    for kind in steps:
-        rel[kind] = [((c - x).abs().max() / x.abs().max()).item()
-                     for (x, _), c in zip(card_log[kind], cpu_in[kind])]
-        g = (cfg.group_size,) if kind == "q8" else ()
-        unequal[kind] = [
-            i for i, (x, outs) in enumerate(card_log[kind])
-            if not all(map(torch.equal, rounding[kind](x, *g), outs))]
-    tol = 1e-3 * forced_cpu.abs().max().item()
-    diff = (card - forced_cpu).abs().max().item()
-    top2 = torch.topk(forced_cpu, 2, dim=-1).values
-    gaps = top2[:, 0] - top2[:, 1]
-    t = int(gaps.argmax())
-    argmax = int(card[t].argmax()), int(forced_cpu[t].argmax())
-    for kind in steps:
-        worst = max(rel[kind])
-        log(f"prefill block (64 tokens) step by step, {kind} rounding: "
-            f"{len(rel[kind])} steps, CPU input vs the card's max|diff|/"
-            f"max|x| worst {worst:.3e} (step {rel[kind].index(worst)}), "
-            f"median {statistics.median(rel[kind]):.3e}; steps whose "
-            f"output on the CPU from the card's input differs: "
-            f"{unequal[kind]}")
-    log(f"prefill block step by step: logits max_abs_diff {diff:.3e}, "
-        f"tolerance {tol:.3e}; argmax at position {t} (CPU top-2 gap "
-        f"{gaps[t].item():.3e}) {argmax[0]} / {argmax[1]}")
-    if {k: len(v) for k, v in rel.items()} != want_steps:
-        fail(f"rounding steps {({k: len(v) for k, v in rel.items()})}, "
-             f"want {want_steps}")
-    if max(max(r) for r in rel.values()) > 1e-5:
-        fail("an op between two rounding steps disagrees on the card")
-    if any(unequal.values()):
-        fail("a rounding step on the card differs from the CPU's")
-    if diff > tol:
-        fail("logits on the card disagree with the CPU plain path")
-    if gaps[t].item() <= tol:
-        fail("no position's CPU top-2 gap exceeds the tolerance")
-    if argmax[0] != argmax[1]:
-        fail("argmax on the card differs from the CPU plain path")
+    diff = forcing.check(torch, "prefill block (64 tokens)", card,
+                         forced_cpu, cfg)
 
     # free-running
     cpu = free[0.0]
@@ -540,6 +849,66 @@ def phase_plain_path(torch, path: str):
         fail("free-running logits on the card disagree with the CPU plain "
              "path")
     return diff, diff_free
+
+
+def phase_plain_depth(torch, path: str):
+    """The long-context path against its plain version at depth, step by
+    step (see Forcing): the long prompt's first 8192 tokens prefill on the
+    card (dense, 16 blocks of 512); the card's KV cache is copied to the
+    CPU; then, with attn="flash" on both devices, one 64-token block at
+    8192 (flash prefill) and one decode step at depth 8256 (flash decode),
+    the card's rounding decisions forced on the CPU. The block is held like
+    phase 5's; the single decode row has no choice of position, so its
+    argmax need only agree."""
+    from qwen3_tpu_torch.models import qwen3 as model
+    from qwen3_tpu_torch.runtime.kvcache import pad_rows
+    from qwen3_tpu_torch.tokenizer import Tokenizer
+
+    ids = Tokenizer.from_file(path).encode(LONG_PROMPT)
+    start, n = FLASH_DEPTH, 64
+    block, tok = ids[start:start + n], ids[start + n]
+    rows = pad_rows(start + n + 1)
+    t0 = time.perf_counter()
+    cfg, params = model.load_params(path, max_seq_len=rows, device="cuda")
+    k, v = model.init_kv_cache(cfg, 1, rows, "int8", "cuda")
+    for off in range(0, start, 512):
+        toks = torch.tensor([ids[off:off + 512]], device="cuda")
+        _, k, v = model.forward(params, cfg, toks, k, v, off)
+    k_cpu, v_cpu = (tuple(t.cpu() for t in c) for c in (k, v))
+    at_block, at_step = Forcing(), Forcing()
+    with at_block.spy("record"):
+        card_block, k, v = model.forward(
+            params, cfg, torch.tensor([block], device="cuda"), k, v, start,
+            all_logits=True, attn="flash")
+    with at_step.spy("record"):
+        card_step, _, _ = model.decode_forward(
+            params, cfg, torch.tensor([tok], device="cuda"), k, v,
+            torch.tensor([start + n], device="cuda"), attn="flash")
+    card_block = card_block[0].float().cpu()
+    card_step = card_step.float().cpu()
+    del params, k, v
+    torch.cuda.empty_cache()
+    cfg, params = model.load_params(path, max_seq_len=rows, device="cpu")
+    with at_block.spy("forced"):
+        cpu_block, k_cpu, v_cpu = model.forward(
+            params, cfg, torch.tensor([block]), k_cpu, v_cpu, start,
+            all_logits=True, attn="flash")
+    with at_step.spy("forced"):
+        cpu_step, _, _ = model.decode_forward(
+            params, cfg, torch.tensor([tok]), k_cpu, v_cpu,
+            torch.tensor([start + n]), attn="flash")
+    del params, k_cpu, v_cpu
+    for name, x in (("block", card_block), ("step", card_step)):
+        if not torch.isfinite(x).all():
+            fail(f"flash {name} at depth: non-finite logits on the card")
+    diffs = (at_block.check(torch, f"flash prefill block ({n} tokens at "
+                            f"{start})", card_block, cpu_block[0].float(),
+                            cfg),
+             at_step.check(torch, f"flash decode step at depth {start + n}",
+                           card_step, cpu_step.float(), cfg, need_gap=False))
+    log(f"flash path at depth vs the CPU plain path: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return diffs
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -617,9 +986,12 @@ def phase_profile(torch, path: str):
 
 # -- report --------------------------------------------------------------------
 
-def kernel_report(rows, launches):
-    """Per kernel, the main path's decode shapes (b = 1) summed over one
-    decoded token: 4 stacked matmuls x 28 layers, 1 classifier matmul."""
+def kernel_report(rows, flash_rows, flash_err, counts):
+    """Per kernel, one decoded token at the main path's shapes: the matmuls
+    at b = 1 (4 stacked x 28 layers, 1 classifier), their launches over the
+    path below depth 8192; flash decode at depth 8192 and flash prefill per
+    512-row block at start 8192 (28 launches each), their launches over the
+    long-context path."""
     out = []
     for kind, source_line in (("stacked", 419), ("tiled", 314)):
         mine = [r for r in rows if r["kernel"] == kind]
@@ -631,7 +1003,7 @@ def kernel_report(rows, launches):
             "route": "cuda",
             "source": "qwen3_tpu_torch/csrc/q8_matmul.cu",
             "replaces": f"qwen3_tpu/ops/pallas/q8_matmul.py:{source_line}",
-            "launches": launches[kind],
+            "launches": counts["short"][kind],
             "max_abs_err": max(r["max_abs_diff"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in dec) * per_token,
             "plain_ms": sum(r["plain_ms"] for r in dec) * per_token,
@@ -639,6 +1011,23 @@ def kernel_report(rows, launches):
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in dec) else "operations",
             "library_ms": sum(r["library_ms"] for r in dec) * per_token,
+        })
+    for kind, source_line, t in (("flash_decode", 115, 1),
+                                 ("flash_prefill", 391, 512)):
+        r = next(r for r in flash_rows if r["kernel"] == kind
+                 and r["depth"] == FLASH_DEPTH and r["T"] == t)
+        out.append({
+            "name": f"{kind}_gqa",
+            "route": "cuda",
+            "source": "qwen3_tpu_torch/csrc/flash_decode.cu",
+            "replaces": f"qwen3_tpu/ops/pallas/flash_decode.py:{source_line}",
+            "launches": counts["long"][kind],
+            "max_abs_err": flash_err[kind],
+            "ms": r["kernel_ms"] * L,
+            "plain_ms": r["plain_ms"] * L,
+            "bound_ms": r["bound_ms"] * L,
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"] * L,
         })
     return out
 
@@ -655,18 +1044,21 @@ def main() -> int:
         fail(f"the port's package is not next to this script: {e}")
     phase_build()
     rows = phase_kernels(torch)
+    flash_rows, flash_err = phase_flash_kernels(torch)
     check_sampler(torch)
     workdir = HERE / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
     try:
         path = write_checkpoint(workdir)
-        launches, _ = phase_end_to_end(torch, path)
+        counts, _ = phase_end_to_end(torch, path)
         phase_plain_path(torch, path)
+        phase_plain_depth(torch, path)
         phase_profile(torch, path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernel_report(rows, launches)}), flush=True)
+    print(json.dumps({"kernels": kernel_report(rows, flash_rows, flash_err,
+                                               counts)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

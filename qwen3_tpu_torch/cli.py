@@ -13,8 +13,8 @@ Usage:  python -m qwen3_tpu_torch.cli <checkpoint.bin> [options]
   --qmode      quantized math path (default pallas: the reference-exact
                Q8_0 x Q8_0 kernel; the other modes are not ported yet)
   --kv-dtype   float32|bfloat16|int8 KV cache dtype (default int8)
-  --attn       auto|dense|flash (default auto; flash, and auto at depth
-               >= 8192, are not ported yet and raise)
+  --attn       auto|dense|flash (default auto: dense attention below depth
+               8192, the flash kernels from there on)
   --max-tokens cap on generated tokens (completion mode)
   --device     torch device (default cuda; cpu runs the kernels' plain
                versions)

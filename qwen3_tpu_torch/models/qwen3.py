@@ -33,6 +33,10 @@ from qwen3_tpu_torch.config import ModelConfig
 from qwen3_tpu_torch.io.checkpoint import Q8Weights, load_checkpoint
 from qwen3_tpu_torch.ops.activations import swiglu
 from qwen3_tpu_torch.ops.attention import gqa_attention, gqa_attention_per_slot
+from qwen3_tpu_torch.ops.cuda.flash_decode import (
+    flash_decode_gqa,
+    flash_prefill_gqa,
+)
 from qwen3_tpu_torch.ops.cuda.q8_matmul import (
     q8_q8_matmul_stacked,
     q8_q8_matmul_tiled,
@@ -48,8 +52,12 @@ MODES = ("pallas",)
 _FUSED = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3")}
 _LAYER_MATS = ("wqkv", "wo", "w13", "w2")
 
-# forward / decode_forward calls, for checking launch counts against them
-CALLS = {"forward": 0, "decode_forward": 0}
+ATTN = ("dense", "flash")
+
+# forward / decode_forward calls, and those of them that ran flash attention,
+# for checking launch counts against them
+CALLS = {"forward": 0, "decode_forward": 0, "forward_flash": 0,
+         "decode_forward_flash": 0}
 
 
 def resolve_device(device) -> torch.device:
@@ -181,11 +189,9 @@ def _linear(p: Params, cfg: ModelConfig, x: torch.Tensor, name: str,
 
 
 def _check_attn(attn: str) -> None:
-    if attn != "dense":
+    if attn not in ATTN:
         raise NotImplementedError(
-            f"attn={attn!r} is not ported yet: the flash attention kernels "
-            f"(qwen3_tpu/ops/pallas/flash_decode.py) come with the next "
-            f"slice; depth >= 8192 under --attn auto needs them")
+            f"attn={attn!r} is not ported yet (the port runs {ATTN})")
 
 
 def _layer(p: Params, cfg: ModelConfig, x: torch.Tensor, l: int, cos, sin,
@@ -223,6 +229,10 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
     to return when `all_logits` is False (default: the last). The block
     must fit the cache: rows start_pos .. start_pos + T - 1 are written.
 
+    `attn="flash"` runs the flash kernels (qwen3_tpu's forward_impl
+    routing): flash decode for T == 1, with the position broadcast over B,
+    and flash prefill for T > 1.
+
     Returns (logits [B, T, V] or [B, 1, V], k_cache, v_cache)."""
     check_mode(mode)
     _check_attn(attn)
@@ -239,6 +249,12 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
     cos = p["rope_cos"][rp][:, None, :]                     # [T, 1, half]
     sin = p["rope_sin"][rp][:, None, :]
     rows = slice(start_pos, start_pos + T)
+    live = start_pos + T
+    if attn == "flash":
+        CALLS["forward_flash"] += 1
+        pos32 = positions.to(torch.int32)
+        if T == 1:
+            pos32 = pos32.expand(B).contiguous()
 
     def write_kv(l, k, v):
         k_enc, k_es = kvc.encode_block(k_vals, k)
@@ -250,10 +266,17 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
             v_sc[l, :, rows] = v_es
 
     def attend(l, q):
-        return gqa_attention(q, k_vals[l], v_vals[l], positions,
-                             None if k_sc is None else k_sc[l],
-                             None if v_sc is None else v_sc[l],
-                             live=start_pos + T)
+        # layer l's cache as the contiguous views k_vals[l] / k_sc[l]
+        ks = None if k_sc is None else k_sc[l]
+        vs = None if v_sc is None else v_sc[l]
+        if attn == "flash" and T == 1:
+            return flash_decode_gqa(q[:, 0], k_vals[l], v_vals[l], pos32, ks,
+                                    vs, live=live)[:, None]
+        if attn == "flash":
+            return flash_prefill_gqa(q, k_vals[l], v_vals[l], pos32, ks, vs,
+                                     live=live)
+        return gqa_attention(q, k_vals[l], v_vals[l], positions, ks, vs,
+                             live=live)
 
     for l in range(cfg.n_layers):
         x = _layer(p, cfg, x, l, cos, sin, write_kv, attend)
@@ -273,7 +296,8 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     tokens: [B] int, positions: [B] int (each stream at its own absolute
     position, already clamped into the cache by the caller). Each slot's
     K/V row is written at its own position. `live` (host int, optional) is
-    max(positions) + 1.
+    max(positions) + 1. `attn="flash"` runs the flash decode kernel at the
+    per-slot positions (qwen3_tpu's decode_forward_impl without `side`).
 
     Returns (logits [B, V], k_cache, v_cache)."""
     check_mode(mode)
@@ -289,6 +313,9 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     slots = torch.arange(B, device=x.device)
     if live is None:
         live = int(positions.max()) + 1
+    if attn == "flash":
+        CALLS["decode_forward_flash"] += 1
+        pos32 = positions.to(torch.int32).contiguous()
 
     def write_kv(l, k, v):
         k_enc, k_es = kvc.encode_block(k_vals, k[:, 0])
@@ -300,10 +327,13 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
             v_sc[l, slots, positions] = v_es
 
     def attend(l, q):
-        return gqa_attention_per_slot(
-            q[:, 0], k_vals[l], v_vals[l], positions,
-            None if k_sc is None else k_sc[l],
-            None if v_sc is None else v_sc[l], live=live)[:, None]
+        ks = None if k_sc is None else k_sc[l]
+        vs = None if v_sc is None else v_sc[l]
+        if attn == "flash":
+            return flash_decode_gqa(q[:, 0], k_vals[l], v_vals[l], pos32, ks,
+                                    vs, live=live)[:, None]
+        return gqa_attention_per_slot(q[:, 0], k_vals[l], v_vals[l],
+                                      positions, ks, vs, live=live)[:, None]
 
     for l in range(cfg.n_layers):
         x = _layer(p, cfg, x, l, cos, sin, write_kv, attend)

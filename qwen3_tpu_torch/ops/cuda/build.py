@@ -27,11 +27,14 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no a*b+c contraction anywhere, so fp32 sums round as written
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: pointers and the stream as c_void_p, every int as c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures: pointers and the stream as c_void_p, every int as c_int,
+# every float as c_float
 SIGNATURES = {
     "q8q8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "q8q8_matmul_stacked": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "flash_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "flash_prefill": [_P] * 7 + [_I] * 8 + [_F, _P],
 }
 
 _lib = None

@@ -1,0 +1,301 @@
+"""Flash GQA attention over the KV cache: the CUDA kernels' wrappers and their
+plain versions.
+
+Replaces qwen3_tpu/ops/pallas/flash_decode.py::flash_decode_gqa (one token
+per slot, the decode step at depth) and ::flash_prefill_gqa (a block of query
+rows, the prefill at depth). The kernels are `csrc/flash_decode.cu`; see its
+header for the design and the bound.
+
+Layouts are the JAX functions' own:
+  q        [B, H, D] (decode) or [B, T, H, D] (prefill), any float dtype
+  k/v      [B, S, KV, D] float32, bfloat16 or int8
+  k_s/v_s  optional float32 scales [B, S, KV] (int8 caches)
+  -> float32 [B, H, D] / [B, T, H, D]
+Query head h reads kv head h // (H // KV); slot b (decode) attends cache rows
+0..positions[b], query row t (prefill) rows 0..q_positions[t].
+
+Three parts of the TPU functions have no counterpart here, because they exist
+for Mosaic, the TPU's kernel compiler, and not for the function:
+- the [B, KV, S] transpose of the scales (`swapaxes`): Mosaic wants the tile
+  axis of a block on its lanes; the kernels read [B, S, KV] in place;
+- the int8 `ValueError` of `_pick_ts` (a row count with no 128-multiple tile
+  does not lower there); `runtime/kvcache.py::pad_rows` keeps the engine's
+  row counts at multiples of 256 anyway, so `ts` is 256 on its path;
+- the BlockSpec index clamping (a past tile maps to an already-fetched block
+  so that Mosaic skips its copy); the kernels simply never read past tiles.
+
+`live` (host int, optional) is max(positions) + 1, as for the dense
+functions in ops/attention.py: it bounds the tile loop of the plain versions
+and the grid of the decode kernel without a read back from the device.
+
+A wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises. `LAUNCHES` counts kernel launches,
+one per call that reaches the kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from qwen3_tpu_torch.ops.q8 import const
+
+LAUNCHES = {"flash_decode": 0, "flash_prefill": 0}
+
+_NEG = torch.finfo(torch.float32).min   # the JAX kernels' mask value
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+MAX_HEAD_DIM = 128        # the kernels hold a row's outputs in registers
+MAX_SCORE_ROWS = 128      # prefill: query rows x heads of a block
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def pick_ts(S: int, block_s: int) -> int:
+    """The S-tile: min(block_s, S), halved until it divides S
+    (qwen3_tpu/ops/pallas/flash_decode.py::_pick_ts without the int8
+    lowering guard). flash_prefill_gqa picks its query tile of T rows by
+    the same rule from block_t."""
+    ts = min(block_s, S)
+    while S % ts:
+        ts //= 2
+    return ts
+
+
+def _n_tiles(S: int, ts: int, live: int | None) -> int:
+    if live is None:
+        return S // ts
+    return min(S // ts, -(-max(1, live) // ts))
+
+
+def _accum_tile(qf, kt, vt, kst, vst, mask, active, acc, m, l, inv):
+    """One online-softmax update over a cache tile, in the TPU kernel's
+    arithmetic (flash_decode.py::_accum_tile). qf [B, KV, R, D] fp32 query
+    rows; kt/vt [B, ts, KV, D] raw cache rows; kst/vst [B, ts, KV] or None;
+    mask broadcasts to [B, KV, R, ts]; `active` to [B, KV, R, 1] (False:
+    the tile lies past the rows' last position and is skipped)."""
+    kf = kt.float().transpose(1, 2)                       # [B, KV, ts, D]
+    vf = vt.float().transpose(1, 2)
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * inv    # [B, KV, R, ts]
+    if kst is not None:
+        scores = scores * kst.transpose(1, 2)[:, :, None, :]
+    scores = torch.where(mask, scores, _NEG)
+    m_new = torch.maximum(m, torch.amax(scores, dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new) * mask.float()
+    pv = p if vst is None else p * vst.transpose(1, 2)[:, :, None, :]
+    acc_new = acc * alpha + torch.matmul(pv, vf)
+    l_new = l * alpha + torch.sum(p, dim=-1, keepdim=True)
+    return (torch.where(active, acc_new, acc), torch.where(active, m_new, m),
+            torch.where(active, l_new, l))
+
+
+def _online_softmax(qf, k_cache, v_cache, k_s, v_s, ts, n_tiles, mask_of,
+                    active_of):
+    """Walk the cache tile by tile, in order; returns acc / l."""
+    B, KV, R, D = qf.shape
+    inv = const(1.0 / math.sqrt(D), qf)
+    acc = torch.zeros(B, KV, R, D, dtype=torch.float32, device=qf.device)
+    m = torch.full((B, KV, R, 1), _NEG, dtype=torch.float32,
+                   device=qf.device)
+    l = torch.zeros(B, KV, R, 1, dtype=torch.float32, device=qf.device)
+    for s in range(n_tiles):
+        rows = slice(s * ts, (s + 1) * ts)
+        acc, m, l = _accum_tile(
+            qf, k_cache[:, rows], v_cache[:, rows],
+            None if k_s is None else k_s[:, rows],
+            None if v_s is None else v_s[:, rows],
+            mask_of(s), active_of(s), acc, m, l, inv)
+    return acc / l
+
+
+def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, positions: torch.Tensor,
+                       k_s=None, v_s=None, block_s: int = 256, *,
+                       live: int | None = None) -> torch.Tensor:
+    """The kernel's function in PyTorch, in the TPU kernel's arithmetic:
+    S-tiles of `ts` rows in order, a tile past a slot's position skipped,
+    per tile scores = (q . k) * (1/sqrt(D)), then times the K scale,
+    masked to f32.min, the running max and rescale, p = exp(scores - m) *
+    mask, acc = acc * alpha + (p * v_scale) @ v, l = l * alpha + sum(p);
+    the output is acc / l."""
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    ts = pick_ts(S, block_s)
+    qf = q.float().reshape(B, KV, H // KV, D)
+    pos = positions.reshape(B)
+    span = torch.arange(ts, device=q.device)
+
+    def mask_of(s):
+        return ((s * ts + span)[None, :] <= pos[:, None])[:, None, None, :]
+
+    def active_of(s):
+        return (s * ts <= pos)[:, None, None, None]
+
+    out = _online_softmax(qf, k_cache, v_cache, k_s, v_s, ts,
+                          _n_tiles(S, ts, live), mask_of, active_of)
+    return out.reshape(B, H, D)
+
+
+def flash_prefill_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, q_positions: torch.Tensor,
+                        k_s=None, v_s=None, block_s: int = 256,
+                        block_t: int = 64, *,
+                        live: int | None = None) -> torch.Tensor:
+    """Block-causal prefill in the TPU kernel's arithmetic (see
+    flash_decode_plain): query row t attends cache rows s <= q_positions[t];
+    the queries go in tiles of tq rows, and a cache tile past the query
+    tile's last position (`tile_last`) is skipped for that query tile."""
+    B, T, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    M = H // KV
+    ts = pick_ts(S, block_s)
+    tq = pick_ts(T, block_t)
+    # score rows ordered (t, m) per kv head: [B, KV, T * M, D]
+    qf = q.float().reshape(B, T, KV, M, D).permute(0, 2, 1, 3, 4).reshape(
+        B, KV, T * M, D)
+    qpos = q_positions.reshape(T)
+    row_pos = qpos.repeat_interleave(M)                        # [T * M]
+    tile_last = qpos.reshape(T // tq, tq)[:, -1].repeat_interleave(tq * M)
+    span = torch.arange(ts, device=q.device)
+
+    def mask_of(s):
+        return ((s * ts + span)[None, :] <= row_pos[:, None])[None, None]
+
+    def active_of(s):
+        return (s * ts <= tile_last)[None, None, :, None]
+
+    out = _online_softmax(qf, k_cache, v_cache, k_s, v_s, ts,
+                          _n_tiles(S, ts, live), mask_of, active_of)
+    return out.reshape(B, KV, T, M, D).permute(0, 2, 1, 3, 4).reshape(
+        B, T, H, D)
+
+
+def _check(q, k_cache, v_cache, positions, k_s, v_s, n_pos):
+    """What the kernels take: CUDA tensors on one device, contiguous,
+    K/V of one dtype among float32/bfloat16/int8, scales both or neither."""
+    *_, H, D = q.shape
+    B, S, KV, Dk = k_cache.shape
+    if Dk != D or tuple(v_cache.shape) != (B, S, KV, D) or H % KV:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
+    if D < 16 or D > MAX_HEAD_DIM or D & (D - 1):
+        raise ValueError(f"head_dim {D} not supported (a power of two from "
+                         f"16 to {MAX_HEAD_DIM})")
+    if k_cache.dtype not in _DTYPE_CODES or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"K/V must share one of {list(_DTYPE_CODES)}, got "
+                        f"{k_cache.dtype} and {v_cache.dtype}")
+    if (k_s is None) != (v_s is None):
+        raise ValueError("pass both scales or neither")
+    tensors = [("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+               ("positions", positions)]
+    if k_s is not None:
+        tensors += [("k_s", k_s), ("v_s", v_s)]
+        for name, t in (("k_s", k_s), ("v_s", v_s)):
+            if t.dtype != torch.float32 or tuple(t.shape) != (B, S, KV):
+                raise ValueError(f"{name} must be float32 {(B, S, KV)}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+    if positions.dtype != torch.int32 or positions.numel() != n_pos:
+        raise ValueError(f"positions must be int32 with {n_pos} entries")
+    for name, t in tensors:
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_decode(q, k_cache, v_cache, positions, k_s, v_s, block_s, live):
+    from qwen3_tpu_torch.ops.cuda.build import load_library
+
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    M = H // KV
+    q = q.float().contiguous()
+    positions = positions.to(torch.int32).reshape(B).contiguous()
+    _check(q, k_cache, v_cache, positions, k_s, v_s, B)
+    ts = pick_ts(S, block_s)
+    n_split = _n_tiles(S, ts, live)
+    lib = load_library()
+    part_acc = torch.empty(B, KV, n_split, M, D, dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty(B, KV, n_split, M, 2, dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty(B, H, D, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_decode(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_s),
+        _ptr(v_s), positions.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), out.data_ptr(), _DTYPE_CODES[k_cache.dtype], B,
+        S, H, KV, D, ts, n_split, 1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def _launch_prefill(q, k_cache, v_cache, q_positions, k_s, v_s, block_t):
+    from qwen3_tpu_torch.ops.cuda.build import load_library
+
+    B, T, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    M = H // KV
+    if M > MAX_SCORE_ROWS:
+        raise ValueError(f"{M} query heads per kv head; at most "
+                         f"{MAX_SCORE_ROWS}")
+    q = q.float().contiguous()
+    q_positions = q_positions.to(torch.int32).reshape(T).contiguous()
+    _check(q, k_cache, v_cache, q_positions, k_s, v_s, T)
+    # a block holds tq * M score rows; a finer query tile than flash_prefill_
+    # gqa's skips more past tiles and changes no value
+    tq = pick_ts(T, block_t)
+    while tq * M > MAX_SCORE_ROWS:
+        tq //= 2
+    lib = load_library()
+    out = torch.empty(B, T, H, D, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_prefill(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_s),
+        _ptr(v_s), q_positions.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[k_cache.dtype], B, T, S, H, KV, D, tq,
+        1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["flash_prefill"] += 1
+    return out
+
+
+def flash_decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, positions: torch.Tensor,
+                     k_s=None, v_s=None, block_s: int = 256, *,
+                     live: int | None = None) -> torch.Tensor:
+    """Single-token GQA attention per slot: q [B, H, D], k/v_cache
+    [B, S, KV, D], positions [B]; returns [B, H, D] fp32."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, positions, k_s, v_s,
+                                  block_s, live=live)
+    return _launch_decode(q, k_cache, v_cache, positions, k_s, v_s, block_s,
+                          live)
+
+
+def flash_prefill_gqa(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, q_positions: torch.Tensor,
+                      k_s=None, v_s=None, block_s: int = 256,
+                      block_t: int = 64, *,
+                      live: int | None = None) -> torch.Tensor:
+    """Block-causal GQA prefill attention: q [B, T, H, D], q_positions [T]
+    (absolute, increasing); returns [B, T, H, D] fp32. The kernel reads each
+    query tile's last position itself, so it takes no `live`."""
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k_cache, v_cache, q_positions, k_s,
+                                   v_s, block_s, block_t, live=live)
+    return _launch_prefill(q, k_cache, v_cache, q_positions, k_s, v_s,
+                           block_t)

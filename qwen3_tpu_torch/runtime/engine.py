@@ -55,7 +55,7 @@ class EngineConfig:
     top_p: float = 0.9
     seq_len: int = 0               # 0 -> min(checkpoint max, 32768) like the CLI
     mode: str = "pallas"           # the only quantized math path ported
-    attn: str = "auto"             # "auto" | "dense" | "flash" (not ported yet)
+    attn: str = "auto"             # "auto" | "dense" | "flash"
     kv_dtype: str = "float32"      # "float32" | "bfloat16" | "int8"
     prefill_chunk: int = 64
     decode_chunk: int = 32         # tokens generated per decode chunk
@@ -81,10 +81,8 @@ def _not_ported(cfg: EngineConfig) -> None:
     check_mode(cfg.mode)
     if cfg.tp != 1:
         raise NotImplementedError("tp > 1 is not ported yet")
-    if cfg.attn not in ("auto", "dense"):
-        raise NotImplementedError(
-            f"attn={cfg.attn!r} is not ported yet (flash attention comes "
-            f"with the next slice)")
+    if cfg.attn not in ("auto", "dense", "flash"):
+        raise NotImplementedError(f"attn={cfg.attn!r} is not ported yet")
 
 
 class Engine:
@@ -118,9 +116,10 @@ class Engine:
 
     def _attn_for(self, depth: int) -> str:
         """Resolve attn="auto" per dispatch from the actual attention depth:
-        flash at depth >= 8192, dense below (the JAX engine's rule). The
-        flash kernels are not ported yet, so the forward refuses "flash"
-        rather than run dense attention in its place."""
+        flash at depth >= 8192, dense below (the JAX engine's rule). A
+        prefill block is decided by its start, a decode chunk by the depth
+        at its first step, so a chunk that starts at 8190 runs dense for all
+        its steps."""
         if self.cfg.attn != "auto":
             return self.cfg.attn
         return "flash" if depth >= FLASH_DEPTH else "dense"

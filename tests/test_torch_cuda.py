@@ -6,9 +6,10 @@ it runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The kernels are bit-equal to their plain versions: the group dots are exact
-integers and the fp32 scale-and-sum rounds every product and every sum in the
-same order in both (see qwen3_tpu_torch/csrc/q8_matmul.cu).
+The matmul kernels are bit-equal to their plain versions: the group dots are
+exact integers and the fp32 scale-and-sum rounds every product and every sum
+in the same order in both (see qwen3_tpu_torch/csrc/q8_matmul.cu). The flash
+kernels sum in another order than theirs and are held to 2e-5.
 """
 
 import numpy as np
@@ -60,11 +61,101 @@ def test_kernel_matches_plain_on_card(dev, b, n, g):
     assert torch.equal(got, want)
 
 
-def test_forward_on_card_matches_cpu(dev, tmp_path):
+def _flash_cache(seed, b, s, kv, d, dtype, dev):
+    """(k, v, k_s, v_s) on the card from numpy; int8 with per-row scales."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        f = rng.standard_normal((b, s, kv, d)).astype(np.float32)
+        if dtype == "int8":
+            sc = (np.abs(f).max(axis=-1) / 127.0 + 1e-6).astype(np.float32)
+            q = np.clip(np.round(f / sc[..., None]), -127, 127)
+            out.append((torch.from_numpy(q.astype(np.int8)).to(dev),
+                        torch.from_numpy(sc).to(dev)))
+        else:
+            out.append((torch.from_numpy(f).to(getattr(torch, dtype)).to(dev),
+                        None))
+    (k, ks), (v, vs) = out
+    return k, v, ks, vs
+
+
+def _flash_close(got, want):
+    """The flash tolerance of the JAX package's own tests, 2e-5, scaled by
+    max(1, max|plain|): the kernels sum in another order than the plain
+    versions (split tiles, fmaf)."""
+    assert torch.isfinite(got).all()
+    tol = 2e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("h,kv,d", [(4, 2, 64), (16, 8, 128), (16, 2, 128)])
+def test_flash_decode_matches_plain_on_card(dev, dtype, h, kv, d):
+    """Slots at the tile edges (0, ts-1, ts, S-1 and between), with and
+    without `live`, one launch counted per call."""
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    b, s = 3, 512
+    k, v, ks, vs = _flash_cache(h + d, b, s, kv, d, dtype, dev)
+    q = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (b, h, d)).astype(np.float32)).to(dev)
+    for pos_set in ([0, 255, 256], [511, 5, 300]):
+        pos = torch.tensor(pos_set, dtype=torch.int32, device=dev)
+        want = fd.flash_decode_plain(q, k, v, pos, ks, vs)
+        for live in (None, max(pos_set) + 1):
+            fd.reset_launches()
+            got = fd.flash_decode_gqa(q, k, v, pos, ks, vs, live=live)
+            torch.cuda.synchronize()
+            assert fd.LAUNCHES == {"flash_decode": 1, "flash_prefill": 0}
+            _flash_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("h,kv,d,t,block_t", [(4, 2, 64, 32, 16),
+                                              (16, 8, 128, 64, 64),
+                                              (8, 2, 128, 128, 64)])
+def test_flash_prefill_matches_plain_on_card(dev, dtype, h, kv, d, t,
+                                             block_t):
+    """Blocks that start at 0, across a tile boundary and at the end of the
+    cache; (8, 2) has 4 heads per kv head, so the kernel's query tile halves
+    to 32 rows."""
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    b, s = 2, 512
+    k, v, ks, vs = _flash_cache(h + d + t, b, s, kv, d, dtype, dev)
+    q = torch.from_numpy(np.random.default_rng(t).standard_normal(
+        (b, t, h, d)).astype(np.float32)).to(dev)
+    for start in (0, 256 - t // 2, s - t):
+        qpos = torch.arange(start, start + t, dtype=torch.int32, device=dev)
+        want = fd.flash_prefill_plain(q, k, v, qpos, ks, vs, block_t=block_t)
+        fd.reset_launches()
+        got = fd.flash_prefill_gqa(q, k, v, qpos, ks, vs, block_t=block_t)
+        torch.cuda.synchronize()
+        assert fd.LAUNCHES == {"flash_decode": 0, "flash_prefill": 1}
+        _flash_close(got, want)
+
+
+def test_flash_refuses_what_the_kernel_does_not_take(dev):
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    k, v, ks, vs = _flash_cache(0, 1, 256, 2, 64, "int8", dev)
+    q = torch.zeros(1, 4, 64, device=dev)
+    pos = torch.tensor([3], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="both scales"):
+        fd.flash_decode_gqa(q, k, v, pos, ks, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.flash_decode_gqa(q, k.transpose(1, 2).contiguous().transpose(
+            1, 2), v, pos, ks, vs)
+    with pytest.raises(ValueError, match="on "):
+        fd.flash_decode_gqa(q, k.cpu(), v, pos, ks, vs)
+
+
+@pytest.mark.parametrize("attn", ["dense", "flash"])
+def test_forward_on_card_matches_cpu(dev, tmp_path, attn):
     """A `tiny` model's prefill and decode logits on the card against the
-    same model on the CPU (plain versions): the kernels are bit-equal to
-    their plain versions; the other ops (rsqrt, exp, the attention
-    einsums) may differ by ulps between the devices, hence 1e-4."""
+    same model on the CPU (plain versions): the matmul kernels are
+    bit-equal to their plain versions; the other ops (rsqrt, exp, the
+    attention) may differ by ulps between the devices, hence 1e-4."""
     from qwen3_tpu_torch.config import PRESETS
     from qwen3_tpu_torch.io.synthetic import synthetic_weights
     from qwen3_tpu_torch.models import qwen3 as model
@@ -77,10 +168,10 @@ def test_forward_on_card_matches_cpu(dev, tmp_path):
         p = model.init_params(w, max_seq_len=64, device=device)
         k, v = model.init_kv_cache(cfg, 1, 64, "int8", device)
         pre, k, v = model.forward(p, cfg, torch.from_numpy(toks).to(device),
-                                  k, v, 0, all_logits=True)
+                                  k, v, 0, all_logits=True, attn=attn)
         dec, k, v = model.decode_forward(
             p, cfg, torch.tensor([7], device=device), k, v,
-            torch.tensor([16], device=device))
+            torch.tensor([16], device=device), attn=attn)
         outs.append((pre.cpu(), dec.cpu()))
     for got, want in zip(*outs):
         assert torch.isfinite(got).all()
