@@ -13,25 +13,34 @@ final line:
    versions; TF32 off;
 2. build: nvcc builds the kernels from qwen3_tpu_torch/csrc/;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   Qwen3-0.6B's main-path shapes (b = 1, 64, 256, 512), bit for bit, with device
-   times (CUDA events, median of 20 runs after warm-up), the bound and a
-   library yardstick; then the sampler on the card against its CPU run at
-   the vocabulary of qwen3-0.6b (see check_sampler);
+   Qwen3-0.6B's main-path shapes, with device times (CUDA events, median of
+   20 runs after warm-up), the bound and a library yardstick: the Q8_0 x
+   Q8_0 matmuls (b = 1, 64, 256, 512) and the pallas-fast matmuls (b = 1,
+   8, 64, 128, 512) bit for bit, the latter also across batch sizes; the
+   flash kernels, batched decode (B = 8 and 64) and two-segment flash
+   within their tolerances; then the sampler on the card against its CPU
+   run at the vocabulary of qwen3-0.6b (see check_sampler);
 4. end to end: a synthetic qwen3-0.6b checkpoint (full width and depth,
    random weights from a seed) through the port's CLI main() with its
    defaults (--qmode pallas --kv-dtype int8 --attn auto --device cuda):
    greedy completion, a seeded completion twice (equal stdout), two chat
-   turns; after each run the kernels' launch counts must equal what its
-   forward passes need;
-5. the path against its plain version: one 64-token prefill block on the
-   card and on the CPU (plain versions), step by step with the card's
+   turns, then past depth 8192; then the serving path through serve.main()
+   with its defaults (--qmode pallas-fast --kv-dtype int8 --attn auto
+   --batch 8 -c 1024), greedy and seeded twice (equal records), --batch 64
+   -c 512, --batch 1 -c 32768 at depth, a BatchedChat, and batch
+   invariance (see phase_serving); after each run the kernels' launch
+   counts must equal what its forward passes need;
+5. the path against its plain version, step by step with the card's
    rounding decisions forced on the CPU (every op within 1e-5 of its max,
-   every rounding step bit for bit, logits and argmax), and free-running
-   within twice the CPU path's own spread under a one-ulp nudge of its
-   input (see phase_plain_path);
+   every rounding step bit for bit, logits and argmax): a 64-token prefill
+   block (and free-running within twice the CPU path's own spread under a
+   one-ulp nudge of its input, see phase_plain_path), the flash block and
+   step at depth 8192, and one serving decode step at B = 8 (see
+   phase_serving_plain);
 6. profile: torch.profiler over a warm greedy completion (one prefill
-   block, 64 decode steps): device time by kernel and the device's idle
-   share.
+   block, 64 decode steps) and over one 32-step serving chunk at B = 8
+   (-c 1024) and at B = 64 (-c 512):
+   device time by kernel, kernels per step and the device's idle share.
 
 The last two lines are a JSON object of per-kernel numbers and
 {"ok": true, "device": {...}}.
@@ -66,6 +75,7 @@ BATCHES = (1, 64, 256, 512)    # decode, and the prefill ladder's blocks
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (data sheet)
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 peak outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 # flash attention at qwen3-0.6b's shape, in the CLI's default 32768-row cache
 FLASH_H, FLASH_KV, FLASH_D, FLASH_S = 16, 8, 128, 32768
 FLASH_DEPTHS = (0, 255, 256, 8191, 16384, 32767)   # decode positions
@@ -224,16 +234,20 @@ def phase_kernels(torch):
     return rows
 
 
-def flash_bound_ms(q_rows, rows_read, score_pairs):
-    """The least time for one flash launch: the bytes it must move (the
-    queries and the output in f32, the int8 K/V values and their f32 scales
-    of the rows it reads, once each) over the memory rate, or its fp32
-    operations (2 for q . k and 2 for p v per score pair and head dim) over
-    the fp32 peak."""
-    nbytes = 2 * 4 * q_rows * FLASH_H * FLASH_D + \
+def attn_bound_ms(q_rows, rows_read, score_pairs, fast=False, outputs=None):
+    """The least time for one attention launch: the bytes it must move (the
+    f32 queries, the int8 K/V values and f32 scales of the rows it reads,
+    once each, and `outputs` f32 values, by default one a query value) over
+    the memory rate, or its operations (2 for q . k and 2 for p v per score
+    pair and head dim) over the peak of the dots' type (bf16 when `fast`,
+    else fp32 outside the tensor cores)."""
+    if outputs is None:
+        outputs = q_rows * FLASH_H * FLASH_D
+    nbytes = 4 * q_rows * FLASH_H * FLASH_D + 4 * outputs + \
         2 * rows_read * FLASH_KV * (FLASH_D + 4)
     ops = 4 * score_pairs * FLASH_H * FLASH_D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    peak = BF16_OPS_PER_S if fast else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -372,7 +386,7 @@ def phase_flash_kernels(torch):
         lib = library(0)
         lib = lib[:, :, 0] if kind == "flash_decode" else lib.transpose(1, 2)
         lib_diff = (lib - got).abs().max().item()
-        bnd, by = flash_bound_ms(t, n, pairs)
+        bnd, by = attn_bound_ms(t, n, pairs)
         row = dict(kernel=kind, depth=depth, T=t, rows_read=n,
                    kernel_ms=device_ms(torch, kernel),
                    plain_ms=device_ms(torch, plain),
@@ -388,6 +402,330 @@ def phase_flash_kernels(torch):
         "scale per row; timed here, never called by the port")
     del k, v, ks, vs
     torch.cuda.empty_cache()
+    return rows, err
+
+
+FAST_BATCHES = (1, 8, 64, 128, 512)  # decode at B = 1 and 8, B = 64, the
+                                     # 128-row admission block, a wide one
+# batched decode partials: (slots, bucket), the serving engine's cache rows
+# for -c 1024 and -c 512 (+ 32 side rows, padded to 128)
+BATCHED_CASES = ((8, 1152), (64, 640))
+SIDE_C = 32                    # the serving decode chunk
+TWO_SEG_BASES = (0, 8192, 32736)
+TWO_SEG_ROWS = 33024           # -c 32768 + 32, padded to 256
+
+
+def fast_bound_ms(b, n, d):
+    """The least time for a fast matmul: the int8 weights and their f32
+    scales, the bf16 activations read once and the f32 output written once,
+    over the memory rate; or its operations on bf16 operands over the bf16
+    peak."""
+    nbytes = d * n + 4 * d * (n // G) + 2 * b * n + 4 * b * d
+    ops = 2 * b * n * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def value_tol(want, mag, fast):
+    """The batched decode kernel's tolerance for acc against its plain
+    version, per element: 2e-5 * max(1, max|plain|) for the fp32 sums in
+    another order, plus under `fast` 2^-8 * mag, mag = sum_s p_s * |v_s *
+    vs_s| of that element (batched_decode_magnitude). Under `fast` the value
+    dot's operand p * vs is rounded to bf16, by at most 2^-8 of itself; the
+    kernel's p is relative to the running max of its 64-row chunks, the
+    plain version's to that of the Pallas kernel's tiles, so the two round
+    each term independently. Their gap could reach 2^-7 * mag only if every
+    term's two roundings fell at opposite extremes; 2^-8 * mag is half
+    that. A slot of at most 64 rows has one frame in both, and no gap."""
+    tol = 2e-5 * max(1.0, want.abs().max().item())
+    return tol + 2.0 ** -8 * mag if fast else tol
+
+
+def partials_over(got, want, acc_tol):
+    """How much of their tolerances the kernel's (acc, m, l) use: {name:
+    (max_abs_diff, max of diff / tolerance)}; acc_tol a number or one per
+    element, m and l 2e-5 * max(1, max|plain|) over the slots with rows (a
+    slot without rows has m = finfo.min, which must match exactly)."""
+    out, live = {}, want[2] > 0
+    for name, a, w_ in zip(("acc", "m", "l"), got, want):
+        scale = w_[live].abs().max().item() if live.any() else 0.0
+        tol = acc_tol if name == "acc" else 2e-5 * max(1.0, scale)
+        d = (a - w_).abs()
+        out[name] = (d.max().item(), (d / tol).max().item())
+    return out
+
+
+def phase_fast_kernels(torch):
+    """The pallas-fast matmul kernels against their plain version on the
+    card at qwen3-0.6b's matrices, b in FAST_BATCHES, bit for bit; each row
+    of every b equal, bit for bit, to the same row in the b = 512 call (the
+    kernels' batch invariance); times as phase_kernels'."""
+    import torch.nn.functional as F
+
+    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    rows = []
+    for name, (n, d) in MATRICES.items():
+        stacked = name != "classifier"
+        lead = (L,) if stacked else ()
+        w_q = torch.randint(-127, 128, lead + (d, n), dtype=torch.int8,
+                            device=dev, generator=gen)
+        w_s = 0.02 / 127 * (0.5 + torch.rand(lead + (d, n // G), device=dev,
+                                             generator=gen))
+        w_bf = (w_q.float().reshape(*lead, d, n // G, G)
+                * w_s[..., None]).reshape(*lead, d, n).to(torch.bfloat16)
+        x_all = torch.randn(max(FAST_BATCHES), n, device=dev,
+                            generator=gen).to(torch.bfloat16)
+        layer = L - 1
+
+        def call(x, i=layer):
+            if stacked:
+                return qm.q8_matmul_stacked_fast(x, w_q, w_s, i % L, G)
+            return qm.q8_matmul_tiled_fast(x, w_q, w_s, G)
+
+        widest = call(x_all)
+        for b in FAST_BATCHES:
+            x = x_all[:b].contiguous()
+
+            def kernel(i, x=x):
+                return call(x, i)
+
+            def plain(i, x=x):
+                if stacked:
+                    return qm.q8_fast_matmul_plain(x, w_q[i % L], w_s[i % L],
+                                                   G)
+                return qm.q8_fast_matmul_plain(x, w_q, w_s, G)
+
+            def library(i, x=x):
+                return F.linear(x, w_bf[i % L] if stacked else w_bf)
+
+            got, want = kernel(layer), plain(layer)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                fail(f"fast {name} b={b}: non-finite kernel output")
+            err = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                fail(f"fast {name} b={b}: kernel != plain (max_abs_diff "
+                     f"{err:.3e})")
+            if not torch.equal(got, widest[:b]):
+                fail(f"fast {name} b={b}: rows differ from the same rows "
+                     f"at b={max(FAST_BATCHES)}")
+            bnd, by = fast_bound_ms(b, n, d)
+            row = dict(matrix=name, kernel="stacked_fast" if stacked
+                       else "tiled_fast", b=b, n=n, d=d, max_abs_diff=err,
+                       kernel_ms=device_ms(torch, kernel),
+                       plain_ms=device_ms(torch, plain, reps=5),
+                       library_ms=device_ms(torch, library), bound_ms=bnd,
+                       bound_by=by)
+            rows.append(row)
+            log("fast " + json.dumps(row))
+        del w_q, w_s, w_bf
+        torch.cuda.empty_cache()
+    log(f"fast matmuls: every row bit-equal at b in {list(FAST_BATCHES)}; "
+        "library_ms = torch.nn.functional.linear on bf16 with the weights "
+        "dequantized once to bf16")
+    return rows
+
+
+def serving_cache(torch, layers, slots, rows, gen):
+    """int8 K and V [layers, slots, rows, 8, 128] through the port's KV
+    encode, with their scales."""
+    from qwen3_tpu_torch.runtime import kvcache as kvc
+
+    out = []
+    for _ in range(2):
+        x = torch.randn(layers, slots, rows, FLASH_KV, FLASH_D, device="cuda",
+                        generator=gen)
+        out.append(kvc.quantize_heads(x))
+        del x
+    (k, ks), (v, vs) = out
+    return k, v, ks, vs
+
+
+def batched_negative_checks(torch, bd, B, bucket, q, k, v, layer, lim, ks,
+                            vs, mag, want):
+    """That the batched decode check would catch a kernel without the
+    `fast` roundings. The kernel with fast=False against the plain version
+    with fast=True must fail value_tol. Then the frame-free case, q = 0:
+    every live score is 0 and every p exactly 1 in any frame, so both round
+    the same p * vs = vs and acc must agree to 2e-5 * max(1, max|plain|)
+    (fp32 sums in another order); the plain version with fast=False (no
+    rounding of p * vs) must fail that bound, and so must the kernel with
+    fast=False."""
+    def call(fn, q_, fast):
+        return fn(q_, k, v, layer, lim, ks, vs, bucket=bucket, fast=fast)
+
+    label = f"batched_decode B={B} layer {layer}"
+    unrounded = call(bd.batched_decode_partial, q, False)
+    over = partials_over(unrounded, want, value_tol(want[0], mag, True))
+    if max(used for _, used in over.values()) <= 1.0:
+        fail(f"{label}: the kernel with fast=False passes the fast check "
+             f"{over}")
+    zero = torch.zeros_like(q)
+    want0 = call(bd.batched_decode_plain, zero, True)
+    tol0 = value_tol(want0[0], None, False)
+    got0 = call(bd.batched_decode_partial, zero, True)
+    over0 = partials_over(got0, want0, tol0)
+    bad = {name: partials_over(call(fn, zero, False), want0, tol0)["acc"]
+           for name, fn in (("plain", bd.batched_decode_plain),
+                            ("kernel", bd.batched_decode_partial))}
+    torch.cuda.synchronize()
+    log(f"{label} negative checks: the kernel with fast=False against the "
+        f"fast plain version {over}; at q = 0 the fast kernel {over0}, "
+        f"acc with fast=False {bad}")
+    if max(used for _, used in over0.values()) > 1.0:
+        fail(f"{label}: at q = 0 the fast kernel differs from its plain "
+             f"version {over0}")
+    if min(used for _, used in bad.values()) <= 1.0:
+        fail(f"{label}: at q = 0 acc without the rounding of p * vs passes "
+             f"the fast check {bad}")
+
+
+def phase_batched_kernels(torch):
+    """batched_decode_partial against its plain version on the card at
+    qwen3-0.6b's attention shape, int8 K/V, fast on and off, for B = 8 over
+    a 1152-row bucket and B = 64 over 640 rows, row limits spread over the
+    bucket (and one slot at 0 rows); then the two-segment flash kernel at
+    B = 1 over a 33024-row cache at base positions 0, 8192 and 32736 with a
+    32-row side buffer. Timed a layer per run over
+    28 layers; the library yardstick is scaled_dot_product_attention
+    (enable_gqa=True) with a per-slot mask on K/V dequantized once. Held to
+    value_tol (acc, per element) and 2e-5 * max(1, max|plain|) (m, l, and
+    the two-segment output), with batched_negative_checks under `fast`."""
+    import torch.nn.functional as F
+
+    from qwen3_tpu_torch.ops.cuda import batched_decode as bd
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    rows, err = [], {"batched_decode_partial": 0.0,
+                     "flash_decode_gqa_two_segment": 0.0}
+    for B, bucket in BATCHED_CASES:
+        k, v, ks, vs = serving_cache(torch, L, B, bucket, gen)
+        q = torch.randn(B, FLASH_H, FLASH_D, device="cuda", generator=gen)
+        lim_host = [0] + [int(x) for x in torch.linspace(
+            1, bucket, B - 1).round().tolist()]
+        lim = torch.tensor(lim_host, dtype=torch.int32, device="cuda")
+        n = max(lim_host)
+        # the yardstick's K/V: each layer's rows dequantized once to f32
+        kf = (k[:, :, :n].float() * ks[:, :, :n, :, None]).transpose(2, 3)
+        vf = (v[:, :, :n].float() * vs[:, :, :n, :, None]).transpose(2, 3)
+        mask = (torch.arange(n, device="cuda")[None, :]
+                < lim[:, None])[:, None, None, :]        # [B, 1, 1, n]
+        for fast in (False, True):
+            def kernel(i, fast=fast):
+                return bd.batched_decode_partial(q, k, v, i % L, lim, ks, vs,
+                                                 bucket=bucket, fast=fast)
+
+            def plain(i, fast=fast):
+                return bd.batched_decode_plain(q, k, v, i % L, lim, ks, vs,
+                                               bucket=bucket, fast=fast)
+
+            def library(i):
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], kf[i % L], vf[i % L], attn_mask=mask,
+                    enable_gqa=True)
+
+            diff = 0.0
+            for layer in (0, L - 1):
+                got, want = kernel(layer), plain(layer)
+                torch.cuda.synchronize()
+                if not all(torch.isfinite(t).all() for t in got):
+                    fail(f"batched_decode B={B} fast={fast}: non-finite")
+                mag = bd.batched_decode_magnitude(q, k, v, layer, lim, ks,
+                                                  vs, bucket=bucket)
+                over = partials_over(got, want, value_tol(want[0], mag, fast))
+                diff = max([diff] + [d for d, _ in over.values()])
+                log(f"batched_decode B={B} fast={fast} layer {layer}: "
+                    f"(max_abs_diff, share of the tolerance) {over}")
+                for name, (d, used) in over.items():
+                    if used > 1.0:
+                        fail(f"batched_decode B={B} fast={fast} layer "
+                             f"{layer}: {name} differs by {d:.3e}, "
+                             f"{used:.2f} times its tolerance")
+                if fast:
+                    batched_negative_checks(torch, bd, B, bucket, q, k, v,
+                                            layer, lim, ks, vs, mag, want)
+            err["batched_decode_partial"] = max(
+                err["batched_decode_partial"], diff)
+            read = sum(lim_host)
+            bnd, by = attn_bound_ms(B, read, read, fast,
+                                    B * FLASH_H * (FLASH_D + 2))
+            row = dict(kernel="batched_decode_partial", B=B, bucket=bucket,
+                       fast=fast, rows_read=read, max_abs_diff=diff,
+                       kernel_ms=device_ms(torch, kernel),
+                       plain_ms=device_ms(torch, plain, reps=5),
+                       library_ms=device_ms(torch, library), bound_ms=bnd,
+                       bound_by=by)
+            rows.append(row)
+            log("batched " + json.dumps(row))
+        del k, v, ks, vs, kf, vf
+        torch.cuda.empty_cache()
+
+    k, v, ks, vs = serving_cache(torch, L, 1, TWO_SEG_ROWS, gen)
+    sk, sv, sks, svs = serving_cache(torch, L, 1, SIDE_C, gen)
+    for base in TWO_SEG_BASES:
+        off = SIDE_C - 1 - base % 7
+        q = torch.randn(1, FLASH_H, FLASH_D, device="cuda", generator=gen)
+        bt = torch.tensor([base], dtype=torch.int32, device="cuda")
+        ot = torch.tensor([off], dtype=torch.int32, device="cuda")
+        live = base
+
+        def kernel(i, q=q, bt=bt, ot=ot, live=live):
+            return fd.flash_decode_gqa_two_segment(
+                q, k[i % L], v[i % L], sk[i % L], sv[i % L], bt, ot,
+                ks[i % L], vs[i % L], sks[i % L], svs[i % L], live=live)
+
+        def plain(i, q=q, bt=bt, ot=ot, live=live):
+            return fd.flash_decode_two_segment_plain(
+                q, k[i % L], v[i % L], sk[i % L], sv[i % L], bt, ot,
+                ks[i % L], vs[i % L], sks[i % L], svs[i % L], live=live)
+
+        # the yardstick's K/V: main rows < base then side rows <= off,
+        # dequantized once to f32, heads first
+        def deq(a, s, stop):
+            return (a[:, 0, :stop].float() * s[:, 0, :stop, :, None])
+
+        kf = torch.cat([deq(k, ks, base), deq(sk, sks, off + 1)],
+                       dim=1).transpose(1, 2)
+        vf = torch.cat([deq(v, vs, base), deq(sv, svs, off + 1)],
+                       dim=1).transpose(1, 2)
+
+        def library(i, q=q, kf=kf, vf=vf):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kf[i % L][None], vf[i % L][None],
+                enable_gqa=True)
+
+        got, want = kernel(0), plain(0)
+        torch.cuda.synchronize()
+        diff = (got - want).abs().max().item()
+        tol = 2e-5 * max(1.0, want.abs().max().item())
+        if not torch.isfinite(got).all() or diff > tol:
+            fail(f"two-segment flash at base {base}: max_abs_diff "
+                 f"{diff:.3e} > {tol:.3e}")
+        err["flash_decode_gqa_two_segment"] = max(
+            err["flash_decode_gqa_two_segment"], diff)
+        read = base + off + 1
+        bnd, by = attn_bound_ms(1, read, read)
+        row = dict(kernel="flash_decode_gqa_two_segment", base=base,
+                   offset=off, rows_read=read, max_abs_diff=diff,
+                   kernel_ms=device_ms(torch, kernel),
+                   plain_ms=device_ms(torch, plain, reps=5),
+                   library_ms=device_ms(torch, library), bound_ms=bnd,
+                   bound_by=by)
+        rows.append(row)
+        log("two_segment " + json.dumps(row))
+        del kf, vf
+    del k, v, ks, vs, sk, sv, sks, svs
+    torch.cuda.empty_cache()
+    log("batched/two-segment library_ms = scaled_dot_product_attention("
+        "enable_gqa=True, a per-slot row mask) on K/V dequantized once to "
+        "f32; timed here, never called by the port")
     return rows, err
 
 
@@ -510,57 +848,80 @@ def run_cli(argv, stdin_text=""):
     return out.getvalue(), err.getvalue()
 
 
-def checked_run(torch, label, argv, stdin_text=""):
-    """One CLI run with the launch-count check: every forward pass (prefill
-    block or decode step) launches the stacked kernel 4 x 28 times and the
-    classifier kernel once; every pass that resolved to flash attention
-    launches a flash kernel 28 times (decode steps flash decode, prefill
-    blocks flash prefill), and no other pass launches one."""
-    from qwen3_tpu_torch.models import qwen3 as model
+def launch_modules():
+    from qwen3_tpu_torch.ops.cuda import batched_decode as bd
     from qwen3_tpu_torch.ops.cuda import flash_decode as fd
     from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
 
-    before = dict(qm.LAUNCHES), dict(fd.LAUNCHES), dict(model.CALLS)
+    return qm, fd, bd
+
+
+def want_launches(calls):
+    """What the forward passes counted in `calls` (models.qwen3.CALLS
+    deltas) must launch: every pass 4 x 28 layer matmuls and 1 classifier
+    matmul of its mode's kernels; every pass that resolved to a kernel
+    attention 28 launches of it (prefill blocks flash prefill; decode steps
+    flash decode, or over the serving side buffer the two-segment flash or
+    the batched decode kernel); no other pass launches an attention
+    kernel."""
+    fast = calls["forward_fast"] + calls["decode_forward_fast"]
+    exact = calls["forward"] + calls["decode_forward"] - fast
+    return {"stacked": 4 * L * exact, "tiled": exact,
+            "stacked_fast": 4 * L * fast, "tiled_fast": fast,
+            "flash_decode": L * calls["decode_forward_flash"],
+            "flash_prefill": L * calls["forward_flash"],
+            "flash_decode_two_segment":
+                L * calls["decode_forward_two_segment"],
+            "batched_decode_partial": L * calls["decode_forward_fused"]}
+
+
+def checked(torch, label, fn):
+    """Run fn() with the launch-count check (want_launches); returns
+    (fn's result, {blocks, steps, launches, calls, wall})."""
+    from qwen3_tpu_torch.models import qwen3 as model
+
+    before, calls0 = read_counts(), dict(model.CALLS)
     t0 = time.perf_counter()
-    out, err = run_cli(argv, stdin_text)
+    result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: qm.LAUNCHES[k] - before[0][k] for k in qm.LAUNCHES}
-    launches.update({k: fd.LAUNCHES[k] - before[1][k] for k in fd.LAUNCHES})
-    calls = {k: model.CALLS[k] - before[2][k] for k in model.CALLS}
+    launches = {k: c - before[k] for k, c in read_counts().items()}
+    calls = {k: model.CALLS[k] - calls0[k] for k in model.CALLS}
     blocks, steps = calls["forward"], calls["decode_forward"]
-    passes = blocks + steps
     if steps == 0 or blocks == 0:
         fail(f"{label}: no prefill block or no decode step ran")
-    want = {"stacked": 4 * L * passes, "tiled": passes,
-            "flash_decode": L * calls["decode_forward_flash"],
-            "flash_prefill": L * calls["forward_flash"]}
+    want = want_launches(calls)
     if launches != want:
-        fail(f"{label}: launches {launches} for {blocks} prefill blocks and "
-             f"{steps} decode steps ({calls['forward_flash']} and "
-             f"{calls['decode_forward_flash']} of them flash); want {want}")
+        fail(f"{label}: launches {launches} for passes {calls}; want {want}")
+    return result, dict(blocks=blocks, steps=steps, launches=launches,
+                        calls=calls, wall=wall)
+
+
+def checked_run(torch, label, argv, stdin_text=""):
+    """One CLI run with the launch-count check (want_launches)."""
+    (out, err), run = checked(torch, label,
+                              lambda: run_cli(argv, stdin_text))
+    calls = run["calls"]
     metrics = re.findall(r"\[(pp|tg|t/ms|tok/s) ([0-9.]+)(?:ms)?\]", err)
-    log(f"{label}: {len(out)} stdout bytes, {blocks} prefill blocks "
-        f"({calls['forward_flash']} flash), {steps} decode steps "
-        f"({calls['decode_forward_flash']} flash), launches {launches}, "
-        f"wall {wall:.2f} s, cli {metrics}")
-    return out, err, dict(blocks=blocks, steps=steps, launches=launches,
-                          calls=calls, metrics=metrics)
+    log(f"{label}: {len(out)} stdout bytes, {run['blocks']} prefill blocks "
+        f"({calls['forward_flash']} flash), {run['steps']} decode steps "
+        f"({calls['decode_forward_flash']} flash), launches "
+        f"{ {k: n for k, n in run['launches'].items() if n} }, wall "
+        f"{run['wall']:.2f} s, cli {metrics}")
+    run["metrics"] = metrics
+    return out, err, run
 
 
 def reset_counts():
-    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
-    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
-
-    qm.reset_launches()
-    fd.reset_launches()
+    for mod in launch_modules():
+        mod.reset_launches()
 
 
 def read_counts():
-    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
-    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
-
-    return {**qm.LAUNCHES, **fd.LAUNCHES}
+    out = {}
+    for mod in launch_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def phase_end_to_end(torch, path: str):
@@ -613,7 +974,8 @@ def phase_end_to_end(torch, path: str):
     counts["long"] = read_counts()
     log(f"main path launches at long context (the runs above): "
         f"{counts['long']}")
-    if min(counts["long"].values()) == 0:
+    if min(counts["long"][k] for k in ("stacked", "tiled", "flash_decode",
+                                       "flash_prefill")) == 0:
         fail("a kernel of the long-context path was never launched")
     return counts, runs
 
@@ -678,20 +1040,204 @@ def phase_long_context(torch, path: str):
     return runs
 
 
+def serve_prompts(n, lo, hi, seed):
+    """n prompts of lo..hi words of PROMPT's text, one per line."""
+    import random
+
+    words = PROMPT.split()
+    rnd = random.Random(seed)
+    out = []
+    for _ in range(n):
+        k = rnd.randint(lo, hi)
+        i = rnd.randrange(len(words) - k)
+        out.append(" ".join(words[i:i + k]))
+    return out
+
+
+def run_serve(argv, prompts, workdir: Path):
+    """qwen3_tpu_torch.serve.main in this process on `prompts` (written to
+    a file); returns (JSON records in stdout order, stderr text)."""
+    from qwen3_tpu_torch import serve
+
+    pfile = workdir / "prompts.txt"
+    pfile.write_text("\n".join(prompts) + "\n", encoding="utf-8")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = serve.main(argv + ["--prompts", str(pfile)])
+    if rc != 0:
+        fail(f"serve {argv} returned {rc}:\n{err.getvalue()}")
+    return [json.loads(ln) for ln in out.getvalue().splitlines()], \
+        err.getvalue()
+
+
+def checked_serve(torch, label, argv, prompts, workdir, attn, max_tokens):
+    """One serve.py run with the launch-count check; every request must
+    come back once with at most `max_tokens` tokens (none when its first
+    sample is a stop token), some tokens in all, every prefill block must
+    run pallas-fast and every decode step `attn`."""
+    (recs, err), run = checked(
+        torch, label, lambda: run_serve(argv, prompts, workdir))
+    calls = run["calls"]
+    kind = {"fused": "decode_forward_fused",
+            "flash": "decode_forward_two_segment"}[attn]
+    if (calls[kind] != run["steps"] or calls["forward_fast"] != run["blocks"]
+            or calls["decode_forward_fast"] != run["steps"]):
+        fail(f"{label}: passes {calls}; want every block pallas-fast and "
+             f"every step {attn}")
+    if f"attn={attn}" not in err:
+        fail(f"{label}: the engine did not resolve attn={attn}")
+    if sorted(r["id"] for r in recs) != list(range(len(prompts))):
+        fail(f"{label}: {len(recs)} records for {len(prompts)} prompts")
+    for r in recs:
+        if r["prompt"] != prompts[r["id"]] or not (
+                0 <= r["n_tokens"] <= max_tokens):
+            fail(f"{label}: bad record {r}")
+    if not any(r["n_tokens"] for r in recs):
+        fail(f"{label}: no request generated a token")
+    agg = re.search(r"(\d+) requests, (\d+) tokens in ([0-9.]+)s "
+                    r"\(([0-9.]+) tok/s aggregate\)", err)
+    pms = sorted(r["prompt_ms"] for r in recs)
+    gms = sorted(r["generate_ms"] for r in recs)
+    run.update(tokens=sum(r["n_tokens"] for r in recs),
+               tok_s=float(agg.group(4)) if agg else None,
+               prompt_ms_median=statistics.median(pms), prompt_ms_max=pms[-1],
+               generate_ms_median=statistics.median(gms),
+               generate_ms_max=gms[-1])
+    log(f"{label}: {len(recs)} requests, {run['tokens']} tokens, "
+        f"{run['blocks']} prefill blocks, {run['steps']} decode steps, "
+        f"launches { {k: n for k, n in run['launches'].items() if n} }, "
+        f"wall {run['wall']:.2f} s, aggregate {run['tok_s']} tok/s, "
+        f"prompt_ms median {run['prompt_ms_median']} max "
+        f"{run['prompt_ms_max']}, generate_ms median "
+        f"{run['generate_ms_median']} max {run['generate_ms_max']}")
+    return recs, run
+
+
+def untimed(recs):
+    """The records without their timing fields, in stdout order."""
+    return [{k: r[k] for k in ("id", "prompt", "text", "n_tokens")}
+            for r in recs]
+
+
+def phase_serving(torch, path: str, workdir: Path):
+    """The serving path through qwen3_tpu_torch.serve.main, each run with
+    the launch-count check: every default (--batch 8 -c 1024, pallas-fast,
+    int8 KV, --attn auto -> fused) on 16 prompts (two waves of admission),
+    64 tokens each, greedy, then seeded twice with equal records; --batch
+    64 -c 512 on 64 prompts (batched admission, 8 rows a forward) for 32
+    tokens; --batch 1 -c 32768 on the 8378-token prompt (auto -> flash: the
+    two-segment flash kernel at depth >= 8378); a BatchedChat with two
+    conversations of two turns and a completion interleaved; and batch
+    invariance: one request served alone, among 7 others admitted serially,
+    and among 7 admitted with it in one [8, 128] block gives the same
+    tokens, greedy and seeded. Returns the runs."""
+    from qwen3_tpu_torch.runtime.batched import BatchedEngine, Request
+    from qwen3_tpu_torch.runtime.batched_chat import BatchedChat
+
+    base = [path, "--device", "cuda"]
+    runs = {}
+    prompts = serve_prompts(16, 5, 30, 1)
+    recs, runs["serve_greedy"] = checked_serve(
+        torch, "serve greedy (defaults, 16 prompts)",
+        base + ["-t", "0", "-s", "42", "--max-tokens", "64"], prompts,
+        workdir, "fused", 64)
+    seeded = base + ["-t", "0.8", "-p", "0.9", "-s", "7", "--max-tokens",
+                     "64"]
+    rec1, runs["serve_seeded_1"] = checked_serve(
+        torch, "serve seeded run 1", seeded, prompts, workdir, "fused", 64)
+    rec2, runs["serve_seeded_2"] = checked_serve(
+        torch, "serve seeded run 2", seeded, prompts, workdir, "fused", 64)
+    if untimed(rec1) != untimed(rec2):
+        fail("serve seeded: the two runs printed different records")
+    _, runs["serve_b64"] = checked_serve(
+        torch, "serve --batch 64 -c 512 (64 prompts)",
+        base + ["--batch", "64", "-c", "512", "-t", "0.8", "-s", "3",
+                "--max-tokens", "32"], serve_prompts(64, 5, 30, 2),
+        workdir, "fused", 32)
+    _, runs["serve_long"] = checked_serve(
+        torch, "serve --batch 1 -c 32768 (8378-token prompt)",
+        base + ["--batch", "1", "-c", "32768", "-t", "0.8", "-s", "5",
+                "--max-tokens", "32"], [LONG_PROMPT.strip()], workdir,
+        "flash", 32)
+
+    def chat():
+        # a 192-token context bounds the turns' length (a turn runs to a
+        # stop token or the context's end)
+        eng = BatchedEngine(path, max_batch=4, seq_len=192,
+                            mode="pallas-fast", kv_dtype="int8",
+                            temperature=0.8, device="cuda")
+        conv = BatchedChat(eng)
+        a = conv.new_conversation(seed=11, system_prompt="You are brief.")
+        b = conv.new_conversation(seed=22)
+        replies = []
+        for i, turn in enumerate(("Tell me about the clockmaker.",
+                                  "And the children?")):
+            ra, rb = conv.submit_turn(a, turn), conv.submit_turn(b, turn)
+            if i == 0:
+                eng.submit(Request(prompt=PROMPT[:120], seed=5,
+                                   max_tokens=24))
+            done = eng.run()
+            conv.finish_turn(a, ra)
+            conv.finish_turn(b, rb)
+            replies.append((len(done), len(ra.out_ids), len(rb.out_ids),
+                            a.pos, b.pos))
+        return replies
+
+    replies, runs["chat"] = checked(torch, "BatchedChat", chat)
+    log(f"BatchedChat: per turn (requests finished, reply tokens a, b, "
+        f"positions a, b) {replies}, launches "
+        f"{ {k: n for k, n in runs['chat']['launches'].items() if n} }")
+    if [r[0] for r in replies] != [3, 2] or not all(
+            r[1] and r[2] for r in replies):
+        fail(f"BatchedChat: turns {replies}")
+
+    # batch invariance: request 0 alone, then among 7 others whose prompts
+    # need two prefill blocks (so its own admission is the same [1, 128]
+    # block); then among 7 of its own plan, admitted as one [8, 128] block
+    solo = serve_prompts(1, 8, 12, 3)
+    longer = serve_prompts(7, 45, 55, 4)
+    same_plan = serve_prompts(7, 8, 25, 5)
+    for mode, flags in (("greedy", ["-t", "0"]),
+                        ("seeded", ["-t", "0.8", "-p", "0.9"])):
+        argv = base + flags + ["-s", "9", "--max-tokens", "32"]
+        outs = {}
+        for name, ps in (("alone", solo), ("among 7", solo + longer),
+                         ("batched admission", solo + same_plan)):
+            recs, runs[f"inv_{mode}_{name}"] = checked_serve(
+                torch, f"invariance {mode}, {name}", argv, ps, workdir,
+                "fused", 32)
+            outs[name] = next(r for r in recs if r["id"] == 0)["text"]
+        log(f"batch invariance, {mode}: request 0 alone "
+            f"{outs['alone']!r:.60} ... among 7 others equal: "
+            f"{outs['among 7'] == outs['alone']}; in a batched admission "
+            f"equal: {outs['batched admission'] == outs['alone']}")
+        if outs["among 7"] != outs["alone"]:
+            fail(f"batch invariance, {mode}: request 0's tokens depend on "
+                 f"its batch-mates")
+        if outs["batched admission"] != outs["alone"]:
+            fail(f"batch invariance, {mode}: request 0's tokens in a batched "
+                 f"[8, 128] admission differ from its serial admission")
+    return runs
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 class Forcing:
-    """The rounding steps of a forward pass, a Q8 activation quantization
-    (before each matmul) or an int8 KV encode, recorded on the card and
-    replayed on the CPU. Under spy("record") each step runs and keeps its
-    input and outputs (on the host); under spy("forced") each step returns
-    the recorded outputs, in order, and keeps the input it was given."""
+    """The rounding steps of a forward pass, recorded on the card and
+    replayed on the CPU: in mode pallas a Q8 activation quantization (before
+    each matmul), in mode pallas-fast the bf16 rounding of the activation
+    (before each matmul), and in both an int8 KV encode. Under
+    spy("record") each step runs and keeps its input and outputs (on the
+    host); under spy("forced") each step returns the recorded outputs, in
+    order, and keeps the input it was given."""
 
-    def __init__(self):
+    def __init__(self, mode: str = "pallas"):
         from qwen3_tpu_torch.models import qwen3 as model
         from qwen3_tpu_torch.runtime import kvcache as kvc
 
-        self.sites = {"q8": (model, "quantize_act"),
+        act = ("bf16", "round_bf16") if mode == "pallas-fast" else (
+            "q8", "quantize_act")
+        self.sites = {act[0]: (model, act[1]),
                       "kv": (kvc, "quantize_heads")}
         self.rounding = {k: getattr(*w) for k, w in self.sites.items()}
         self.card_log = {k: [] for k in self.sites}
@@ -700,14 +1246,16 @@ class Forcing:
     def _record(self, kind):
         def step(x, *rest):
             out = self.rounding[kind](x, *rest)
-            self.card_log[kind].append((x.cpu(), [t.cpu() for t in out]))
+            outs = out if isinstance(out, tuple) else (out,)
+            self.card_log[kind].append((x.cpu(), [t.cpu() for t in outs]))
             return out
         return step
 
     def _forced(self, kind):
         def step(x, *rest):
             self.cpu_in[kind].append(x)
-            return self.card_log[kind][len(self.cpu_in[kind]) - 1][1]
+            outs = self.card_log[kind][len(self.cpu_in[kind]) - 1][1]
+            return tuple(outs) if len(outs) > 1 else outs[0]
         return step
 
     @contextlib.contextmanager
@@ -722,29 +1270,48 @@ class Forcing:
             for kind, (mod, name) in self.sites.items():
                 setattr(mod, name, self.rounding[kind])
 
-    def check(self, torch, label, card, forced_cpu, cfg, need_gap=True):
-        """Every step's input on the CPU within 1e-5 of the card's max|.|,
-        every step on the CPU bit for bit from the card's input, the logits
-        [positions, V] within 1e-3 * max|logits|, and the argmax equal at
-        the position whose CPU top-2 gap is widest (which must exceed the
-        tolerance when `need_gap`). Returns the logits' max_abs_diff."""
-        want_steps = {"q8": 4 * cfg.n_layers + 1, "kv": 2 * cfg.n_layers}
-        rel, unequal = {}, {}
+    def check(self, torch, label, card, forced_cpu, cfg, need_gap=True,
+              loose=None, every_row=False):
+        """Every step's input on the CPU within 1e-5 of the card's max|.|
+        (`loose`: {(kind, step): extra absolute tolerance, a number or one
+        per element} for the steps that follow an op allowed more), every
+        step on the CPU bit for bit
+        from the card's input, the logits [rows, V] within 1e-3 *
+        max|logits|, and the argmax equal at the row whose CPU top-2 gap is
+        widest (which must exceed the tolerance when `need_gap`), or at
+        every row (`every_row`). Returns the logits' max_abs_diff."""
+        loose = loose or {}
+        want_steps = {k: (2 if k == "kv" else 4) * cfg.n_layers
+                      + (k != "kv") for k in self.sites}
+        rel, unequal, over = {}, {}, []
         for kind in self.sites:
-            rel[kind] = [((c - x).abs().max() / x.abs().max()).item()
-                         for (x, _), c in zip(self.card_log[kind],
-                                              self.cpu_in[kind])]
+            rel[kind] = []
+            for i, ((x, _), c) in enumerate(zip(self.card_log[kind],
+                                                self.cpu_in[kind])):
+                gap = (c.float() - x.float()).abs()
+                d, scale = gap.max().item(), x.float().abs().max().item()
+                rel[kind].append(d / scale)
+                extra = loose.get((kind, i), 0.0)
+                if ((gap - extra).max().item() > 1e-5 * scale):
+                    over.append((kind, i, d))
             g = (cfg.group_size,) if kind == "q8" else ()
-            unequal[kind] = [
-                i for i, (x, outs) in enumerate(self.card_log[kind])
-                if not all(map(torch.equal, self.rounding[kind](x, *g),
-                               outs))]
+
+            def same(x, outs, kind=kind, g=g):
+                out = self.rounding[kind](x, *g)
+                out = out if isinstance(out, tuple) else (out,)
+                return all(map(torch.equal, out, outs))
+
+            unequal[kind] = [i for i, (x, outs) in
+                             enumerate(self.card_log[kind])
+                             if not same(x, outs)]
         tol = 1e-3 * forced_cpu.abs().max().item()
         diff = (card - forced_cpu).abs().max().item()
         top2 = torch.topk(forced_cpu, 2, dim=-1).values
         gaps = top2[:, 0] - top2[:, 1]
         t = int(gaps.argmax())
-        argmax = int(card[t].argmax()), int(forced_cpu[t].argmax())
+        rows = range(card.shape[0]) if every_row else (t,)
+        argmax = [(int(card[r].argmax()), int(forced_cpu[r].argmax()))
+                  for r in rows]
         for kind in self.sites:
             worst = max(rel[kind])
             log(f"{label} step by step, {kind} rounding: {len(rel[kind])} "
@@ -753,14 +1320,15 @@ class Forcing:
                 f"{statistics.median(rel[kind]):.3e}; steps whose output on "
                 f"the CPU from the card's input differs: {unequal[kind]}")
         log(f"{label} step by step: logits max_abs_diff {diff:.3e}, "
-            f"tolerance {tol:.3e}; argmax at position {t} (CPU top-2 gap "
-            f"{gaps[t].item():.3e}) {argmax[0]} / {argmax[1]}")
+            f"tolerance {tol:.3e}; argmax (card / CPU) at rows "
+            f"{list(rows)}: {argmax} (CPU top-2 gap at row {t} "
+            f"{gaps[t].item():.3e})")
         if {k: len(v) for k, v in rel.items()} != want_steps:
             fail(f"{label}: rounding steps "
                  f"{({k: len(v) for k, v in rel.items()})}, want {want_steps}")
-        if max(max(r) for r in rel.values()) > 1e-5:
+        if over:
             fail(f"{label}: an op between two rounding steps disagrees on "
-                 f"the card")
+                 f"the card: (kind, step, max_abs_diff) {over[:4]}")
         if any(unequal.values()):
             fail(f"{label}: a rounding step on the card differs from the "
                  f"CPU's")
@@ -770,7 +1338,7 @@ class Forcing:
         if need_gap and gaps[t].item() <= tol:
             fail(f"{label}: no position's CPU top-2 gap exceeds the "
                  f"tolerance")
-        if argmax[0] != argmax[1]:
+        if any(a != b for a, b in argmax):
             fail(f"{label}: argmax on the card differs from the CPU plain "
                  f"path")
         return diff
@@ -911,6 +1479,106 @@ def phase_plain_depth(torch, path: str):
     return diffs
 
 
+SERVE_LENGTHS = (9, 40, 64, 77, 100, 120, 128, 23)   # prompt tokens a slot
+
+
+def phase_serving_plain(torch, path: str):
+    """One batched decode step of the serving path at B = 8 on the card
+    against the CPU plain path, step by step (see Forcing, mode
+    pallas-fast): 8 slots prefilled on the card to the token counts in
+    SERVE_LENGTHS (one [1, 128] block each, as admission runs them), the
+    card's KV cache copied to the CPU, then one side-buffer decode step with
+    attn="fused" on both devices, the card's bf16 activation roundings and
+    int8 KV encodes forced on the CPU. The ops between the rounding steps
+    are held to 1e-5 of their max, except the input of each layer's wo
+    matmul, the attention output: the bf16 roundings inside the fast
+    attention are not forced, and the kernel rounds its value dot's operand
+    p * vs relative to other running maxima than the plain version does
+    (see value_tol). So each element of that input may move 2^-8 * mag
+    more, mag = sum_s p_s * |v_s * vs_s| / sum_s p_s over its main and side
+    rows: the plain attention over |v| with q rounded to bf16, taken beside
+    each CPU attention call. The logits are held to 1e-3 * max|logits| and
+    every row's argmax must agree."""
+    from qwen3_tpu_torch.models import qwen3 as model
+    from qwen3_tpu_torch.runtime import kvcache as kvc
+    from qwen3_tpu_torch.runtime.batched import (
+        bucket_sizes,
+        prefill_slot_chunk,
+    )
+    from qwen3_tpu_torch.tokenizer import Tokenizer
+
+    ids = Tokenizer.from_file(path).encode(PROMPT)
+    B, C, rows, mode = len(SERVE_LENGTHS), SIDE_C, 1152, "pallas-fast"
+    tokens = ids[200:200 + B]
+    bucket = next(n for n in bucket_sizes(rows) if n >= max(SERVE_LENGTHS))
+    t0 = time.perf_counter()
+    cfg, params = model.load_params(path, mode=mode, max_seq_len=1024,
+                                    device="cuda")
+    k, v = model.init_kv_cache(cfg, B, rows, "int8", "cuda")
+    for b, n in enumerate(SERVE_LENGTHS):
+        _, k, v = prefill_slot_chunk(params, cfg, k, v,
+                                     ids[:n] + [0] * (128 - n), b, 0, n - 1,
+                                     mode=mode)
+    k_cpu, v_cpu = (tuple(t.cpu() for t in c) for c in (k, v))
+    forcing = Forcing(mode)
+
+    def step(params, k, v, device):
+        pos = torch.tensor(SERVE_LENGTHS, device=device)
+        side = (kvc.make_side(k, C), kvc.make_side(v, C), pos, 0)
+        logits, _, _ = model.decode_forward(
+            params, cfg, torch.tensor(tokens, device=device), k, v, pos,
+            mode=mode, attn="fused", side=side, attn_bucket=bucket)
+        return logits.float().cpu()
+
+    with forcing.spy("record"):
+        card = step(params, k, v, "cuda")
+    del params, k, v
+    torch.cuda.empty_cache()
+    cfg, params = model.load_params(path, mode=mode, max_seq_len=1024,
+                                    device="cpu")
+    attention, mags = model.fused_batched_attention, []
+
+    def with_magnitude(q, k_main, v_main, k_side, v_side, *rest, **kw):
+        mags.append(attention(q.to(torch.bfloat16).float(), k_main,
+                              v_main.abs(), k_side, v_side.abs(), *rest,
+                              **dict(kw, fast=False)))
+        return attention(q, k_main, v_main, k_side, v_side, *rest, **kw)
+
+    model.fused_batched_attention = with_magnitude
+    try:
+        with forcing.spy("forced"):
+            cpu = step(params, k_cpu, v_cpu, "cpu")
+    finally:
+        model.fused_batched_attention = attention
+    del params
+    if len(mags) != cfg.n_layers:
+        fail(f"serving step: {len(mags)} fused attention calls on the CPU, "
+             f"want {cfg.n_layers}")
+    wo_in = [forcing.card_log["bf16"][4 * l + 1][0] for l in range(len(mags))]
+    loose = {("bf16", 4 * l + 1): 2.0 ** -8 * mag.reshape(x.shape)
+             for l, (mag, x) in enumerate(zip(mags, wo_in))}
+    if card.shape != (B, cfg.vocab_size) or not torch.isfinite(card).all():
+        fail(f"serving step logits: shape {tuple(card.shape)} or non-finite")
+    diff = forcing.check(torch, f"serving decode step (B={B}, fused, "
+                         f"pallas-fast)", card, cpu, cfg, need_gap=False,
+                         loose=loose, every_row=True)
+    worst = {True: (0.0, -1), False: (0.0, -1)}     # wo input or not
+    for i, ((x, _), c) in enumerate(zip(forcing.card_log["bf16"],
+                                        forcing.cpu_in["bf16"])):
+        gap = (c.float() - x.float()).abs()
+        scale = x.float().abs().max().item()
+        key = ("bf16", i) in loose
+        share = (gap / (1e-5 * scale + loose[("bf16", i)])).max().item() \
+            if key else gap.max().item() / scale
+        worst[key] = max(worst[key], (share, i))
+    log(f"serving decode step: attention outputs (wo inputs) card vs CPU "
+        f"use at most {worst[True][0]:.3e} of their tolerance 1e-5 * max + "
+        f"2^-8 * mag (step {worst[True][1]}); the other bf16 steps' inputs "
+        f"within {worst[False][0]:.3e} of their max (step {worst[False][1]});"
+        f" {time.perf_counter() - t0:.1f} s")
+    return diff
+
+
 # -- phase 6 -------------------------------------------------------------------
 
 def kernel_name(name: str) -> str:
@@ -922,6 +1590,26 @@ def kernel_name(name: str) -> str:
     short = base.split("::")[-1].strip()
     inner = re.findall(r"\w+Functor|\w+Ops\b|cutlass_\w+", name)
     return f"{short}[{inner[-1]}]" if inner else short
+
+
+def trace_busy(prof, path: str):
+    """(device busy us, kernel events, span us, {short name: us}) from a
+    profiler's Chrome trace, or None when it holds no kernel events."""
+    trace = Path(path).with_suffix(".trace.json")
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = sorted((float(e["ts"]), float(e["dur"]), e["name"])
+                     for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        return None
+    busy, end = 0.0, kernels[0][0]
+    by_name: dict[str, float] = {}
+    for ts, dur, name in kernels:
+        busy += max(0.0, ts + dur - max(ts, end))
+        end = max(end, ts + dur)
+        short = kernel_name(name)
+        by_name[short] = by_name.get(short, 0.0) + dur
+    return busy, len(kernels), end - kernels[0][0], by_name
 
 
 def phase_profile(torch, path: str):
@@ -946,35 +1634,24 @@ def phase_profile(torch, path: str):
     plain = eng.generate(prompt, max_tokens=64)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    calls = sum(model.CALLS.values())
+    calls = model.CALLS["forward"] + model.CALLS["decode_forward"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng.generate(prompt, max_tokens=64)
         torch.cuda.synchronize()
-    passes = sum(model.CALLS.values()) - calls
-    trace = Path(path).with_suffix(".trace.json")
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text())["traceEvents"]
-    kernels = sorted((float(e["ts"]), float(e["dur"]), e["name"])
-                     for e in events if e.get("cat") == "kernel")
-    if not kernels:
+    passes = model.CALLS["forward"] + model.CALLS["decode_forward"] - calls
+    got = trace_busy(prof, path)
+    if got is None:
         log("profile: the trace holds no kernel events; device time not "
             "measured")
         return None
-    busy, end = 0.0, kernels[0][0]
-    by_name: dict[str, float] = {}
-    for ts, dur, name in kernels:
-        busy += max(0.0, ts + dur - max(ts, end))
-        end = max(end, ts + dur)
-        short = kernel_name(name)
-        by_name[short] = by_name.get(short, 0.0) + dur
-    span = end - kernels[0][0]
+    busy, n_kernels, span, by_name = got
     q8 = sum(v for k, v in by_name.items() if k.startswith("q8q8"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out = dict(wall_ms=wall_ms, n_generated=plain.n_generated,
                prompt_ms=plain.prompt_ms, generate_ms=plain.generate_ms,
                ms_per_token=plain.ms_per_token, forward_passes=passes,
-               kernels=len(kernels), kernels_per_pass=len(kernels) / passes,
+               kernels=n_kernels, kernels_per_pass=n_kernels / passes,
                device_busy_ms=busy / 1e3, q8q8_kernel_ms=q8 / 1e3,
                device_idle_share=1.0 - busy / 1e3 / wall_ms,
                profiled_span_ms=span / 1e3,
@@ -984,14 +1661,68 @@ def phase_profile(torch, path: str):
     return out
 
 
+def phase_serving_profile(torch, path: str, batch: int, seq_len: int):
+    """Where a serving decode step's time goes: a BatchedEngine with the
+    serve defaults but `batch` slots and a `seq_len` context (pallas-fast,
+    int8, fused), every slot admitted, one warm chunk, then one 32-step
+    chunk timed alone and one under torch.profiler. Reports wall and device
+    time per step, kernels per step and the device's idle share (busy from
+    the trace, wall from the run without the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen3_tpu_torch.models import qwen3 as model
+    from qwen3_tpu_torch.runtime.batched import BatchedEngine, Request
+
+    eng = BatchedEngine(path, max_batch=batch, seq_len=seq_len,
+                        mode="pallas-fast", kv_dtype="int8", temperature=0.0,
+                        device="cuda")
+    for i in range(batch):
+        eng.submit(Request(prompt=PROMPT[:60 + 25 * (i % 8)], seed=i,
+                           max_tokens=400))
+    eng._admit()
+    eng._step()                                   # warm
+    torch.cuda.synchronize()
+    steps0 = model.CALLS["decode_forward"]
+    t0 = time.perf_counter()
+    eng._step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = model.CALLS["decode_forward"] - steps0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._step()
+        torch.cuda.synchronize()
+    got = trace_busy(prof, path)
+    if got is None:
+        log("serving profile: the trace holds no kernel events; device "
+            "time not measured")
+        return None
+    busy, n_kernels, span, by_name = got
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = dict(batch=batch, seq_len=seq_len, steps=steps,
+               wall_ms_per_step=wall_ms / steps,
+               device_busy_ms_per_step=busy / 1e3 / steps,
+               device_idle_share=1.0 - busy / 1e3 / wall_ms,
+               profiled_idle_share=1.0 - busy / span,
+               kernels_per_step=n_kernels / steps,
+               tok_s=batch * steps / wall_ms * 1e3,
+               top_kernels_ms={k: v / 1e3 for k, v in top})
+    log("serving profile " + json.dumps(out))
+    return out
+
+
 # -- report --------------------------------------------------------------------
 
-def kernel_report(rows, flash_rows, flash_err, counts):
+def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
+                  serve_err, counts):
     """Per kernel, one decoded token at the main path's shapes: the matmuls
     at b = 1 (4 stacked x 28 layers, 1 classifier), their launches over the
     path below depth 8192; flash decode at depth 8192 and flash prefill per
     512-row block at start 8192 (28 launches each), their launches over the
-    long-context path."""
+    long-context path. The serving kernels per decode step of the serve
+    defaults (B = 8): the fast matmuls at b = 8, batched decode at B = 8
+    over 1152 rows (fast), two-segment flash at base 8192 (B = 1), their
+    launches over the serving path."""
     out = []
     for kind, source_line in (("stacked", 419), ("tiled", 314)):
         mine = [r for r in rows if r["kernel"] == kind]
@@ -1029,6 +1760,45 @@ def kernel_report(rows, flash_rows, flash_err, counts):
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"] * L,
         })
+    for kind, source_line in (("stacked_fast", 476), ("tiled_fast", 263)):
+        mine = [r for r in fast_rows if r["kernel"] == kind]
+        step = [r for r in mine if r["b"] == 8]
+        per_step = L if kind == "stacked_fast" else 1
+        out.append({
+            "name": f"q8_matmul_{kind}",
+            "route": "cuda",
+            "source": "qwen3_tpu_torch/csrc/q8_matmul.cu",
+            "replaces": f"qwen3_tpu/ops/pallas/q8_matmul.py:{source_line}",
+            "launches": counts["serve"][kind],
+            "max_abs_err": max(r["max_abs_diff"] for r in mine),
+            "ms": sum(r["kernel_ms"] for r in step) * per_step,
+            "plain_ms": sum(r["plain_ms"] for r in step) * per_step,
+            "bound_ms": sum(r["bound_ms"] for r in step) * per_step,
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in step) else "operations",
+            "library_ms": sum(r["library_ms"] for r in step) * per_step,
+        })
+    for name, count, src, line, pick in (
+            ("batched_decode_partial", "batched_decode_partial",
+             "batched_decode.cu", "batched_decode.py:136",
+             lambda r: r.get("B") == 8 and r.get("fast")),
+            ("flash_decode_gqa_two_segment", "flash_decode_two_segment",
+             "flash_decode.cu", "flash_decode.py:231",
+             lambda r: r.get("base") == FLASH_DEPTH)):
+        r = next(r for r in serve_rows if r["kernel"] == name and pick(r))
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"qwen3_tpu_torch/csrc/{src}",
+            "replaces": f"qwen3_tpu/ops/pallas/{line}",
+            "launches": counts["serve"][count],
+            "max_abs_err": serve_err[name],
+            "ms": r["kernel_ms"] * L,
+            "plain_ms": r["plain_ms"] * L,
+            "bound_ms": r["bound_ms"] * L,
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"] * L,
+        })
     return out
 
 
@@ -1045,20 +1815,34 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(torch)
     flash_rows, flash_err = phase_flash_kernels(torch)
+    fast_rows = phase_fast_kernels(torch)
+    serve_rows, serve_err = phase_batched_kernels(torch)
     check_sampler(torch)
     workdir = HERE / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
     try:
         path = write_checkpoint(workdir)
         counts, _ = phase_end_to_end(torch, path)
+        reset_counts()
+        phase_serving(torch, path, workdir)
+        counts["serve"] = read_counts()
+        log(f"serving path launches (the runs above): {counts['serve']}")
+        if min(counts["serve"][k] for k in (
+                "stacked_fast", "tiled_fast", "batched_decode_partial",
+                "flash_decode_two_segment")) == 0:
+            fail("a kernel of the serving path was never launched")
         phase_plain_path(torch, path)
         phase_plain_depth(torch, path)
+        phase_serving_plain(torch, path)
         phase_profile(torch, path)
+        phase_serving_profile(torch, path, 8, 1024)
+        phase_serving_profile(torch, path, 64, 512)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernel_report(rows, flash_rows, flash_err,
-                                               counts)}), flush=True)
+    print(json.dumps({"kernels": kernel_report(
+        rows, flash_rows, flash_err, fast_rows, serve_rows, serve_err,
+        counts)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

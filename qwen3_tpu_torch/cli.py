@@ -11,7 +11,9 @@ Usage:  python -m qwen3_tpu_torch.cli <checkpoint.bin> [options]
   -y <str>     system prompt (chat mode)
   -r <int>     reasoning: 0=off, 1=thinking (default 1)
   --qmode      quantized math path (default pallas: the reference-exact
-               Q8_0 x Q8_0 kernel; the other modes are not ported yet)
+               Q8_0 x Q8_0 kernel; pallas-fast: bf16 activations x bf16-
+               dequantized weights; exact, bf16 and pallas-int8 are not
+               ported yet and raise)
   --kv-dtype   float32|bfloat16|int8 KV cache dtype (default int8)
   --attn       auto|dense|flash (default auto: dense attention below depth
                8192, the flash kernels from there on)

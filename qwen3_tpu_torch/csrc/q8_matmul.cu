@@ -36,6 +36,7 @@
 //    __dp4a group dots from shared memory, then the ordered scale-and-sum in
 //    registers. Each weight byte is read from device memory once per 64 rows.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -198,9 +199,159 @@ q8q8_tile_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   }
 }
 
+// ---------------------------------------------------------------- fast ----
+//
+// The pallas-fast mode's matmul, replacing qwen3_tpu/ops/pallas/q8_matmul.py::
+// q8_matmul_stacked_fast (every layer matmul) and ::q8_matmul_tiled_fast
+// (the classifier): bf16 activations times the Q8_0 weights dequantized to
+// bf16, summed in fp32:
+//
+//   w[c, k]  = bf16_rn(f32(wq[c, k]) * ws[c, k / G])        (one IEEE multiply)
+//   out[b, c] = sum over groups g, in order, of
+//               s_g = sum over k in g, in order, of x[b, k] * w[c, k]
+//
+// with x [b, n] already bf16, s_g starting at 0 and out at 0. A product of
+// two bf16 values is exact in fp32, so fmaf(x, w, s) rounds once, as the
+// plain version's s + x * w does: the kernel is bit-equal to
+// ops/cuda/q8_matmul.py::q8_fast_matmul_plain. Every row is computed the same
+// way whatever b is, so a row's bits never depend on its batch-mates (the
+// serving engine's contract that a stream's tokens do not).
+//
+// Bound: weight bytes at decode (as for the exact kernel), operations at
+// large b. A block owns BM rows x 64 columns with 256 threads; per chunk of
+// kc = min(G, 64) k it stages the activations [BM][kc] and the dequantized
+// weights [64][kc] as f32 in shared memory (rows padded to 65 words: the
+// column reads of a warp hit distinct banks), and each thread runs TM x TN
+// outputs as sequential fmaf chains. BM = 8 (decode, b <= 8): thread (ty,
+// tx) owns row ty and columns tx, tx + 32; BM = 64 (prefill): rows ty + 16 i
+// and columns tx + 16 j, i, j < 4. Each weight byte is read once per BM rows.
+// No tensor cores: an MMA's internal sum order is not this one.
+constexpr int kFastCols = 64, kFastThreads = 256;
+
+__device__ __forceinline__ float bf16_bits_to_f32(unsigned short h) {
+  return __uint_as_float(((unsigned)h) << 16);
+}
+
+template <int BM, int TM, int TN>
+__global__ void __launch_bounds__(kFastThreads)
+q8_fast_kernel(const unsigned short* __restrict__ x,
+               const int8_t* __restrict__ wq, const float* __restrict__ ws,
+               float* __restrict__ out, int b, int n, int d, int G) {
+  constexpr int TY = BM / TM, TX = kFastThreads / TY;
+  static_assert(TX * TN == kFastCols, "a block owns 64 columns");
+  __shared__ float x_sm[BM][kMaxChunk + 1];
+  __shared__ float w_sm[kFastCols][kMaxChunk + 1];
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * kFastCols;
+  const int kc = min(G, kMaxChunk);
+  const int chunks = G / kc;   // chunks per group
+  const int xv = kc / 8;       // int4 loads per activation row per chunk
+  const int wv = kc / 16;      // int4 loads per weight row per chunk
+  const int ng = n / G;
+  float o[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) o[i][j] = 0.f;
+
+  for (int g = 0; g < ng; ++g) {
+    float s[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int k0 = g * G + ch * kc;
+      for (int e = tid; e < BM * xv; e += kFastThreads) {
+        const int r = e / xv, v = e % xv;
+        int4 raw = make_int4(0, 0, 0, 0);
+        if (r0 + r < b)
+          raw = __ldg(reinterpret_cast<const int4*>(x + (size_t)(r0 + r) * n +
+                                                    k0) + v);
+        const unsigned short* h = reinterpret_cast<const unsigned short*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x_sm[r][8 * v + i] = bf16_bits_to_f32(h[i]);
+      }
+      for (int e = tid; e < kFastCols * wv; e += kFastThreads) {
+        const int c = e / wv, v = e % wv;
+        int4 raw = make_int4(0, 0, 0, 0);
+        float sc = 0.f;
+        if (c0 + c < d) {
+          raw = __ldg(reinterpret_cast<const int4*>(wq + (size_t)(c0 + c) * n +
+                                                    k0) + v);
+          sc = ws[(size_t)(c0 + c) * ng + g];
+        }
+        const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          w_sm[c][16 * v + i] = __bfloat162float(
+              __float2bfloat16_rn(__fmul_rn((float)q[i], sc)));
+      }
+      __syncthreads();
+      for (int kk = 0; kk < kc; ++kk) {
+        float xr[TM], wr[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) xr[i] = x_sm[ty + TY * i][kk];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) wr[j] = w_sm[tx + TX * j][kk];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) s[i][j] = fmaf(xr[i], wr[j], s[i][j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) o[i][j] = __fadd_rn(o[i][j], s[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + ty + TY * i;
+    if (r >= b) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = c0 + tx + TX * j;
+      if (c < d) out[(size_t)r * d + c] = o[i][j];
+    }
+  }
+}
+
+template <int BM, int TM, int TN>
+int launch_fast(const void* x, const void* wq, const void* ws, void* out,
+                int b, int n, int d, int G, cudaStream_t s) {
+  const dim3 blocks((unsigned)((d + kFastCols - 1) / kFastCols),
+                    (unsigned)((b + BM - 1) / BM));
+  q8_fast_kernel<BM, TM, TN><<<blocks, kFastThreads, 0, s>>>(
+      static_cast<const unsigned short*>(x), static_cast<const int8_t*>(wq),
+      static_cast<const float*>(ws), static_cast<float*>(out), b, n, d, G);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// out = q8_fast(x, wq, ws): x bf16 [b, n], wq int8 [d, n], ws f32 [d, n/G],
+// out f32 [b, d]. Launches on `stream` and returns cudaGetLastError().
+int q8_fast_matmul(const void* x, const void* wq, const void* ws, void* out,
+                   int b, int n, int d, int group_size, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b <= 8)
+    return launch_fast<8, 1, 2>(x, wq, ws, out, b, n, d, group_size, s);
+  return launch_fast<64, 4, 4>(x, wq, ws, out, b, n, d, group_size, s);
+}
+
+// The same against layer `layer` of stacked weights [L, d, n] / [L, d, n/G].
+int q8_fast_matmul_stacked(const void* x, const void* wq, const void* ws,
+                           int layer, void* out, int b, int n, int d,
+                           int group_size, void* stream) {
+  const size_t off = (size_t)layer * (size_t)d * (size_t)n;
+  const int8_t* wl = static_cast<const int8_t*>(wq) + off;
+  const float* sl = static_cast<const float*>(ws) + off / group_size;
+  return q8_fast_matmul(x, wl, sl, out, b, n, d, group_size, stream);
+}
 
 // out = q8q8(xq, xs, wq, ws); gpt = groups per k-tile. Launches on `stream`
 // and returns cudaGetLastError() as an int (0 = launched).

@@ -6,10 +6,13 @@ RoPE (theta 1e6, half-split) -> GQA attention over the KV cache -> output
 projection + residual -> FFN-RMSNorm -> w1/w3 -> SwiGLU -> w2 + residual;
 finally out-RMSNorm and the (possibly tied) classifier matmul.
 
-The contract is qwen3_tpu/models/qwen3.py's in mode "pallas" (the reference's
-integer math: activations quantized per group, int8 x int8 group dots, fp32
-scale accumulation): `forward` runs a [B, T] block from `start_pos`,
-`decode_forward` one token per slot at per-slot positions. Layers run as a
+The contract is qwen3_tpu/models/qwen3.py's in modes "pallas" (the
+reference's integer math: activations quantized per group, int8 x int8 group
+dots, fp32 scale accumulation) and "pallas-fast" (the serving mode:
+activations rounded to bf16 times the weights dequantized to bf16, fp32
+sums; dense attention with bf16 dot operands): `forward` runs a [B, T] block
+from `start_pos`, `decode_forward` one token per slot at per-slot positions,
+optionally over the serving engine's chunk side buffer. Layers run as a
 Python loop; the KV cache is updated in place.
 
 Parameters (a dict of tensors on one device):
@@ -32,32 +35,46 @@ import torch
 from qwen3_tpu_torch.config import ModelConfig
 from qwen3_tpu_torch.io.checkpoint import Q8Weights, load_checkpoint
 from qwen3_tpu_torch.ops.activations import swiglu
-from qwen3_tpu_torch.ops.attention import gqa_attention, gqa_attention_per_slot
+from qwen3_tpu_torch.ops.attention import (
+    fused_batched_attention,
+    gqa_attention,
+    gqa_attention_per_slot,
+    gqa_attention_two_segment,
+)
 from qwen3_tpu_torch.ops.cuda.flash_decode import (
     flash_decode_gqa,
+    flash_decode_gqa_two_segment,
     flash_prefill_gqa,
 )
 from qwen3_tpu_torch.ops.cuda.q8_matmul import (
+    q8_matmul_stacked_fast,
+    q8_matmul_tiled_fast,
     q8_q8_matmul_stacked,
     q8_q8_matmul_tiled,
 )
 from qwen3_tpu_torch.ops.norms import rmsnorm
-from qwen3_tpu_torch.ops.q8 import dequantize, quantize_act
+from qwen3_tpu_torch.ops.q8 import dequantize, quantize_act, round_bf16
 from qwen3_tpu_torch.ops.rope import apply_rope, rope_tables
 from qwen3_tpu_torch.runtime import kvcache as kvc
 
 Params = dict[str, Any]
 
-MODES = ("pallas",)
+MODES = ("pallas", "pallas-fast")
 _FUSED = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3")}
 _LAYER_MATS = ("wqkv", "wo", "w13", "w2")
 
-ATTN = ("dense", "flash")
+# "fused" (the batched decode kernel) runs only in decode_forward over the
+# serving side buffer
+ATTN = ("dense", "flash", "fused")
 
-# forward / decode_forward calls, and those of them that ran flash attention,
-# for checking launch counts against them
+# forward / decode_forward calls, and those of them in mode pallas-fast or
+# with a kernel attention (flash decode or prefill; over the side buffer:
+# the two-segment flash kernel, or the fused batched decode kernel), for
+# checking launch counts against them
 CALLS = {"forward": 0, "decode_forward": 0, "forward_flash": 0,
-         "decode_forward_flash": 0}
+         "decode_forward_flash": 0, "forward_fast": 0,
+         "decode_forward_fast": 0, "decode_forward_two_segment": 0,
+         "decode_forward_fused": 0}
 
 
 def resolve_device(device) -> torch.device:
@@ -77,7 +94,7 @@ def resolve_device(device) -> torch.device:
 def check_mode(mode: str) -> None:
     if mode not in MODES:
         raise NotImplementedError(
-            f"qmode {mode!r} is not ported yet (the port runs 'pallas')")
+            f"qmode {mode!r} is not ported yet (the port runs {MODES})")
 
 
 def _host_params(w: Q8Weights) -> dict:
@@ -146,9 +163,10 @@ def untile(a, d: int) -> np.ndarray:
 
 def params_from_jax(jax_params: dict, cfg: ModelConfig, *,
                     device) -> Params:
-    """The port's parameters from qwen3_tpu's mode-"pallas" pytree, each leaf
-    a numpy array: un-tiles the [L, J, n, td] / [J, n, td] repack back to
-    row-major [.., d, n] and drops the classifier's zero padding."""
+    """The port's parameters from qwen3_tpu's pytree of a pallas mode (every
+    pallas mode packs the same tensors), each leaf a numpy array: un-tiles
+    the [L, J, n, td] / [J, n, td] repack back to row-major [.., d, n] and
+    drops the classifier's zero padding."""
     dev = resolve_device(device)
     d_out = {
         "wqkv": cfg.proj_dim + 2 * cfg.kv_dim, "wo": cfg.dim,
@@ -177,9 +195,18 @@ def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _linear(p: Params, cfg: ModelConfig, x: torch.Tensor, name: str,
-            layer: int | None) -> torch.Tensor:
-    """Reference-exact integer math: quantize activations per group
-    (src/forward.c:259), then the Q8_0 x Q8_0 kernel."""
+            layer: int | None, mode: str) -> torch.Tensor:
+    """qwen3_tpu's _make_linear. Mode pallas: reference-exact integer math,
+    activations quantized per group (src/forward.c:259), then the Q8_0 x
+    Q8_0 kernel. Mode pallas-fast: activations rounded to bf16, then the
+    fast kernel (weights dequantized to bf16, fp32 sums)."""
+    if mode == "pallas-fast":
+        xb = round_bf16(x)
+        if layer is None:
+            return q8_matmul_tiled_fast(xb, p[name + "_q"], p[name + "_s"],
+                                        cfg.group_size)
+        return q8_matmul_stacked_fast(xb, p[name + "_q"], p[name + "_s"],
+                                      layer, cfg.group_size)
     xq, xs = quantize_act(x, cfg.group_size)
     if layer is None:
         return q8_q8_matmul_tiled(xq, xs, p[name + "_q"], p[name + "_s"],
@@ -195,12 +222,12 @@ def _check_attn(attn: str) -> None:
 
 
 def _layer(p: Params, cfg: ModelConfig, x: torch.Tensor, l: int, cos, sin,
-           write_kv, attend) -> torch.Tensor:
+           write_kv, attend, mode: str) -> torch.Tensor:
     """One transformer layer on x [B, T, dim]; `write_kv(l, k, v)` stores
     the new rows, `attend(l, q)` returns attention [B, T, H, D]."""
     B, T = x.shape[:2]
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    qkv = _linear(p, cfg, rmsnorm(x, p["att_norm"][l]), "wqkv", l)
+    qkv = _linear(p, cfg, rmsnorm(x, p["att_norm"][l]), "wqkv", l, mode)
     q = qkv[..., :H * D].reshape(B, T, H, D)
     k = qkv[..., H * D:(H + KV) * D].reshape(B, T, KV, D)
     v = qkv[..., (H + KV) * D:(H + 2 * KV) * D].reshape(B, T, KV, D)
@@ -208,35 +235,44 @@ def _layer(p: Params, cfg: ModelConfig, x: torch.Tensor, l: int, cos, sin,
     k = apply_rope(rmsnorm(k, p["k_norm"][l]), cos, sin)
     write_kv(l, k, v)
     att = attend(l, q).reshape(B, T, H * D)
-    x = x + _linear(p, cfg, att, "wo", l)
-    gu = _linear(p, cfg, rmsnorm(x, p["ffn_norm"][l]), "w13", l)
+    x = x + _linear(p, cfg, att, "wo", l, mode)
+    gu = _linear(p, cfg, rmsnorm(x, p["ffn_norm"][l]), "w13", l, mode)
     gate, up = gu[..., :cfg.hidden_dim], gu[..., cfg.hidden_dim:]
-    return x + _linear(p, cfg, swiglu(gate, up), "w2", l)
+    return x + _linear(p, cfg, swiglu(gate, up), "w2", l, mode)
 
 
-def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor,
+            mode: str) -> torch.Tensor:
     x = rmsnorm(x, p["out_norm"])
-    return _linear(p, cfg, x, "cls", None)[..., :cfg.vocab_size]
+    return _linear(p, cfg, x, "cls", None, mode)[..., :cfg.vocab_size]
 
 
 def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
             v_cache, start_pos: int, *, mode: str = "pallas",
-            all_logits: bool = False, attn: str = "dense",
-            last_pos: int | None = None):
+            all_logits: bool = False, attn: str = "dense", last_pos=None):
     """Run a [B, T] block of tokens starting at absolute position `start_pos`.
 
-    `last_pos` (host int, optional): position within the block whose logits
-    to return when `all_logits` is False (default: the last). The block
-    must fit the cache: rows start_pos .. start_pos + T - 1 are written.
+    `last_pos` (optional): position within the block whose logits to return
+    when `all_logits` is False (default: the last); a host int, or an [N]
+    int tensor with one position per row (batched admission: prompts padded
+    to one block width end at different rows). The block must fit the
+    cache: rows start_pos .. start_pos + T - 1 are written.
 
     `attn="flash"` runs the flash kernels (qwen3_tpu's forward_impl
     routing): flash decode for T == 1, with the position broadcast over B,
-    and flash prefill for T > 1.
+    and flash prefill for T > 1. Mode pallas-fast runs the dense attention
+    with bf16 dot operands, as the JAX package does.
 
     Returns (logits [B, T, V] or [B, 1, V], k_cache, v_cache)."""
     check_mode(mode)
     _check_attn(attn)
+    if attn == "fused":
+        raise ValueError("attn='fused' is the serving decode step's attention "
+                         "over the side buffer (decode_forward with side=); "
+                         "a block runs 'dense' or 'flash'")
+    fast = mode == "pallas-fast"
     CALLS["forward"] += 1
+    CALLS["forward_fast"] += fast
     B, T = tokens.shape
     k_vals, k_sc = kvc.split(k_cache)
     v_vals, v_sc = kvc.split(v_cache)
@@ -276,33 +312,58 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
             return flash_prefill_gqa(q, k_vals[l], v_vals[l], pos32, ks, vs,
                                      live=live)
         return gqa_attention(q, k_vals[l], v_vals[l], positions, ks, vs,
-                             live=live)
+                             live=live, fast=fast)
 
     for l in range(cfg.n_layers):
-        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend)
+        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode)
 
     if not all_logits:
-        i = T - 1 if last_pos is None else int(last_pos)
-        x = x[:, i:i + 1]
-    return _logits(p, cfg, x), k_cache, v_cache
+        if isinstance(last_pos, torch.Tensor) and last_pos.dim() == 1:
+            rows_b = torch.arange(B, device=x.device)
+            x = x[rows_b, last_pos.to(x.device)][:, None]
+        else:
+            i = T - 1 if last_pos is None else int(last_pos)
+            x = x[:, i:i + 1]
+    return _logits(p, cfg, x, mode), k_cache, v_cache
 
 
 def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    k_cache, v_cache, positions: torch.Tensor, *,
                    mode: str = "pallas", attn: str = "dense",
-                   live: int | None = None):
+                   live: int | None = None, side=None,
+                   attn_bucket: int | None = None):
     """Batched single-token decode with per-slot positions.
 
     tokens: [B] int, positions: [B] int (each stream at its own absolute
-    position, already clamped into the cache by the caller). Each slot's
-    K/V row is written at its own position. `live` (host int, optional) is
-    max(positions) + 1. `attn="flash"` runs the flash decode kernel at the
-    per-slot positions (qwen3_tpu's decode_forward_impl without `side`).
+    position).
 
-    Returns (logits [B, V], k_cache, v_cache)."""
+    Without `side`: each slot's K/V row is written at its own position
+    (already clamped into the cache by the caller). `live` (host int,
+    optional) is max(positions) + 1. `attn="flash"` runs the flash decode
+    kernel at the per-slot positions. Returns (logits [B, V], k_cache,
+    v_cache).
+
+    With `side=(k_side, v_side, base_pos, step)` (qwen3_tpu's
+    decode_forward_impl `side` mode, the serving chunk): the main cache is
+    READ ONLY (rows idx < base_pos[b]); the new K/V rows go into the chunk
+    side buffers [L, B, C, KV, D] at the uniform host index `step`, and
+    attention runs over both segments: "dense" gqa_attention_two_segment,
+    "flash" the two-segment flash kernel, "fused" the batched decode kernel
+    over the stacked main cache within `attn_bucket` rows (host-chosen,
+    >= max(base_pos)) with the side buffer folded in. `live` is then
+    max(base_pos). Returns (logits [B, V], k_side, v_side); the serving
+    loop merges the side rows into the main cache once per chunk.
+
+    Mode pallas-fast takes bf16 dot operands in the dense and fused
+    attention (the flash kernels stay fp32, as in the JAX package)."""
     check_mode(mode)
     _check_attn(attn)
+    if attn == "fused" and side is None:
+        raise ValueError("attn='fused' runs over the serving side buffer "
+                         "only: pass side=(k_side, v_side, base_pos, step)")
+    fast = mode == "pallas-fast"
     CALLS["decode_forward"] += 1
+    CALLS["decode_forward_fast"] += fast
     B = tokens.shape[0]
     k_vals, k_sc = kvc.split(k_cache)
     v_vals, v_sc = kvc.split(v_cache)
@@ -310,6 +371,9 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     rp = positions.clamp(0, p["rope_cos"].shape[0] - 1)
     cos = p["rope_cos"][rp][:, None, None, :]               # [B, 1, 1, half]
     sin = p["rope_sin"][rp][:, None, None, :]
+    if side is not None:
+        return _decode_side(p, cfg, x, cos, sin, k_vals, v_vals, k_sc, v_sc,
+                            positions, side, mode, attn, live, attn_bucket)
     slots = torch.arange(B, device=x.device)
     if live is None:
         live = int(positions.max()) + 1
@@ -333,8 +397,58 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
             return flash_decode_gqa(q[:, 0], k_vals[l], v_vals[l], pos32, ks,
                                     vs, live=live)[:, None]
         return gqa_attention_per_slot(q[:, 0], k_vals[l], v_vals[l],
-                                      positions, ks, vs, live=live)[:, None]
+                                      positions, ks, vs, live=live,
+                                      fast=fast)[:, None]
 
     for l in range(cfg.n_layers):
-        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend)
-    return _logits(p, cfg, x)[:, 0], k_cache, v_cache
+        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode)
+    return _logits(p, cfg, x, mode)[:, 0], k_cache, v_cache
+
+
+def _decode_side(p, cfg, x, cos, sin, k_vals, v_vals, k_sc, v_sc, positions,
+                 side, mode, attn, live, attn_bucket):
+    """decode_forward's side-buffer form (see there)."""
+    fast = mode == "pallas-fast"
+    k_side, v_side, base_pos, step = side
+    sk, sk_sc = kvc.split(k_side)
+    sv, sv_sc = kvc.split(v_side)
+    base32 = base_pos.to(torch.int32).contiguous()
+    off32 = (positions - base_pos).to(torch.int32).contiguous()
+    if live is None and attn != "fused":
+        live = int(base_pos.max())
+    if attn == "flash":
+        CALLS["decode_forward_two_segment"] += 1
+    elif attn == "fused":
+        CALLS["decode_forward_fused"] += 1
+
+    def write_kv(l, k, v):
+        # all B rows share the step index: one uniform write per buffer
+        k_enc, k_es = kvc.encode_block(sk, k[:, 0])
+        v_enc, v_es = kvc.encode_block(sv, v[:, 0])
+        sk[l, :, step] = k_enc
+        sv[l, :, step] = v_enc
+        if k_es is not None:
+            sk_sc[l, :, step] = k_es
+            sv_sc[l, :, step] = v_es
+
+    def attend(l, q):
+        kms = None if k_sc is None else k_sc[l]
+        vms = None if v_sc is None else v_sc[l]
+        kss = None if sk_sc is None else sk_sc[l]
+        vss = None if sv_sc is None else sv_sc[l]
+        if attn == "flash":
+            return flash_decode_gqa_two_segment(
+                q[:, 0], k_vals[l], v_vals[l], sk[l], sv[l], base32, off32,
+                kms, vms, kss, vss, live=live)[:, None]
+        if attn == "fused":
+            return fused_batched_attention(
+                q[:, 0], k_vals, v_vals, sk[l], sv[l], base32, off32, kss,
+                vss, k_ms=k_sc, v_ms=v_sc, layer=l, bucket=attn_bucket,
+                fast=fast)[:, None]
+        return gqa_attention_two_segment(
+            q[:, 0], k_vals[l], v_vals[l], sk[l], sv[l], base_pos,
+            off32, kms, vms, kss, vss, fast=fast, live=live)[:, None]
+
+    for l in range(cfg.n_layers):
+        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode)
+    return _logits(p, cfg, x, mode)[:, 0], k_side, v_side

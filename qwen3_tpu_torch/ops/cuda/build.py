@@ -33,8 +33,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "q8q8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "q8q8_matmul_stacked": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "q8_fast_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "q8_fast_matmul_stacked": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "flash_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "flash_decode_two_segment": [_P] * 14 + [_I] * 9 + [_F, _P],
     "flash_prefill": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "batched_decode_partial": [_P] * 11 + [_I] * 9 + [_F, _P],
 }
 
 _lib = None

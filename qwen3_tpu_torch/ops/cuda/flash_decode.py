@@ -2,9 +2,11 @@
 plain versions.
 
 Replaces qwen3_tpu/ops/pallas/flash_decode.py::flash_decode_gqa (one token
-per slot, the decode step at depth) and ::flash_prefill_gqa (a block of query
-rows, the prefill at depth). The kernels are `csrc/flash_decode.cu`; see its
-header for the design and the bound.
+per slot, the decode step at depth), ::flash_decode_gqa_two_segment (the
+serving decode step over the main cache and the chunk's side buffer) and
+::flash_prefill_gqa (a block of query rows, the prefill at depth). The
+kernels are `csrc/flash_decode.cu`; see its header for the design and the
+bound.
 
 Layouts are the JAX functions' own:
   q        [B, H, D] (decode) or [B, T, H, D] (prefill), any float dtype
@@ -41,10 +43,11 @@ import torch
 
 from qwen3_tpu_torch.ops.q8 import const
 
-LAUNCHES = {"flash_decode": 0, "flash_prefill": 0}
+LAUNCHES = {"flash_decode": 0, "flash_prefill": 0,
+            "flash_decode_two_segment": 0}
 
 _NEG = torch.finfo(torch.float32).min   # the JAX kernels' mask value
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_HEAD_DIM = 128        # the kernels hold a row's outputs in registers
 MAX_SCORE_ROWS = 128      # prefill: query rows x heads of a block
 
@@ -93,9 +96,9 @@ def _accum_tile(qf, kt, vt, kst, vst, mask, active, acc, m, l, inv):
             torch.where(active, l_new, l))
 
 
-def _online_softmax(qf, k_cache, v_cache, k_s, v_s, ts, n_tiles, mask_of,
-                    active_of):
-    """Walk the cache tile by tile, in order; returns acc / l."""
+def _walk(qf, k_cache, v_cache, k_s, v_s, ts, n_tiles, mask_of, active_of):
+    """Walk the cache tile by tile, in order; returns the online softmax's
+    (acc, m, l, inv)."""
     B, KV, R, D = qf.shape
     inv = const(1.0 / math.sqrt(D), qf)
     acc = torch.zeros(B, KV, R, D, dtype=torch.float32, device=qf.device)
@@ -109,6 +112,12 @@ def _online_softmax(qf, k_cache, v_cache, k_s, v_s, ts, n_tiles, mask_of,
             None if k_s is None else k_s[:, rows],
             None if v_s is None else v_s[:, rows],
             mask_of(s), active_of(s), acc, m, l, inv)
+    return acc, m, l, inv
+
+
+def _online_softmax(*args):
+    """_walk, normalised: acc / l."""
+    acc, _, l, _ = _walk(*args)
     return acc / l
 
 
@@ -138,6 +147,44 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     out = _online_softmax(qf, k_cache, v_cache, k_s, v_s, ts,
                           _n_tiles(S, ts, live), mask_of, active_of)
     return out.reshape(B, H, D)
+
+
+def flash_decode_two_segment_plain(q: torch.Tensor, k_main: torch.Tensor,
+                                   v_main: torch.Tensor, k_side: torch.Tensor,
+                                   v_side: torch.Tensor,
+                                   base_pos: torch.Tensor,
+                                   offsets: torch.Tensor, k_ms=None,
+                                   v_ms=None, k_ss=None, v_ss=None,
+                                   block_s: int = 256, *,
+                                   live: int | None = None) -> torch.Tensor:
+    """The two-segment kernel's function in the TPU kernel's arithmetic
+    (flash_decode.py::_kernel2): the main cache's S-tiles in order, rows
+    idx < base_pos[b] (a tile at or past base_pos skipped, so base_pos 0
+    reads none), then the side buffer's C rows j <= offsets[b] as one more
+    tile of the same online softmax; the output is acc / l. `live` (host
+    int, optional) is max(base_pos), the main rows needed."""
+    B, H, D = q.shape
+    S, KV = k_main.shape[1], k_main.shape[2]
+    C = k_side.shape[1]
+    ts = pick_ts(S, block_s)
+    qf = q.float().reshape(B, KV, H // KV, D)
+    base = base_pos.reshape(B)
+    span = torch.arange(ts, device=q.device)
+
+    def mask_of(s):
+        return ((s * ts + span)[None, :] < base[:, None])[:, None, None, :]
+
+    def active_of(s):
+        return (s * ts < base)[:, None, None, None]
+
+    acc, m, l, inv = _walk(qf, k_main, v_main, k_ms, v_ms, ts,
+                           _n_tiles(S, ts, live), mask_of, active_of)
+    side_mask = (torch.arange(C, device=q.device)[None, :]
+                 <= offsets.reshape(B)[:, None])[:, None, None, :]
+    every = torch.ones(B, 1, 1, 1, dtype=torch.bool, device=q.device)
+    acc, m, l = _accum_tile(qf, k_side, v_side, k_ss, v_ss, side_mask, every,
+                            acc, m, l, inv)
+    return (acc / l).reshape(B, H, D)
 
 
 def flash_prefill_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -185,8 +232,8 @@ def _check(q, k_cache, v_cache, positions, k_s, v_s, n_pos):
     if D < 16 or D > MAX_HEAD_DIM or D & (D - 1):
         raise ValueError(f"head_dim {D} not supported (a power of two from "
                          f"16 to {MAX_HEAD_DIM})")
-    if k_cache.dtype not in _DTYPE_CODES or v_cache.dtype != k_cache.dtype:
-        raise TypeError(f"K/V must share one of {list(_DTYPE_CODES)}, got "
+    if k_cache.dtype not in DTYPE_CODES or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"K/V must share one of {list(DTYPE_CODES)}, got "
                         f"{k_cache.dtype} and {v_cache.dtype}")
     if (k_s is None) != (v_s is None):
         raise ValueError("pass both scales or neither")
@@ -232,12 +279,50 @@ def _launch_decode(q, k_cache, v_cache, positions, k_s, v_s, block_s, live):
     err = lib.flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_s),
         _ptr(v_s), positions.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), out.data_ptr(), _DTYPE_CODES[k_cache.dtype], B,
+        part_ml.data_ptr(), out.data_ptr(), DTYPE_CODES[k_cache.dtype], B,
         S, H, KV, D, ts, n_split, 1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def _launch_two_segment(q, k_main, v_main, k_side, v_side, base_pos, offsets,
+                        k_ms, v_ms, k_ss, v_ss, block_s, live):
+    from qwen3_tpu_torch.ops.cuda.build import load_library
+
+    B, H, D = q.shape
+    S, KV = k_main.shape[1], k_main.shape[2]
+    C = k_side.shape[1]
+    M = H // KV
+    q = q.float().contiguous()
+    base_pos = base_pos.to(torch.int32).reshape(B).contiguous()
+    offsets = offsets.to(torch.int32).reshape(B).contiguous()
+    _check(q, k_main, v_main, base_pos, k_ms, v_ms, B)
+    _check(q, k_side, v_side, offsets, k_ss, v_ss, B)
+    if (k_ms is None) != (k_ss is None):
+        raise ValueError("pass the scales of both segments or neither")
+    ts = pick_ts(S, block_s)
+    n_main = _n_tiles(S, ts, live)
+    lib = load_library()
+    part_acc = torch.empty(B, KV, n_main + 1, M, D, dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty(B, KV, n_main + 1, M, 2, dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty(B, H, D, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_decode_two_segment(
+        q.data_ptr(), k_main.data_ptr(), v_main.data_ptr(), _ptr(k_ms),
+        _ptr(v_ms), k_side.data_ptr(), v_side.data_ptr(), _ptr(k_ss),
+        _ptr(v_ss), base_pos.data_ptr(), offsets.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+        DTYPE_CODES[k_main.dtype], B, S, C, H, KV, D, ts, n_main,
+        1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode_two_segment kernel launch failed: "
+                           f"CUDA error {err}")
+    LAUNCHES["flash_decode_two_segment"] += 1
     return out
 
 
@@ -264,7 +349,7 @@ def _launch_prefill(q, k_cache, v_cache, q_positions, k_s, v_s, block_t):
     err = lib.flash_prefill(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_s),
         _ptr(v_s), q_positions.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[k_cache.dtype], B, T, S, H, KV, D, tq,
+        DTYPE_CODES[k_cache.dtype], B, T, S, H, KV, D, tq,
         1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error "
@@ -284,6 +369,25 @@ def flash_decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
                                   block_s, live=live)
     return _launch_decode(q, k_cache, v_cache, positions, k_s, v_s, block_s,
                           live)
+
+
+def flash_decode_gqa_two_segment(q: torch.Tensor, k_main: torch.Tensor,
+                                 v_main: torch.Tensor, k_side: torch.Tensor,
+                                 v_side: torch.Tensor, base_pos: torch.Tensor,
+                                 offsets: torch.Tensor, k_ms=None, v_ms=None,
+                                 k_ss=None, v_ss=None, block_s: int = 256, *,
+                                 live: int | None = None) -> torch.Tensor:
+    """Flash decode over the serving side-buffer layout: slot b attends main
+    rows idx < base_pos[b] of k/v_main [B, S, KV, D] plus side rows
+    j <= offsets[b] of k/v_side [B, C, KV, D], under one online softmax.
+    Scales optional ([B, S, KV] main, [B, C, KV] side: all four or none).
+    `live` (host int, optional) is max(base_pos). Returns [B, H, D] fp32."""
+    if q.device.type == "cpu":
+        return flash_decode_two_segment_plain(
+            q, k_main, v_main, k_side, v_side, base_pos, offsets, k_ms, v_ms,
+            k_ss, v_ss, block_s, live=live)
+    return _launch_two_segment(q, k_main, v_main, k_side, v_side, base_pos,
+                               offsets, k_ms, v_ms, k_ss, v_ss, block_s, live)
 
 
 def flash_prefill_gqa(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,11 +1,13 @@
-"""Q8_0 x Q8_0 matmul: the CUDA kernel's wrappers and its plain version.
+"""Q8_0 matmuls: the CUDA kernels' wrappers and their plain versions.
 
 Replaces qwen3_tpu/ops/pallas/q8_matmul.py::q8_q8_matmul_stacked (every layer
-matmul) and ::q8_q8_matmul_tiled (the classifier). The kernel is
-`csrc/q8_matmul.cu`; see its header for the design and the bound.
+matmul) and ::q8_q8_matmul_tiled (the classifier) of mode "pallas", and
+::q8_matmul_stacked_fast / ::q8_matmul_tiled_fast of mode "pallas-fast". The
+kernels are `csrc/q8_matmul.cu`; see its sections for the designs and the
+bounds.
 
 Layout: the checkpoint's row-major weights, one output column per row,
-  x_q int8 [..., n], x_s f32 [..., n/G]
+  x_q int8 [..., n], x_s f32 [..., n/G]    (pallas-fast: x bf16 [..., n])
   w_q int8 [d, n],   w_s f32 [d, n/G]    (stacked: [L, d, n], [L, d, n/G])
   -> out f32 [..., d]
 The TPU package's [J, n, td] tile repack (and the classifier's zero padding)
@@ -20,7 +22,8 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"stacked": 0, "tiled": 0}
+LAUNCHES = {"stacked": 0, "tiled": 0, "stacked_fast": 0,
+            "tiled_fast": 0}
 
 
 def reset_launches() -> None:
@@ -75,30 +78,37 @@ def q8q8_matmul_plain(x_q: torch.Tensor, x_s: torch.Tensor,
     return out.reshape(*lead, d)
 
 
-def _check(x_q, x_s, w_q, w_s, group_size, stacked: bool):
+def _check(x, x_s, w_q, w_s, group_size, stacked: bool):
+    """What the kernels take: int8 activations x with f32 group scales
+    x_s (Q8_0 x Q8_0), or bf16 activations x and no x_s (pallas-fast);
+    weights [d, n] (stacked [L, d, n]) with their scales; every tensor
+    contiguous, 16-byte aligned and on x's CUDA device."""
     g = group_size
     if g < 16 or g > 512 or g & (g - 1):
         raise ValueError(f"group_size must be a power of two in [16, 512], "
                          f"got {g}")
-    n = x_q.shape[-1]
+    n = x.shape[-1]
     want_w = 3 if stacked else 2
     if w_q.dim() != want_w or w_s.dim() != want_w:
         raise ValueError(f"weights must be {want_w}-d, got {tuple(w_q.shape)}")
     if w_q.shape[-1] != n or n % g:
-        raise ValueError(f"contraction mismatch: x {tuple(x_q.shape)}, "
+        raise ValueError(f"contraction mismatch: x {tuple(x.shape)}, "
                          f"w {tuple(w_q.shape)}, G={g}")
     if tuple(w_s.shape) != tuple(w_q.shape[:-1]) + (n // g,):
         raise ValueError(f"weight scales {tuple(w_s.shape)} do not match "
                          f"{tuple(w_q.shape)} at G={g}")
-    if tuple(x_s.shape) != tuple(x_q.shape[:-1]) + (n // g,):
-        raise ValueError(f"activation scales {tuple(x_s.shape)} do not "
-                         f"match {tuple(x_q.shape)} at G={g}")
-    for name, t, dt in (("x_q", x_q, torch.int8), ("x_s", x_s, torch.float32),
-                        ("w_q", w_q, torch.int8), ("w_s", w_s, torch.float32)):
+    tensors = [("x", x, torch.bfloat16)]
+    if x_s is not None:
+        if tuple(x_s.shape) != tuple(x.shape[:-1]) + (n // g,):
+            raise ValueError(f"activation scales {tuple(x_s.shape)} do not "
+                             f"match {tuple(x.shape)} at G={g}")
+        tensors = [("x_q", x, torch.int8), ("x_s", x_s, torch.float32)]
+    for name, t, dt in tensors + [("w_q", w_q, torch.int8),
+                                  ("w_s", w_s, torch.float32)]:
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if t.device.type != "cuda" or t.device != x_q.device:
-            raise ValueError(f"{name} must be on {x_q.device}, got {t.device}")
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name} must be on {x.device}, got {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
@@ -148,3 +158,87 @@ def q8_q8_matmul_stacked(x_q: torch.Tensor, x_s: torch.Tensor,
     if x_q.device.type == "cpu":
         return q8q8_matmul_plain(x_q, x_s, w_q[layer], w_s[layer], group_size)
     return _launch("stacked", x_q, x_s, w_q, w_s, int(layer), group_size)
+
+
+# -- pallas-fast -----------------------------------------------------------
+
+# the plain fast version's temporaries hold at most this many floats
+_PLAIN_FAST_ELEMS = 1 << 24
+
+
+def q8_fast_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
+                         w_s: torch.Tensor, group_size: int) -> torch.Tensor:
+    """The fast kernel's function in PyTorch, same arithmetic in the same
+    order: the weight dequantized as bf16(f32(w_q) * w_s), the activation
+    rounded to bf16; per group, s = x_0 w_0 + x_1 w_1 + ... summed in k
+    order from 0, then out = s_0 + s_1 + ... in group order from 0, all in
+    fp32. A product of two bf16 values is exact in fp32, so each step rounds
+    once, where the kernel's fmaf does. Columns go in chunks that keep the
+    temporaries small."""
+    *lead, n = x.shape
+    d = w_q.shape[0]
+    g = group_size
+    ng = n // g
+    xb = x.reshape(-1, n).to(torch.bfloat16).float().reshape(-1, 1, ng, g)
+    b = xb.shape[0]
+    out = torch.empty(b, d, dtype=torch.float32, device=x.device)
+    step = max(1, _PLAIN_FAST_ELEMS // max(n, b * ng))
+    for c0 in range(0, d, step):
+        c1 = min(d, c0 + step)
+        w = (w_q[c0:c1].float().reshape(c1 - c0, ng, g)
+             * w_s[c0:c1, :, None].float()).to(torch.bfloat16).float()
+        s = torch.zeros(b, c1 - c0, ng, dtype=torch.float32, device=x.device)
+        for k in range(g):
+            s = s + xb[..., k] * w[None, :, :, k]
+        o = torch.zeros(b, c1 - c0, dtype=torch.float32, device=x.device)
+        for i in range(ng):
+            o = o + s[..., i]
+        out[:, c0:c1] = o
+    return out.reshape(*lead, d)
+
+
+def _launch_fast(kind: str, x, w_q, w_s, layer, group_size):
+    from qwen3_tpu_torch.ops.cuda.build import load_library
+
+    x = x.to(torch.bfloat16).contiguous()
+    _check(x, None, w_q, w_s, group_size, stacked=layer is not None)
+    lib = load_library()
+    *lead, n = x.shape
+    d = w_q.shape[-2]
+    b = x.numel() // n
+    out = torch.empty(b, d, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if layer is None:
+        err = lib.q8_fast_matmul(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+                                 out.data_ptr(), b, n, d, group_size, stream)
+    else:
+        if not 0 <= layer < w_q.shape[0]:
+            raise IndexError(f"layer {layer} outside [0, {w_q.shape[0]})")
+        err = lib.q8_fast_matmul_stacked(x.data_ptr(), w_q.data_ptr(),
+                                         w_s.data_ptr(), layer,
+                                         out.data_ptr(), b, n, d, group_size,
+                                         stream)
+    if err != 0:
+        raise RuntimeError(f"q8 fast {kind} kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES[kind] += 1
+    return out.reshape(*lead, d)
+
+
+def q8_matmul_tiled_fast(x: torch.Tensor, w_q: torch.Tensor,
+                         w_s: torch.Tensor, group_size: int) -> torch.Tensor:
+    """Activations (rounded to bf16) x one Q8_0 weight tensor [d, n]
+    dequantized to bf16 (the classifier of mode pallas-fast)."""
+    if x.device.type == "cpu":
+        return q8_fast_matmul_plain(x, w_q, w_s, group_size)
+    return _launch_fast("tiled_fast", x, w_q, w_s, None, group_size)
+
+
+def q8_matmul_stacked_fast(x: torch.Tensor, w_q: torch.Tensor,
+                           w_s: torch.Tensor, layer: int,
+                           group_size: int) -> torch.Tensor:
+    """Activations (rounded to bf16) x layer `layer` of stacked Q8_0
+    weights [L, d, n] dequantized to bf16."""
+    if x.device.type == "cpu":
+        return q8_fast_matmul_plain(x, w_q[layer], w_s[layer], group_size)
+    return _launch_fast("stacked_fast", x, w_q, w_s, int(layer), group_size)

@@ -53,3 +53,9 @@ def dequantize(q: torch.Tensor, s: torch.Tensor, group_size: int,
     *lead, n = q.shape
     g = q.reshape(*lead, n // group_size, group_size).to(dtype)
     return (g * s[..., None].to(dtype)).reshape(*lead, n)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The pallas-fast matmuls' activation rounding: x to bfloat16, round
+    to nearest even (jnp's astype(bfloat16)); the fast kernels take it."""
+    return x.to(torch.bfloat16)

@@ -1,10 +1,10 @@
 """Prefill block plan and the decode chunk.
 
 Semantics are the JAX package's (runtime/decode_loop.py, and the serving
-program runtime/batched.py::batched_decode_chunk_impl without side buffers,
-which the single-stream engine runs at B=1): each step emits the current
-token, runs the forward at the current position, draws one xorshift coin and
-samples the next token. A slot stops at BOS/EOS (the stop token is not
+program runtime/batched.py::batched_decode_chunk_impl, which the
+single-stream engine runs at B=1 without side buffers): each step emits the
+current token, runs the forward at the current position, draws one xorshift
+coin and samples the next token. A slot stops at BOS/EOS (the stop token is not
 emitted) or when its position reaches its limit; its token, position and RNG
 then freeze. Completion stops *before* emitting at the limit
 (src/completion.c:57); chat emits the final token first (`emit_lim`,
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from qwen3_tpu_torch.models.qwen3 import decode_forward
-from qwen3_tpu_torch.runtime.kvcache import split
+from qwen3_tpu_torch.runtime.kvcache import make_side, split, tensors
 from qwen3_tpu_torch.runtime.sampler import sample_tokens
 from qwen3_tpu_torch.runtime.xorshift import xorshift_float
 
@@ -84,13 +84,21 @@ def burn_and_sample(logits: torch.Tensor, rng_state: int, n_burn: int,
 def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
                          done, rng, temp, topp, emit_lim, *, chunk: int,
                          greedy: bool, bos: int, eos: int, top_k: int = 0,
-                         attn: str = "dense"):
+                         attn: str = "dense", mode: str = "pallas",
+                         use_side: bool = False, bucket: int | None = None):
     """Up to `chunk` decode steps over all live slots.
 
     token/pos/limit/done/rng/temp/topp/emit_lim: per-slot [B] host arrays
     (rng: xorshift64* states as python ints; temp/topp pre-clamped).
     `greedy=True` asserts every slot is greedy; otherwise rows at the
     epsilon temperature argmax individually.
+
+    `use_side` (the serving engine's default): the chunk's K/V rows go to
+    side buffers at a uniform step index while the main cache stays read
+    only, and each slot's rows merge into the main cache at its chunk-start
+    position after the loop (the cache needs `chunk` rows past the last
+    position, which BatchedEngine allocates). `bucket`: the fused
+    attention's rows (host-chosen, >= every slot's position).
 
     Returns (packed int32 [B, chunk + 2] = (tokens.., pos, done) with -1
     padding, k, v, token, pos, done, rng)."""
@@ -107,6 +115,10 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
     topp_t = torch.tensor(np.asarray(topp, np.float32), device=dev)
     g = True if greedy else temp_t <= GREEDY_EPS
     out = np.full((B, chunk), -1, np.int32)
+    if use_side:
+        base_pos = pos.copy()        # frozen for the chunk
+        base_t = torch.from_numpy(base_pos).to(dev)
+        side_k, side_v = make_side(k_cache, chunk), make_side(v_cache, chunk)
     step = 0
     while step < chunk and not done.all():
         is_stop = (token == bos) | (token == eos)
@@ -114,18 +126,26 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
         newly_done = done | is_stop | at_limit
         emit = ~done & ~is_stop & (emit_lim | ~at_limit)
         out[:, step] = np.where(emit, token, -1)
-        # done slots still run (their rows are wasted work); their write
-        # position is clamped into the cache
-        write_pos = np.minimum(pos, rows - 1)
         # the coins depend on no device data: upload them before the
         # forward is queued, so the upload does not wait for it
         draws = [xorshift_float(s) for s in rng]
         coin = torch.tensor([c for _, c in draws], dtype=torch.float32,
                             device=dev)
-        logits, k_cache, v_cache = decode_forward(
-            params, cfg, torch.from_numpy(token).to(dev), k_cache, v_cache,
-            torch.from_numpy(write_pos).to(dev), attn=attn,
-            live=int(write_pos.max()) + 1)
+        tok_t = torch.from_numpy(token).to(dev)
+        if use_side:
+            logits, side_k, side_v = decode_forward(
+                params, cfg, tok_t, k_cache, v_cache,
+                torch.from_numpy(pos).to(dev), mode=mode, attn=attn,
+                side=(side_k, side_v, base_t, step),
+                live=int(base_pos.max()), attn_bucket=bucket)
+        else:
+            # done slots still run (their rows are wasted work); their
+            # write position is clamped into the cache
+            write_pos = np.minimum(pos, rows - 1)
+            logits, k_cache, v_cache = decode_forward(
+                params, cfg, tok_t, k_cache, v_cache,
+                torch.from_numpy(write_pos).to(dev), mode=mode, attn=attn,
+                live=int(write_pos.max()) + 1)
         nxt = sample_tokens(logits, coin, temp_t, topp_t, greedy=g,
                             top_k_hint=top_k).cpu().numpy()
         live = ~newly_done
@@ -134,6 +154,14 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
         rng = [st if ok else old for (st, _), old, ok in zip(draws, rng, live)]
         done = newly_done
         step += 1
+    if use_side:
+        # each slot's chunk window into the main cache at its chunk-start
+        # position, once per chunk; rows past its final position carry
+        # garbage that nothing reads before it is rewritten
+        for main, buf in ((k_cache, side_k), (v_cache, side_v)):
+            for m, sb in zip(tensors(main), tensors(buf)):
+                for b in range(B):
+                    m[:, b, base_pos[b]:base_pos[b] + chunk] = sb[:, b]
     packed = np.concatenate(
         [out, pos[:, None].astype(np.int32), done[:, None].astype(np.int32)],
         axis=1)

@@ -54,7 +54,7 @@ class EngineConfig:
     temperature: float = 1.0
     top_p: float = 0.9
     seq_len: int = 0               # 0 -> min(checkpoint max, 32768) like the CLI
-    mode: str = "pallas"           # the only quantized math path ported
+    mode: str = "pallas"           # "pallas" | "pallas-fast" (the ported ones)
     attn: str = "auto"             # "auto" | "dense" | "flash"
     kv_dtype: str = "float32"      # "float32" | "bfloat16" | "int8"
     prefill_chunk: int = 64
@@ -82,7 +82,9 @@ def _not_ported(cfg: EngineConfig) -> None:
     if cfg.tp != 1:
         raise NotImplementedError("tp > 1 is not ported yet")
     if cfg.attn not in ("auto", "dense", "flash"):
-        raise NotImplementedError(f"attn={cfg.attn!r} is not ported yet")
+        # "fused" is the serving engine's (runtime/batched.py)
+        raise NotImplementedError(f"attn={cfg.attn!r} is not ported yet "
+                                  f"for the single-stream engine")
 
 
 class Engine:
@@ -167,7 +169,7 @@ class Engine:
                 [self.sampler.temperature], [self.sampler.top_p],
                 [emit_at_limit], chunk=chunk, greedy=self.greedy,
                 bos=t.special.bos, eos=t.special.eos, top_k=self.cfg.top_k,
-                attn=self._attn_for(cur))
+                attn=self._attn_for(cur), mode=self.cfg.mode)
             state = dict(token=tok_a, pos=pos_a, done=done_a, rng=rng)
             row = packed[0]
             cur = int(row[-2])

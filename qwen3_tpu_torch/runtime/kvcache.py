@@ -50,11 +50,35 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
     return one(), one()
 
 
+def make_side(cache, chunk: int):
+    """A chunk side buffer [L, B, chunk, KV, D] in `cache`'s storage repr
+    (zeros; unit scales for int8): the per-chunk staging area the serving
+    decode writes at a uniform step index (models.qwen3.decode_forward's
+    `side`)."""
+    vals, sc = split(cache)
+    L, B, _, KV, D = vals.shape
+    side = torch.zeros((L, B, chunk, KV, D), dtype=vals.dtype,
+                       device=vals.device)
+    if sc is None:
+        return side
+    return side, torch.ones((L, B, chunk, KV), dtype=torch.float32,
+                            device=vals.device)
+
+
 def split(cache):
     """-> (values, scales_or_None)."""
     if isinstance(cache, tuple):
         return cache
     return cache, None
+
+
+def join(values, scales):
+    return values if scales is None else (values, scales)
+
+
+def tensors(cache) -> tuple:
+    """The cache side's tensors: (values,) or (values, scales)."""
+    return cache if isinstance(cache, tuple) else (cache,)
 
 
 def quantize_heads(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

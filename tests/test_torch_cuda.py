@@ -8,8 +8,11 @@ it runs on a machine with a card and no JAX:
 
 The matmul kernels are bit-equal to their plain versions: the group dots are
 exact integers and the fp32 scale-and-sum rounds every product and every sum
-in the same order in both (see qwen3_tpu_torch/csrc/q8_matmul.cu). The flash
-kernels sum in another order than theirs and are held to 2e-5.
+in the same order in both (see qwen3_tpu_torch/csrc/q8_matmul.cu); the
+pallas-fast kernel's products of bf16 values are exact in fp32 and it sums
+in the plain version's order. The attention kernels sum in another order
+than theirs and are held to 2e-5 (plus, under pallas-fast, the bf16
+rounding of the value dot's operands, per element, see _value_tol).
 """
 
 import numpy as np
@@ -61,6 +64,49 @@ def test_kernel_matches_plain_on_card(dev, b, n, g):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("b", [1, 2, 8, 9, 64, 130])
+@pytest.mark.parametrize("n,g", [(128, 32), (1024, 64), (3072, 64)])
+def test_fast_kernel_matches_plain_on_card(dev, b, n, g):
+    """The pallas-fast kernels (b <= 8 runs the 8-row block, b > 8 the
+    64-row block), bit for bit, with one launch counted per call."""
+    rng = np.random.default_rng(b * 7 + n)
+    x = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
+    x = x.to(dev).to(torch.bfloat16)
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(2, 200, n)).astype(
+        np.int8)).to(dev)
+    ws = torch.from_numpy((0.02 / 127 * (0.5 + rng.random(
+        (2, 200, n // g)))).astype(np.float32)).to(dev)
+    tq.reset_launches()
+    got = tq.q8_matmul_stacked_fast(x, wq, ws, 1, g)
+    want = tq.q8_fast_matmul_plain(x, wq[1], ws[1], g)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["stacked_fast"] == 1
+    assert torch.equal(got, want)
+    got = tq.q8_matmul_tiled_fast(x, wq[0], ws[0], g)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["tiled_fast"] == 1
+    assert torch.equal(got, tq.q8_fast_matmul_plain(x, wq[0], ws[0], g))
+
+
+def test_fast_kernel_rows_do_not_depend_on_the_batch(dev):
+    """Row r of a b = 64 call (the 64-row block) equals, bit for bit, the
+    same row run alone (the 8-row block) and within b = 8."""
+    rng = np.random.default_rng(1)
+    n, d, g = 1024, 4096, 64
+    x = torch.from_numpy(rng.standard_normal((64, n)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(d, n)).astype(
+        np.int8)).to(dev)
+    ws = torch.from_numpy((0.02 / 127 * (0.5 + rng.random(
+        (d, n // g)))).astype(np.float32)).to(dev)
+    full = tq.q8_matmul_tiled_fast(x, wq, ws, g)
+    eight = tq.q8_matmul_tiled_fast(x[8:16].contiguous(), wq, ws, g)
+    assert torch.equal(full[8:16], eight)
+    for r in (0, 13, 63):
+        alone = tq.q8_matmul_tiled_fast(x[r:r + 1].contiguous(), wq, ws, g)
+        assert torch.equal(full[r:r + 1], alone)
+
+
 def _flash_cache(seed, b, s, kv, d, dtype, dev):
     """(k, v, k_s, v_s) on the card from numpy; int8 with per-row scales."""
     rng = np.random.default_rng(seed)
@@ -106,7 +152,8 @@ def test_flash_decode_matches_plain_on_card(dev, dtype, h, kv, d):
             fd.reset_launches()
             got = fd.flash_decode_gqa(q, k, v, pos, ks, vs, live=live)
             torch.cuda.synchronize()
-            assert fd.LAUNCHES == {"flash_decode": 1, "flash_prefill": 0}
+            assert fd.LAUNCHES == {"flash_decode": 1, "flash_prefill": 0,
+                                   "flash_decode_two_segment": 0}
             _flash_close(got, want)
 
 
@@ -131,7 +178,110 @@ def test_flash_prefill_matches_plain_on_card(dev, dtype, h, kv, d, t,
         fd.reset_launches()
         got = fd.flash_prefill_gqa(q, k, v, qpos, ks, vs, block_t=block_t)
         torch.cuda.synchronize()
-        assert fd.LAUNCHES == {"flash_decode": 0, "flash_prefill": 1}
+        assert fd.LAUNCHES == {"flash_decode": 0, "flash_prefill": 1,
+                               "flash_decode_two_segment": 0}
+        _flash_close(got, want)
+
+
+def _value_tol(want, mag, fast):
+    """Per element: 2e-5 * max(1, max|want|), plus under `fast` 2^-8 * mag,
+    mag = sum_s p_s * |v_s * vs_s| (batched_decode_magnitude). The value
+    dot's operand p * vs is rounded to bf16, by at most 2^-8 of itself; the
+    kernel's p is relative to the running max of its own 64-row chunks, the
+    plain version's to that of the Pallas kernel's tiles, so the two round
+    each term independently (a gap of 2^-7 * mag would need every pair of
+    roundings at opposite extremes)."""
+    tol = 2e-5 * max(1.0, want.abs().max().item())
+    return tol + 2.0 ** -8 * mag if fast else tol
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("h,kv,d", [(4, 2, 128), (16, 8, 128), (16, 2, 64)])
+def test_batched_decode_matches_plain_on_card(dev, dtype, fast, h, kv, d):
+    """Row limits 0 (no row: acc 0, m finfo.min, l 0), 1, a tile edge and
+    the whole bucket; buckets 384 (the plain version's 128-row tiles) and
+    the full cache; one launch per call; a slot's bits do not depend on
+    the bucket or on the other slots."""
+    from qwen3_tpu_torch.ops.cuda import batched_decode as bd
+
+    b, s, layers = 4, 512, 2
+    k, v, ks, vs = (t if t is None else t.reshape(layers, b, *t.shape[1:])
+                    for t in _flash_cache(h + d, layers * b, s, kv, d,
+                                          dtype, dev))
+    q = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (b, h, d)).astype(np.float32)).to(dev)
+    outs = {}
+    for bucket, lims in ((384, [0, 1, 256, 384]), (None, [0, 1, 256, 512])):
+        lim = torch.tensor(lims, dtype=torch.int32, device=dev)
+        want = bd.batched_decode_plain(q, k, v, 1, lim, ks, vs,
+                                       bucket=bucket, fast=fast)
+        bd.reset_launches()
+        got = bd.batched_decode_partial(q, k, v, 1, lim, ks, vs,
+                                        bucket=bucket, fast=fast)
+        torch.cuda.synchronize()
+        assert bd.LAUNCHES == {"batched_decode_partial": 1}
+        assert all(torch.isfinite(t).all() for t in got)
+        assert torch.equal(got[0][0], torch.zeros_like(got[0][0]))
+        assert (got[1][0] == torch.finfo(torch.float32).min).all()
+        assert torch.equal(got[2][0], torch.zeros_like(got[2][0]))
+        assert (got[1] - want[1]).abs().max().item() <= 2e-5 * max(
+            1.0, want[1][1:].abs().max().item())     # slots with rows
+        assert (got[2] - want[2]).abs().max().item() <= 2e-5 * max(
+            1.0, want[2].abs().max().item())
+        mag = bd.batched_decode_magnitude(q, k, v, 1, lim, ks, vs,
+                                          bucket=bucket)
+        assert ((got[0] - want[0]).abs()
+                <= _value_tol(want[0], mag, fast)).all()
+        outs[bucket] = got
+    # slots 1 and 2 have the same rows under both buckets
+    for t384, tall in zip(outs[384], outs[None]):
+        assert torch.equal(t384[1:3], tall[1:3])
+    q2 = q.clone()
+    q2[0] += 1.0
+    lim = torch.tensor([0, 1, 256, 512], dtype=torch.int32, device=dev)
+    other = bd.batched_decode_partial(q2, k, v, 1, lim, ks, vs, bucket=None,
+                                      fast=fast)
+    for a, c in zip(other, outs[None]):
+        assert torch.equal(a[1:], c[1:])
+    # q = 0: every live p is exactly 1 in any frame, so under `fast` both
+    # round the same p * vs and acc agrees to the fp32 sums' order; without
+    # that rounding it would not
+    zero = torch.zeros_like(q)
+    want0 = bd.batched_decode_plain(zero, k, v, 1, lim, ks, vs, bucket=None,
+                                    fast=fast)
+    got0 = bd.batched_decode_partial(zero, k, v, 1, lim, ks, vs,
+                                     bucket=None, fast=fast)
+    tol0 = _value_tol(want0[0], None, False)
+    assert (got0[0] - want0[0]).abs().max().item() <= tol0
+    if fast and vs is not None:
+        raw = bd.batched_decode_plain(zero, k, v, 1, lim, ks, vs,
+                                      bucket=None, fast=False)
+        assert (raw[0] - want0[0]).abs().max().item() > tol0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_flash_two_segment_matches_plain_on_card(dev, dtype):
+    """Base positions 0 (no main tile), 1, 255, 256 and S-1, side offsets
+    across the 32-row chunk, with and without `live`."""
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    b, s, c, h, kv, d = 5, 512, 32, 16, 8, 128
+    k, v, ks, vs = _flash_cache(3, b, s, kv, d, dtype, dev)
+    sk, sv, sks, svs = _flash_cache(4, b, c, kv, d, dtype, dev)
+    q = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (b, h, d)).astype(np.float32)).to(dev)
+    base = torch.tensor([0, 1, 255, 256, 511], dtype=torch.int32,
+                        device=dev)
+    off = torch.tensor([0, 31, 7, 16, 3], dtype=torch.int32, device=dev)
+    want = fd.flash_decode_two_segment_plain(q, k, v, sk, sv, base, off, ks,
+                                             vs, sks, svs)
+    for live in (None, 511):
+        fd.reset_launches()
+        got = fd.flash_decode_gqa_two_segment(q, k, v, sk, sv, base, off, ks,
+                                              vs, sks, svs, live=live)
+        torch.cuda.synchronize()
+        assert fd.LAUNCHES["flash_decode_two_segment"] == 1
         _flash_close(got, want)
 
 

@@ -13,7 +13,7 @@ from pathlib import Path
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from qwen3_tpu.cli import main as jax_main  # noqa: E402
 from qwen3_tpu.io.checkpoint import write_checkpoint  # noqa: E402
@@ -26,6 +26,17 @@ from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PROMPT = "in the beginning"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops, which gain nothing from
+    intra-op threads and lose much to them when the suite's workers share
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -53,6 +64,19 @@ def test_completion_stream_matches_jax(ckpt, seed, temperature):
     assert got.ids == want.ids
     assert got.text == want.text
     assert got.n_generated == want.n_generated
+
+
+@pytest.mark.parametrize("seed,temperature", [(42, 0.0), (4, 0.8),
+                                              (5, 0.8)])
+def test_pallas_fast_completion_stream_matches_jax(ckpt, seed, temperature):
+    """Mode pallas-fast through the single-stream engine (the JAX CLI's
+    --qmode pallas-fast): the same stream as the JAX engine's; these seeds
+    have no bf16 rounding flip between the packages."""
+    kw = dict(_kw(ckpt, seed, temperature), mode="pallas-fast")
+    want = JaxEngine(JaxConfig(**kw)).generate(PROMPT, max_tokens=24)
+    got = Engine(EngineConfig(device="cpu", **kw)).generate(PROMPT,
+                                                            max_tokens=24)
+    assert got.ids == want.ids
 
 
 def test_chat_stream_matches_jax(ckpt):

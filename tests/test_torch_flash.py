@@ -2,7 +2,9 @@
 flash_decode.py) against the JAX package's Pallas kernels in interpret mode,
 at tests/test_flash.py's shapes: fp32, bf16 and int8 caches, positions at
 the tile edges (0, ts-1, ts, S-1) and prefill blocks that start at 0, across
-a tile boundary and at the end of the cache.
+a tile boundary and at the end of the cache; the serving engine's
+two-segment decode with base positions 0, 1, 255, 256 and S-1 and side
+offsets across the chunk.
 
 Tolerance 2e-5 (rtol and atol), the JAX package's own for its flash kernels:
 the plain versions repeat the Pallas kernels' arithmetic, and the two
@@ -125,7 +127,83 @@ def test_wrappers_on_cpu_run_the_plain_versions(dtype):
     assert torch.equal(
         tfd.flash_prefill_gqa(qt, tk, tv, qpos, tks, tvs),
         tfd.flash_prefill_plain(qt, tk, tv, qpos, tks, tvs))
-    assert tfd.LAUNCHES == {"flash_decode": 0, "flash_prefill": 0}
+    sk, sv, sks, svs = _side(dtype, 41)
+    base = torch.tensor([0, 256, 511], dtype=torch.int32)
+    off = torch.tensor([3, 0, SIDE_C - 1], dtype=torch.int32)
+    assert torch.equal(
+        tfd.flash_decode_gqa_two_segment(q1, tk, tv, sk, sv, base, off, tks,
+                                         tvs, sks, svs, live=511),
+        tfd.flash_decode_two_segment_plain(q1, tk, tv, sk, sv, base, off,
+                                           tks, tvs, sks, svs))
+    assert tfd.LAUNCHES == {"flash_decode": 0, "flash_prefill": 0,
+                            "flash_decode_two_segment": 0}
+
+
+SIDE_C = 32     # the serving engine's decode chunk
+
+
+def _side(dtype, seed):
+    """A side buffer [B, SIDE_C, KV, D] for K and V (torch), as _caches."""
+    out = []
+    for i in range(2):
+        f = np.random.default_rng(seed + i).standard_normal(
+            (B, SIDE_C, KV, D)).astype(np.float32)
+        if dtype == "int8":
+            sc = (np.abs(f).max(axis=-1) / 127.0 + 1e-6).astype(np.float32)
+            q = np.clip(np.round(f / sc[..., None]), -127, 127)
+            out.append((torch.from_numpy(q.astype(np.int8)),
+                        torch.from_numpy(sc)))
+        else:
+            out.append((torch.from_numpy(f).to(getattr(torch, dtype)), None))
+    (k, ks), (v, vs) = out
+    return k, v, ks, vs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("base_set,off_set", [([0, 255, 256], [0, 31, 17]),
+                                              ([1, S - 1, 100], [5, 0, 31])])
+def test_two_segment_plain_matches_pallas(dtype, base_set, off_set):
+    """Main rows < base_pos (base 0 reads no main tile; 255 and 256 sit at
+    the tile edge) and side rows <= offsets, under one softmax."""
+    q = np.random.default_rng(8).standard_normal((B, H, D)).astype(
+        np.float32)
+    (jk, jv, jks, jvs), (tk, tv, tks, tvs) = _caches(dtype, 50)
+    sk, sv, sks, svs = _side(dtype, 60)
+    jside = [None if t is None else jnp.asarray(
+        t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy(),
+        dtype=jnp.bfloat16 if t.dtype == torch.bfloat16 else None)
+        for t in (sk, sv, sks, svs)]
+    base, off = np.array(base_set), np.array(off_set)
+    want = jfd.flash_decode_gqa_two_segment(
+        jnp.asarray(q), jk, jv, jside[0], jside[1],
+        jnp.asarray(base, jnp.int32), jnp.asarray(off, jnp.int32), jks, jvs,
+        jside[2], jside[3], block_s=TS, interpret=True)
+    got = tfd.flash_decode_two_segment_plain(
+        torch.from_numpy(q), tk, tv, sk, sv, torch.from_numpy(base),
+        torch.from_numpy(off), tks, tvs, sks, svs, block_s=TS)
+    assert got.dtype == torch.float32 and got.shape == (B, H, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # `live` (max base_pos) bounds the tile loop without changing a bit
+    assert torch.equal(tfd.flash_decode_two_segment_plain(
+        torch.from_numpy(q), tk, tv, sk, sv, torch.from_numpy(base),
+        torch.from_numpy(off), tks, tvs, sks, svs, block_s=TS,
+        live=int(base.max())), got)
+
+
+def test_two_segment_plain_matches_dense_two_segment():
+    """Against the port's dense two-segment attention: the same values up
+    to the online softmax's fp32 order."""
+    rng = np.random.default_rng(9)
+    _, (tk, tv, tks, tvs) = _caches("int8", 70)
+    sk, sv, sks, svs = _side("int8", 80)
+    q1 = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32))
+    base = torch.tensor([0, 300, 512])
+    off = torch.tensor([0, 7, SIDE_C - 1])
+    got = tfd.flash_decode_two_segment_plain(q1, tk, tv, sk, sv, base, off,
+                                             tks, tvs, sks, svs)
+    want = tatt.gqa_attention_two_segment(q1, tk, tv, sk, sv, base, off,
+                                          tks, tvs, sks, svs)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("S_,block", [(8448, 256), (8224, 256), (64, 256),

@@ -1,6 +1,7 @@
 """Port `forward` / `decode_forward` logits against the JAX package's
-`forward` / `decode_forward_impl` in mode "pallas" (Pallas kernels in
-interpret mode), on identical weights carried across by params_from_jax.
+`forward` / `decode_forward_impl` in modes "pallas" and "pallas-fast"
+(Pallas kernels in interpret mode), on identical weights carried across by
+params_from_jax, and the serving decode over a chunk side buffer.
 
 Tolerance 1e-5 * max|logits|. The two packages' fp32 ops differ in the last
 ulp (XLA:CPU contracts multiply-adds into FMAs; rsqrt, exp and reduction
@@ -8,7 +9,9 @@ order differ between the libraries). Through the integer path such an ulp
 can move an activation across a Q8 rounding boundary, and one such flip
 moves the logits far past the tolerance; some random inputs have one. The
 seeds below have none on this suite's inputs; the flip itself is recorded in
-ROADMAP.md (Queue C) and is not a fault of either package.
+ROADMAP.md (Queue C) and is not a fault of either package. In pallas-fast a
+flip may also be a bf16 rounding of an activation or of the attention's
+probabilities; the token seeds of the pallas-fast tests have none.
 """
 
 import dataclasses
@@ -29,11 +32,24 @@ from qwen3_tpu.models.qwen3 import (  # noqa: E402
     init_kv_cache as jax_init_kv,
     init_params,
 )
+from qwen3_tpu.runtime import kvcache as jax_kvc  # noqa: E402
 from qwen3_tpu_torch.models import qwen3 as tq  # noqa: E402
+from qwen3_tpu_torch.runtime import kvcache as tkvc  # noqa: E402
 
 SEQ = 64
 _jax_decode = jax.jit(decode_forward_impl,
-                      static_argnames=("cfg", "mode", "attn"))
+                      static_argnames=("cfg", "mode", "attn", "attn_bucket"))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops, which gain nothing from
+    intra-op threads and lose much to them when the suite's workers share
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _close(got, want):
@@ -42,8 +58,8 @@ def _close(got, want):
     assert err <= 1e-5 * np.max(np.abs(want)), err
 
 
-def _pair(cfg, seed):
-    jp = init_params(synthetic_weights(cfg, seed=seed), mode="pallas",
+def _pair(cfg, seed, mode="pallas"):
+    jp = init_params(synthetic_weights(cfg, seed=seed), mode=mode,
                      max_seq_len=SEQ)
     tp = tq.params_from_jax({k: np.asarray(v) for k, v in jp.items()}, cfg,
                             device="cpu")
@@ -69,29 +85,103 @@ def test_flash_prefill_then_decode_matches_jax(preset, kv_dtype):
     _prefill_then_decode(preset, kv_dtype, "flash", tok_seed=4)
 
 
-def _prefill_then_decode(preset, kv_dtype, attn, tok_seed):
+@pytest.mark.parametrize("kv_dtype", ["int8", "float32"])
+@pytest.mark.parametrize("preset", ["tiny", "tiny8"])
+def test_pallas_fast_prefill_then_decode_matches_jax(preset, kv_dtype):
+    """Mode pallas-fast: the fast matmuls and the dense attention with bf16
+    dot operands, prefill then 8 decode steps."""
+    _prefill_then_decode(preset, kv_dtype, "dense", tok_seed=2,
+                         mode="pallas-fast")
+
+
+def _prefill_then_decode(preset, kv_dtype, attn, tok_seed, mode="pallas"):
     cfg = PRESETS[preset]
-    jp, tp = _pair(cfg, seed=0)
+    jp, tp = _pair(cfg, seed=0, mode=mode)
     toks = np.random.default_rng(tok_seed).integers(0, cfg.vocab_size,
                                                     (1, 16))
     jk, jv = jax_init_kv(cfg, 1, SEQ, jnp.dtype(kv_dtype))
     jl, jk, jv = jax_forward(jp, cfg, jnp.asarray(toks, jnp.int32), jk, jv,
-                             jnp.int32(0), mode="pallas", all_logits=True,
+                             jnp.int32(0), mode=mode, all_logits=True,
                              attn=attn)
     tk, tv = tq.init_kv_cache(cfg, 1, SEQ, kv_dtype, "cpu")
     tl, tk, tv = tq.forward(tp, cfg, torch.from_numpy(toks), tk, tv, 0,
-                            all_logits=True, attn=attn)
+                            all_logits=True, attn=attn, mode=mode)
     _close(tl.numpy(), jl)
     tok = int(np.argmax(np.asarray(jl)[0, -1]))
     for step in range(8):
         pos = 16 + step
         jl, jk, jv = _jax_decode(jp, cfg, jnp.asarray([tok], jnp.int32), jk,
                                  jv, jnp.asarray([pos], jnp.int32),
-                                 mode="pallas", attn=attn)
+                                 mode=mode, attn=attn)
         tl, tk, tv = tq.decode_forward(tp, cfg, torch.tensor([tok]), tk, tv,
-                                       torch.tensor([pos]), attn=attn)
+                                       torch.tensor([pos]), attn=attn,
+                                       mode=mode)
         _close(tl.numpy(), jl)
         tok = int(np.argmax(np.asarray(jl)[0]))
+
+
+@pytest.mark.parametrize("mode,attn", [("pallas-fast", "fused"),
+                                       ("pallas-fast", "dense"),
+                                       ("pallas", "fused"),
+                                       ("pallas", "flash")])
+def test_side_buffer_decode_matches_jax(mode, attn):
+    """decode_forward over a chunk side buffer (the serving step): three
+    slots prefilled to 16, then 6 steps writing the side buffer at the
+    step index, the main cache read only; int8 KV, a 128-row cache and
+    bucket."""
+    cfg = PRESETS["tiny"]
+    B, C, rows = 3, 8, 128
+    jp = init_params(synthetic_weights(cfg, seed=1234), mode=mode,
+                     max_seq_len=rows)
+    tp = tq.params_from_jax({k: np.asarray(v) for k, v in jp.items()}, cfg,
+                            device="cpu")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, 16))
+    jk, jv = jax_init_kv(cfg, B, rows, jnp.int8)
+    jl, jk, jv = jax_forward(jp, cfg, jnp.asarray(toks, jnp.int32), jk, jv,
+                             jnp.int32(0), mode=mode)
+    tk, tv = tq.init_kv_cache(cfg, B, rows, "int8", "cpu")
+    tl, tk, tv = tq.forward(tp, cfg, torch.from_numpy(toks), tk, tv, 0,
+                            mode=mode)
+    _close(tl.numpy(), jl)
+    base = np.full(B, 16, np.int32)
+    jsk, jsv = jax_kvc.make_side(jk, C), jax_kvc.make_side(jv, C)
+    tsk, tsv = tkvc.make_side(tk, C), tkvc.make_side(tv, C)
+    extra = {}
+    if attn == "fused":
+        extra = dict(attn_bucket=rows, scales_t=(
+            jk[1].reshape(cfg.n_layers, B, -1),
+            jv[1].reshape(cfg.n_layers, B, -1)))
+    tok = np.array(jnp.argmax(jl[:, 0], -1))
+    for step in range(6):
+        pos = base + step
+        jl, jsk, jsv = _jax_decode(
+            jp, cfg, jnp.asarray(tok, jnp.int32), jk, jv, jnp.asarray(pos),
+            mode=mode, attn=attn,
+            side=(jsk, jsv, jnp.asarray(base), jnp.int32(step)), **extra)
+        tl, tsk, tsv = tq.decode_forward(
+            tp, cfg, torch.from_numpy(tok), tk, tv, torch.from_numpy(pos),
+            mode=mode, attn=attn, side=(tsk, tsv, torch.from_numpy(base),
+                                        step), attn_bucket=rows)
+        _close(tl.numpy(), jl)
+        tok = np.argmax(np.asarray(jl), -1)
+    # the main cache stayed read only; the side rows are the JAX package's
+    assert torch.equal(tk[0][:, :, 16:], torch.zeros_like(tk[0][:, :, 16:]))
+    np.testing.assert_array_equal(tsk[0].numpy(), np.asarray(jsk[0]))
+
+
+def test_params_from_jax_is_the_same_for_every_pallas_mode():
+    """Every pallas mode packs the same tensors (qwen3_tpu/models/qwen3.py
+    _host_params), so a pallas-fast pytree carries over to the same
+    parameters as a pallas one."""
+    cfg = PRESETS["tiny8"]
+    w = synthetic_weights(cfg, seed=3)
+    got = [tq.params_from_jax(
+        {k: np.asarray(v) for k, v in init_params(
+            w, mode=mode, max_seq_len=SEQ).items()}, cfg, device="cpu")
+        for mode in ("pallas", "pallas-fast")]
+    assert got[0].keys() == got[1].keys()
+    for key in got[0]:
+        assert torch.equal(got[0][key], got[1][key]), key
 
 
 def test_untied_classifier_matches_jax():
@@ -128,16 +218,21 @@ def test_last_pos_and_padded_block():
 
 
 def test_flash_attention_is_refused():
-    """Only "dense" and "flash" run: flash is ported, and an attention the
-    port lacks (the serving path's "fused") is refused, not replaced."""
+    """"dense" and "flash" run everywhere; "fused" (the serving step's
+    batched decode kernel) runs only over the side buffer and is refused
+    elsewhere rather than replaced by dense; an attention the port lacks
+    (the JAX package's debug "none") is refused as not ported."""
     cfg = PRESETS["tiny"]
     _, tp = _pair(cfg, seed=0)
     tk, tv = tq.init_kv_cache(cfg, 1, SEQ, "float32", "cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="side buffer"):
         tq.forward(tp, cfg, torch.tensor([[1, 2]]), tk, tv, 0, attn="fused")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="side buffer"):
         tq.decode_forward(tp, cfg, torch.tensor([1]), tk, tv,
                           torch.tensor([0]), attn="fused")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tq.decode_forward(tp, cfg, torch.tensor([1]), tk, tv,
+                          torch.tensor([0]), attn="none")
     logits, _, _ = tq.forward(tp, cfg, torch.tensor([[1, 2]]), tk, tv, 0,
                               attn="flash")
     assert torch.isfinite(logits).all()

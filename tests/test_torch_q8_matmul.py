@@ -1,7 +1,8 @@
-"""The Q8_0 x Q8_0 matmul of the PyTorch port against the JAX package's
-Pallas kernels (q8_q8_matmul_stacked / q8_q8_matmul_tiled in interpret mode),
-on weights repacked by the JAX package's repack_tiles and un-tiled by the
-port, plus the CUDA kernel against its plain version where a card exists.
+"""The Q8_0 matmuls of the PyTorch port against the JAX package's Pallas
+kernels (q8_q8_matmul_stacked / q8_q8_matmul_tiled, and the pallas-fast
+q8_matmul_stacked_fast / q8_matmul_tiled_fast, in interpret mode), on
+weights repacked by the JAX package's repack_tiles and un-tiled by the port.
+The CUDA kernels against their plain versions are in test_torch_cuda.py.
 
 Tolerance against JAX. The group dots are exact integers in both packages,
 and both sum the fp32 terms dot * (xs * ws) in the same order. They still
@@ -23,6 +24,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from qwen3_tpu.ops.pallas.q8_matmul import (  # noqa: E402
+    q8_matmul_stacked_fast as jax_stacked_fast,
+    q8_matmul_tiled_fast as jax_tiled_fast,
     q8_q8_matmul_stacked as jax_stacked,
     q8_q8_matmul_tiled as jax_tiled,
     repack_tiles,
@@ -155,7 +158,12 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
                                 torch.from_numpy(wq), torch.from_numpy(ws),
                                 32)
     assert out.shape == (2, 64)
-    assert tq.LAUNCHES == {"stacked": 0, "tiled": 0}
+    out = tq.q8_matmul_tiled_fast(torch.from_numpy(xq).float(),
+                                  torch.from_numpy(wq), torch.from_numpy(ws),
+                                  32)
+    assert out.shape == (2, 64)
+    assert tq.LAUNCHES == {"stacked": 0, "tiled": 0, "stacked_fast": 0,
+                           "tiled_fast": 0}
 
 
 def test_non_cpu_tensor_never_takes_plain_version():
@@ -169,3 +177,99 @@ def test_non_cpu_tensor_never_takes_plain_version():
         tq.q8_q8_matmul_tiled(xq, xs, wq, ws, 32)
     with pytest.raises(ValueError, match="power of two"):
         tq.q8_q8_matmul_tiled(xq, xs, wq, ws, 48)
+    x = torch.empty(1, 128, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="must be on"):
+        tq.q8_matmul_tiled_fast(x, wq, ws, 32)
+    with pytest.raises(ValueError, match="power of two"):
+        tq.q8_matmul_stacked_fast(x, wq[None], ws[None], 0, 48)
+
+
+# -- pallas-fast --------------------------------------------------------------
+#
+# Tolerance against JAX: 1e-5 * max(1, max|want|). Both packages take the
+# same bf16 operands (the activation rounded to nearest even, the weight
+# bf16(f32(wq) * ws)), and every product of two bf16 values is exact in
+# fp32, so only the order of the fp32 sums differs: the Pallas kernel's
+# full-K dot per 512-wide k-tile (XLA:CPU's order in interpret mode) against
+# the port's per-group sequential sums added group by group. Measured: at
+# most 4.2e-7 over the shapes below.
+
+def _fast_inputs(seed, b, n, d, g, layers=None):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, n)).astype(np.float32)
+    lead = () if layers is None else (layers,)
+    wq = rng.integers(-127, 128, size=lead + (d, n)).astype(np.int8)
+    ws = (0.02 / 127 * (0.5 + rng.random(lead + (d, n // g)))).astype(
+        np.float32)
+    return x, wq, ws
+
+
+def _fast_close(got, want):
+    err = np.max(np.abs(got - want))
+    assert err <= 1e-5 * max(1.0, float(np.max(np.abs(want)))), err
+
+
+@pytest.mark.parametrize("b", [1, 5, 64])
+@pytest.mark.parametrize("d", [768, 1024])
+@pytest.mark.parametrize("n", [256, 3072])
+def test_fast_stacked_and_tiled_plain_match_jax(n, d, b):
+    """Layer kernel (layer 1 of a 2-layer stack) and classifier kernel
+    (layer 0's weights alone)."""
+    g = 64
+    x, wq, ws = _fast_inputs(n + d + b, b, n, d, g, layers=2)
+    qt, st = _jax_packed(wq, ws, g)
+    w_q = torch.from_numpy(untile(qt, d))
+    w_s = torch.from_numpy(untile(st, d))
+    want = np.asarray(jax_stacked_fast(jnp.asarray(x), jnp.asarray(qt),
+                                       jnp.asarray(st), jnp.int32(1), g,
+                                       interpret=True))[:, :d]
+    got = tq.q8_matmul_stacked_fast(torch.from_numpy(x), w_q, w_s, 1,
+                                    g).numpy()
+    _fast_close(got, want)
+    qt0, st0 = _jax_packed(wq[0], ws[0], g)
+    want = np.asarray(jax_tiled_fast(jnp.asarray(x), jnp.asarray(qt0),
+                                     jnp.asarray(st0), g,
+                                     interpret=True))[:, :d]
+    got = tq.q8_matmul_tiled_fast(torch.from_numpy(x), w_q[0], w_s[0],
+                                  g).numpy()
+    _fast_close(got, want)
+
+
+def test_fast_plain_rows_do_not_depend_on_the_batch():
+    """Row r of a b = 64 call equals, bit for bit, the same row run alone
+    (the serving engine's contract that a stream's tokens do not depend on
+    its batch-mates; the CUDA kernel is held to it in test_torch_cuda.py)."""
+    g, n, d = 64, 1024, 320
+    x, wq, ws = _fast_inputs(9, 64, n, d, g)
+    xt, wq, ws = (torch.from_numpy(a) for a in (x, wq, ws))
+    full = tq.q8_fast_matmul_plain(xt, wq, ws, g)
+    for r in (0, 17, 63):
+        assert torch.equal(full[r:r + 1],
+                           tq.q8_fast_matmul_plain(xt[r:r + 1], wq, ws, g))
+
+
+def test_fast_plain_order_is_the_kernels():
+    """Pins the plain version's order against an independent float64
+    emulation: each step rounded to fp32, per group the products summed in
+    k order, then the groups in order (an fp32 sum whose operands are
+    products of bf16 values rounds once, as the kernel's fmaf does)."""
+    g, n, d, b = 32, 128, 5, 3
+    x, wq, ws = _fast_inputs(4, b, n, d, g)
+    xt = torch.from_numpy(x)
+    got = tq.q8_fast_matmul_plain(xt, torch.from_numpy(wq),
+                                  torch.from_numpy(ws), g).numpy()
+    xb = xt.to(torch.bfloat16).float().numpy().astype(np.float64)
+    wf = (torch.from_numpy(wq).float().reshape(d, n // g, g)
+          * torch.from_numpy(ws)[..., None]).to(torch.bfloat16).float()
+    wb = wf.reshape(d, n).numpy().astype(np.float64)
+    want = np.zeros((b, d), np.float32)
+    for r in range(b):
+        for c in range(d):
+            o = np.float32(0)
+            for gi in range(n // g):
+                s = np.float32(0)
+                for k in range(gi * g, (gi + 1) * g):
+                    s = np.float32(np.float64(s) + xb[r, k] * wb[c, k])
+                o = np.float32(np.float64(o) + np.float64(s))
+            want[r, c] = o
+    np.testing.assert_array_equal(got, want)
