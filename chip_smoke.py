@@ -18,8 +18,11 @@ final line:
    Q8_0 matmuls (b = 1, 64, 256, 512) and the pallas-fast matmuls (b = 1,
    8, 64, 128, 512) bit for bit, the latter also across batch sizes; the
    flash kernels, batched decode (B = 8 and 64) and two-segment flash
-   within their tolerances; then the sampler on the card against its CPU
-   run at the vocabulary of qwen3-0.6b (see check_sampler);
+   within their tolerances; the pallas-int8 matmuls (b = 1, 8, 64, 256, 512)
+   bit for bit and across batch sizes; the fused-prologue matmul for each
+   (prologue, exact/fast) pair of the main path (b = 1, 8, 64, 512) against
+   its plain version and the unfused kernel; then the sampler on the card
+   against its CPU run at the vocabulary of qwen3-0.6b (see check_sampler);
 4. end to end: a synthetic qwen3-0.6b checkpoint (full width and depth,
    random weights from a seed) through the port's CLI main() with its
    defaults (--qmode pallas --kv-dtype int8 --attn auto --device cuda):
@@ -28,17 +31,21 @@ final line:
    with its defaults (--qmode pallas-fast --kv-dtype int8 --attn auto
    --batch 8 -c 1024), greedy and seeded twice (equal records), --batch 64
    -c 512, --batch 1 -c 32768 at depth, a BatchedChat, and batch
-   invariance (see phase_serving); after each run the kernels' launch
-   counts must equal what its forward passes need;
+   invariance (see phase_serving); then the other modes (see phase_modes):
+   the CLI with --qmode exact, bf16 and pallas-int8, the CLI and serve.py
+   with QWEN3_TPU_FUSE=1 (the same tokens as without), serve.py --qmode
+   pallas-int8; after each run the kernels' launch counts must equal what
+   its forward passes need; 4b. the quality table on the same checkpoint at
+   -c 1024 (see phase_quality);
 5. the path against its plain version, step by step with the card's
    rounding decisions forced on the CPU (every op within 1e-5 of its max,
    every rounding step bit for bit, logits and argmax): a 64-token prefill
    block (and free-running within twice the CPU path's own spread under a
    one-ulp nudge of its input, see phase_plain_path), the flash block and
-   step at depth 8192, and one serving decode step at B = 8 (see
-   phase_serving_plain);
+   step at depth 8192, one serving decode step at B = 8 (see
+   phase_serving_plain) and a 64-token pallas-int8 block;
 6. profile: torch.profiler over a warm greedy completion (one prefill
-   block, 64 decode steps) and over one 32-step serving chunk at B = 8
+   block, 64 decode steps), unfused and with the fused matmuls, and over one 32-step serving chunk at B = 8
    (-c 1024) and at B = 64 (-c 512):
    device time by kernel, kernels per step and the device's idle share.
 
@@ -51,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -729,6 +737,223 @@ def phase_batched_kernels(torch):
     return rows, err
 
 
+INT8_BATCHES = (1, 8, 64, 256, 512)  # decode, the serve default, prefill
+FUSED_BATCHES = (1, 8, 64, 512)
+# the fused matmul's prologue before each matrix on the main path
+FUSED_PROLOGUES = {"wqkv": "norm", "wo": "none", "w13": "norm",
+                   "w2": "swiglu", "classifier": "norm"}
+
+
+def weight_stack(torch, name, gen):
+    """Random Q8_0 weights of one qwen3-0.6b matrix on the card: [L, d, n]
+    (the classifier [d, n]) int8 with f32 group scales, and the library
+    yardstick's copy dequantized once to bf16."""
+    n, d = MATRICES[name]
+    lead = (L,) if name != "classifier" else ()
+    w_q = torch.randint(-127, 128, lead + (d, n), dtype=torch.int8,
+                        device="cuda", generator=gen)
+    w_s = 0.02 / 127 * (0.5 + torch.rand(lead + (d, n // G), device="cuda",
+                                         generator=gen))
+    w_bf = (w_q.float().reshape(*lead, d, n // G, G)
+            * w_s[..., None]).reshape(*lead, d, n).to(torch.bfloat16)
+    return w_q, w_s, w_bf
+
+
+def int8_bound_ms(b, n, d):
+    """The least time for a pallas-int8 matmul: the int8 weights and their
+    f32 scales, the f32 activations read once and the f32 output written
+    once, over the memory rate; or its int8 operations over the int8
+    peak."""
+    nbytes = d * n + 4 * d * (n // G) + 4 * b * n + 4 * b * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * b * n * d / INT8_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_int8_kernels(torch):
+    """The pallas-int8 matmul kernels (q8i8 stacked and tiled) against
+    their plain version on the card at qwen3-0.6b's matrices, b in
+    INT8_BATCHES, bit for bit; each row of every b equal, bit for bit, to
+    the same row in the b = 512 call. Times as phase_kernels' (the wrapper,
+    which quantizes the activations per (row, k-tile) with PyTorch ops
+    before the kernel, as the JAX function does with XLA ops)."""
+    import torch.nn.functional as F
+
+    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    rows = []
+    for name, (n, d) in MATRICES.items():
+        stacked = name != "classifier"
+        w_q, w_s, w_bf = weight_stack(torch, name, gen)
+        x_all = torch.randn(max(INT8_BATCHES), n, device="cuda",
+                            generator=gen)
+
+        def call(x, i):
+            if stacked:
+                return qm.q8i8_matmul_stacked(x, w_q, w_s, i % L, G)
+            return qm.q8i8_matmul_tiled(x, w_q, w_s, G)
+
+        widest = call(x_all, L - 1)
+        for b in INT8_BATCHES:
+            x = x_all[:b].contiguous()
+
+            def kernel(i, x=x):
+                return call(x, i)
+
+            def plain(i, x=x):
+                return qm.q8i8_matmul_plain(
+                    x, w_q[i % L] if stacked else w_q,
+                    w_s[i % L] if stacked else w_s, G)
+
+            def library(i, x=x):
+                return F.linear(x.to(torch.bfloat16),
+                                w_bf[i % L] if stacked else w_bf)
+
+            err = 0.0
+            for layer in ((0, L - 1) if stacked else (0,)):
+                got, want = kernel(layer), plain(layer)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    fail(f"int8 {name} b={b}: non-finite kernel output")
+                err = max(err, (got - want).abs().max().item())
+                if not torch.equal(got, want):
+                    fail(f"int8 {name} b={b} layer={layer}: kernel != plain "
+                         f"(max_abs_diff {err:.3e})")
+            if not torch.equal(kernel(L - 1), widest[:b]):
+                fail(f"int8 {name} b={b}: rows differ from the same rows at "
+                     f"b={max(INT8_BATCHES)}")
+            bnd, by = int8_bound_ms(b, n, d)
+            row = dict(matrix=name, kernel="stacked_int8" if stacked
+                       else "tiled_int8", b=b, n=n, d=d, max_abs_diff=err,
+                       kernel_ms=device_ms(torch, kernel),
+                       plain_ms=device_ms(torch, plain, reps=3),
+                       library_ms=device_ms(torch, library), bound_ms=bnd,
+                       bound_by=by)
+            rows.append(row)
+            log("int8 " + json.dumps(row))
+        del w_q, w_s, w_bf
+        torch.cuda.empty_cache()
+    log(f"int8 matmuls: every row bit-equal at b in {list(INT8_BATCHES)}; "
+        "ms includes the activation quantization; library_ms = "
+        "torch.nn.functional.linear on bf16 with the weights dequantized "
+        "once to bf16")
+    return rows
+
+
+def fused_bound_ms(b, n, d, prologue, exact):
+    """The least time for a fused matmul: the int8 weights and their f32
+    scales, the f32 raw activations (both halves for swiglu), the norm
+    weights and row factors, read once, and the f32 output written once,
+    over the memory rate; or its operations (int8 when exact, else bf16)
+    over their peak."""
+    width = 2 * n if prologue == "swiglu" else n
+    nbytes = d * n + 4 * d * (n // G) + 4 * b * width + 4 * b * d
+    if prologue == "norm":
+        nbytes += 4 * n + 4 * b
+    peak = INT8_OPS_PER_S if exact else BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * b * n * d / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_fused_kernels(torch):
+    """The prologue-fused kernel for each (prologue, exact/fast) pair the
+    main path runs (norm before wqkv, w13 and the classifier, none before
+    wo, swiglu before w2) at qwen3-0.6b's matrices (layer 27's weights),
+    b in FUSED_BATCHES, the norm's row factors rms_inv(x) given,
+    against its plain version (the port's unfused chain in plain ops) and
+    against the unfused kernel (the q8q8 or the fast tile kernel) on the
+    plain prologue's output, bit for bit (the swiglu prologue's sigmoid
+    is torch.sigmoid's formula and expf). Each row also equal to the same
+    row of the b = 512 call. Times: the kernel, its plain
+    version, and as the library yardstick the unfused chain (the plain
+    prologue ops, the quantization or bf16 rounding, and the unfused
+    kernel)."""
+    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+    from qwen3_tpu_torch.ops.norms import rms_inv
+    from qwen3_tpu_torch.ops.q8 import quantize_act
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    rows = []
+    for name, (n, d) in MATRICES.items():
+        prologue = FUSED_PROLOGUES[name]
+        w_q, w_s, _ = weight_stack(torch, name, gen)
+        wl, sl = (w_q[L - 1], w_s[L - 1]) if name != "classifier" else (
+            w_q, w_s)
+        width = 2 * n if prologue == "swiglu" else n
+        x_all = torch.randn(max(FUSED_BATCHES), width, device="cuda",
+                            generator=gen)
+        nw = 1 + 0.1 * torch.randn(n, device="cuda", generator=gen)
+        for exact in (True, False):
+            def kernel(x, inv):
+                return qm.q8_matmul_fused(x, wl, sl, G, inv, nw,
+                                          prologue=prologue, exact=exact)
+
+            def plain(x, inv):
+                return qm.q8_fused_matmul_plain(x, wl, sl, G, inv, nw,
+                                                prologue=prologue,
+                                                exact=exact)
+
+            def unfused(x, inv):
+                h = qm.fused_prologue(x, inv, nw, prologue)
+                if exact:
+                    return qm.q8_q8_matmul_tiled(*quantize_act(h, G), wl, sl,
+                                                 G)
+                return qm.q8_matmul_tiled_fast(h.to(torch.bfloat16), wl, sl,
+                                               G)
+
+            def row_inv(x):
+                return rms_inv(x) if prologue == "norm" else None
+
+            inv_all = row_inv(x_all)
+            widest = kernel(x_all, inv_all)
+            for b in FUSED_BATCHES:
+                x = x_all[:b].contiguous()
+                # the widest call's row factors: torch.mean's reduction order
+                # on the card may follow the number of rows, and the kernel's
+                # batch invariance is checked on the same inputs
+                inv = None if inv_all is None else inv_all[:b].contiguous()
+                if inv is not None and not torch.equal(inv, row_inv(x)):
+                    log(f"fused {name}: rms_inv of {b} rows differs from the "
+                        f"same rows' in a {max(FUSED_BATCHES)}-row call")
+                got = kernel(x, inv)
+                label = f"fused {name} {prologue} exact={exact} b={b}"
+                gaps = []
+                for ref_name, ref in (("plain", plain(x, inv)),
+                                      ("unfused", unfused(x, inv))):
+                    torch.cuda.synchronize()
+                    if not torch.isfinite(got).all():
+                        fail(f"{label}: non-finite kernel output")
+                    gaps.append((got - ref).abs().max().item())
+                    if not torch.equal(got, ref):
+                        fail(f"{label}: kernel != {ref_name} (max_abs_diff "
+                             f"{gaps[-1]:.3e})")
+                if not torch.equal(got, widest[:b]):
+                    fail(f"{label}: rows differ from the same rows at "
+                         f"b={max(FUSED_BATCHES)}")
+                bnd, by = fused_bound_ms(b, n, d, prologue, exact)
+                row = dict(
+                    matrix=name, prologue=prologue, exact=exact, b=b, n=n,
+                    d=d, max_abs_diff=max(gaps),
+                    kernel_ms=device_ms(torch, lambda i: kernel(x, inv)),
+                    plain_ms=device_ms(torch, lambda i: plain(x, inv),
+                                       reps=3),
+                    library_ms=device_ms(torch, lambda i: unfused(x, inv)),
+                    bound_ms=bnd, bound_by=by)
+                rows.append(row)
+                log("fused " + json.dumps(row))
+        del w_q, w_s
+        torch.cuda.empty_cache()
+    log("fused matmul: bit-equal to its plain version and to the unfused "
+        "kernel on the plain prologue everywhere; library_ms = the unfused "
+        "chain (plain prologue ops + quantize_act or the bf16 rounding + the "
+        "q8q8 or fast tile kernel)")
+    return rows
+
+
 def check_sampler(torch, n_rows=64, vocab=151936, seed=0):
     """The sampler on the card against its run on the CPU (which
     tests/test_torch_runtime.py holds to the JAX package) on the same
@@ -859,15 +1084,21 @@ def launch_modules():
 def want_launches(calls):
     """What the forward passes counted in `calls` (models.qwen3.CALLS
     deltas) must launch: every pass 4 x 28 layer matmuls and 1 classifier
-    matmul of its mode's kernels; every pass that resolved to a kernel
-    attention 28 launches of it (prefill blocks flash prefill; decode steps
-    flash decode, or over the serving side buffer the two-segment flash or
-    the batched decode kernel); no other pass launches an attention
-    kernel."""
-    fast = calls["forward_fast"] + calls["decode_forward_fast"]
-    exact = calls["forward"] + calls["decode_forward"] - fast
-    return {"stacked": 4 * L * exact, "tiled": exact,
-            "stacked_fast": 4 * L * fast, "tiled_fast": fast,
+    matmul of its route's kernels (mode pallas the q8q8 kernels,
+    pallas-fast the fast ones, pallas-int8 the int8 ones, with fuse the
+    fused kernel for all 113; modes exact and bf16 no kernel); every pass
+    that resolved to a kernel attention 28 launches of it (prefill blocks
+    flash prefill; decode steps flash decode, or over the serving side
+    buffer the two-segment flash or the batched decode kernel); no other
+    pass launches an attention kernel."""
+    mm = {route: calls["mm_" + route] for route in (
+        "pallas", "pallas-fast", "pallas-int8", "fused")}
+    return {"stacked": 4 * L * mm["pallas"], "tiled": mm["pallas"],
+            "stacked_fast": 4 * L * mm["pallas-fast"],
+            "tiled_fast": mm["pallas-fast"],
+            "stacked_int8": 4 * L * mm["pallas-int8"],
+            "tiled_int8": mm["pallas-int8"],
+            "fused": (4 * L + 1) * mm["fused"],
             "flash_decode": L * calls["decode_forward_flash"],
             "flash_prefill": L * calls["forward_flash"],
             "flash_decode_two_segment":
@@ -959,7 +1190,7 @@ def phase_end_to_end(torch, path: str):
         fail("seeded: the two runs printed different bytes")
     out, err, runs["chat"] = checked_run(
         torch, "chat", base + ["-m", "chat", "-t", "0.8", "-s", "11", "-c",
-                               "384", "-y", "You are brief."],
+                               "192", "-y", "You are brief."],
         stdin_text="Tell me about the clockmaker.\nAnd the children?\n\n")
     if err.count("[t/ms") != 2:
         fail("chat: expected two turns with metrics")
@@ -1070,20 +1301,27 @@ def run_serve(argv, prompts, workdir: Path):
         err.getvalue()
 
 
-def checked_serve(torch, label, argv, prompts, workdir, attn, max_tokens):
+def checked_serve(torch, label, argv, prompts, workdir, attn, max_tokens,
+                  mode="pallas-fast", fuse=False):
     """One serve.py run with the launch-count check; every request must
     come back once with at most `max_tokens` tokens (none when its first
-    sample is a stop token), some tokens in all, every prefill block must
-    run pallas-fast and every decode step `attn`."""
+    sample is a stop token), some tokens in all, every prefill block and
+    decode step must run `mode` (its matmuls fused when `fuse`) and every
+    decode step `attn`."""
     (recs, err), run = checked(
         torch, label, lambda: run_serve(argv, prompts, workdir))
     calls = run["calls"]
     kind = {"fused": "decode_forward_fused",
             "flash": "decode_forward_two_segment"}[attn]
-    if (calls[kind] != run["steps"] or calls["forward_fast"] != run["blocks"]
-            or calls["decode_forward_fast"] != run["steps"]):
-        fail(f"{label}: passes {calls}; want every block pallas-fast and "
-             f"every step {attn}")
+    fast = mode == "pallas-fast"
+    if (calls[kind] != run["steps"]
+            or calls["forward_fast"] != fast * run["blocks"]
+            or calls["decode_forward_fast"] != fast * run["steps"]):
+        fail(f"{label}: passes {calls}; want every block {mode} and every "
+             f"step {attn}")
+    check_route(label, run, "fused" if fuse else mode)
+    if f"mode={mode}" not in err or f"fuse={int(fuse)}" not in err:
+        fail(f"{label}: the server did not run mode={mode} fuse={int(fuse)}")
     if f"attn={attn}" not in err:
         fail(f"{label}: the engine did not resolve attn={attn}")
     if sorted(r["id"] for r in recs) != list(range(len(prompts))):
@@ -1220,27 +1458,173 @@ def phase_serving(torch, path: str, workdir: Path):
     return runs
 
 
+@contextlib.contextmanager
+def fuse_env(on: bool = True):
+    """QWEN3_TPU_FUSE set for the entry points run inside (they read it
+    once, at their start), and restored after."""
+    old = os.environ.get("QWEN3_TPU_FUSE")
+    os.environ["QWEN3_TPU_FUSE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("QWEN3_TPU_FUSE")
+        else:
+            os.environ["QWEN3_TPU_FUSE"] = old
+
+
+def check_route(label, run, route):
+    """Every pass of the run took the matmul route `route` (models.qwen3
+    CALLS "mm_" keys: a mode, or "fused")."""
+    calls = run["calls"]
+    if calls["mm_" + route] != run["blocks"] + run["steps"]:
+        fail(f"{label}: passes {calls}; want every pass on the {route} "
+             f"matmuls")
+
+
+def phase_modes(torch, path: str, workdir: Path):
+    """The other modes' paths, each run with the launch-count check: the
+    CLI at qwen3-0.6b full size with --qmode exact, bf16 and pallas-int8 (a
+    short prompt at -c 512, 16 tokens; greedy, then seeded twice with equal
+    stdout); the CLI at its defaults with QWEN3_TPU_FUSE=1 in pallas and
+    pallas-fast (greedy, equal to the same command without it; pallas also
+    seeded twice); serve.py at its defaults (pallas-fast, B = 8) with
+    QWEN3_TPU_FUSE=1 on 8 prompts, greedy, equal to the run without it; and
+    serve.py --qmode pallas-int8 at B = 8, seeded twice with equal records.
+    With fuse on, every pass launches 113 fused kernels and no unfused
+    matmul. Returns the runs."""
+    base = [path, "--device", "cuda"]
+    prompt = PROMPT[:200]
+    runs = {}
+    for qmode in ("exact", "bf16", "pallas-int8"):
+        argv = base + ["-m", "completion", "-i", prompt, "-c", "512",
+                       "--max-tokens", "16", "--qmode", qmode]
+        out, _, runs[f"{qmode}_greedy"] = checked_run(
+            torch, f"--qmode {qmode} greedy", argv + ["-t", "0", "-s", "42"])
+        if not out.startswith(prompt.encode()):
+            fail(f"--qmode {qmode}: stdout does not start with the prompt")
+        seeded = argv + ["-t", "0.8", "-p", "0.9", "-s", "7"]
+        out1, _, runs[f"{qmode}_seeded_1"] = checked_run(
+            torch, f"--qmode {qmode} seeded run 1", seeded)
+        out2, _, runs[f"{qmode}_seeded_2"] = checked_run(
+            torch, f"--qmode {qmode} seeded run 2", seeded)
+        if out1 != out2:
+            fail(f"--qmode {qmode} seeded: the two runs printed different "
+                 f"bytes")
+        for name in ("greedy", "seeded_1", "seeded_2"):
+            check_route(f"--qmode {qmode} {name}", runs[f"{qmode}_{name}"],
+                        qmode)
+    for qmode in ("pallas", "pallas-fast"):
+        argv = base + ["-m", "completion", "-i", prompt, "--qmode", qmode,
+                       "-t", "0", "-s", "42", "--max-tokens", "32"]
+        plain, _, runs[f"{qmode}_unfused"] = checked_run(
+            torch, f"--qmode {qmode} greedy, fuse off", argv)
+        with fuse_env():
+            fused, err, runs[f"{qmode}_fused"] = checked_run(
+                torch, f"--qmode {qmode} greedy, QWEN3_TPU_FUSE=1", argv)
+        if "fuse=1" not in err:
+            fail(f"--qmode {qmode}: the CLI did not take QWEN3_TPU_FUSE=1")
+        check_route(f"--qmode {qmode} fused", runs[f"{qmode}_fused"],
+                    "fused")
+        log(f"--qmode {qmode} greedy: fused stdout equals unfused: "
+            f"{fused == plain}")
+        if fused != plain:
+            fail(f"--qmode {qmode}: greedy tokens with QWEN3_TPU_FUSE=1 "
+                 f"differ from those without")
+    seeded = base + ["-m", "completion", "-i", prompt, "-t", "0.8", "-p",
+                     "0.9", "-s", "7", "--max-tokens", "32"]
+    with fuse_env():
+        out1, _, runs["fused_seeded_1"] = checked_run(
+            torch, "QWEN3_TPU_FUSE=1 seeded run 1", seeded)
+        out2, _, runs["fused_seeded_2"] = checked_run(
+            torch, "QWEN3_TPU_FUSE=1 seeded run 2", seeded)
+    if out1 != out2:
+        fail("QWEN3_TPU_FUSE=1 seeded: the two runs printed different bytes")
+
+    prompts = serve_prompts(8, 5, 30, 6)
+    argv = base + ["-t", "0", "-s", "42", "--max-tokens", "32"]
+    plain, runs["serve_unfused"] = checked_serve(
+        torch, "serve greedy (defaults, 8 prompts), fuse off", argv, prompts,
+        workdir, "fused", 32)
+    with fuse_env():
+        fused, runs["serve_fused"] = checked_serve(
+            torch, "serve greedy (defaults, 8 prompts), QWEN3_TPU_FUSE=1",
+            argv, prompts, workdir, "fused", 32, fuse=True)
+    if untimed(fused) != untimed(plain):
+        fail("serve with QWEN3_TPU_FUSE=1 printed other records than "
+             "without")
+    argv = base + ["--qmode", "pallas-int8", "-t", "0.8", "-p", "0.9", "-s",
+                   "7", "--max-tokens", "32"]
+    rec1, runs["serve_int8_1"] = checked_serve(
+        torch, "serve --qmode pallas-int8 seeded run 1", argv, prompts,
+        workdir, "fused", 32, mode="pallas-int8")
+    rec2, runs["serve_int8_2"] = checked_serve(
+        torch, "serve --qmode pallas-int8 seeded run 2", argv, prompts,
+        workdir, "fused", 32, mode="pallas-int8")
+    if untimed(rec1) != untimed(rec2):
+        fail("serve --qmode pallas-int8 seeded: the two runs printed "
+             "different records")
+    return runs
+
+
+def phase_quality(torch, path: str):
+    """Phase 4b: the port's quality table on the synthetic qwen3-0.6b at
+    -c 1024, in two calls: the default modes (exact, pallas, pallas-fast,
+    bf16) and the pallas+int8kv row, whose gate must pass; then exact and
+    pallas-int8 (the JAX package's unadopted experiment), whose row is
+    logged whether or not it passes. Returns both JSON objects."""
+    from qwen3_tpu_torch.tools import quality_table
+
+    results = {}
+    for label, extra, must_pass in (
+            ("default modes", [], True),
+            ("pallas-int8", ["--modes", "exact,pallas-int8", "--no-int8-kv"],
+             False)):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = quality_table.main([path, "-c", "1024", "--device", "cuda"]
+                                    + extra)
+        line = out.getvalue().strip().splitlines()[-1]
+        res = json.loads(line)
+        log(f"quality table, {label}: rc {rc}, "
+            f"{time.perf_counter() - t0:.1f} s: {line}")
+        if must_pass and (rc != 0 or not res["pass"]):
+            fail(f"quality table, {label}: the gate failed:\n"
+                 f"{err.getvalue()}")
+        results[label] = res
+    return results
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 class Forcing:
     """The rounding steps of a forward pass, recorded on the card and
     replayed on the CPU: in mode pallas a Q8 activation quantization (before
     each matmul), in mode pallas-fast the bf16 rounding of the activation
-    (before each matmul), and in both an int8 KV encode. Under
-    spy("record") each step runs and keeps its input and outputs (on the
-    host); under spy("forced") each step returns the recorded outputs, in
-    order, and keeps the input it was given."""
+    (before each matmul), in mode pallas-int8 the activation quantization
+    per (row, k-tile) inside each int8 matmul and the bf16 rounding of each
+    dot operand of the dense attention (q, K, V and the probabilities), and
+    in all an int8 KV encode. Under spy("record") each step runs and keeps
+    its input, its other arguments and its outputs (on the host); under
+    spy("forced") each step returns the recorded outputs, in order, and
+    keeps the input it was given."""
 
     def __init__(self, mode: str = "pallas"):
         from qwen3_tpu_torch.models import qwen3 as model
+        from qwen3_tpu_torch.ops import attention
+        from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
         from qwen3_tpu_torch.runtime import kvcache as kvc
 
-        act = ("bf16", "round_bf16") if mode == "pallas-fast" else (
-            "q8", "quantize_act")
-        self.sites = {act[0]: (model, act[1]),
-                      "kv": (kvc, "quantize_heads")}
+        act = {"pallas": ("q8", model, "quantize_act"),
+               "pallas-fast": ("bf16", model, "round_bf16"),
+               "pallas-int8": ("q8i8", qm, "quantize_act")}[mode]
+        self.sites = {act[0]: act[1:], "kv": (kvc, "quantize_heads")}
+        if mode == "pallas-int8":
+            self.sites["att"] = (attention, "dot_operand")
         self.rounding = {k: getattr(*w) for k, w in self.sites.items()}
         self.card_log = {k: [] for k in self.sites}
+        self.card_args = {k: [] for k in self.sites}
         self.cpu_in = {k: [] for k in self.sites}
 
     def _record(self, kind):
@@ -1248,6 +1632,7 @@ class Forcing:
             out = self.rounding[kind](x, *rest)
             outs = out if isinstance(out, tuple) else (out,)
             self.card_log[kind].append((x.cpu(), [t.cpu() for t in outs]))
+            self.card_args[kind].append(rest)
             return out
         return step
 
@@ -1281,8 +1666,10 @@ class Forcing:
         widest (which must exceed the tolerance when `need_gap`), or at
         every row (`every_row`). Returns the logits' max_abs_diff."""
         loose = loose or {}
-        want_steps = {k: (2 if k == "kv" else 4) * cfg.n_layers
-                      + (k != "kv") for k in self.sites}
+        # per layer: 2 KV encodes, 4 attention dot operands, 4 matmul
+        # inputs; and the classifier's input
+        want_steps = {k: {"kv": 2, "att": 4}.get(k, 4) * cfg.n_layers
+                      + (k not in ("kv", "att")) for k in self.sites}
         rel, unequal, over = {}, {}, []
         for kind in self.sites:
             rel[kind] = []
@@ -1294,16 +1681,14 @@ class Forcing:
                 extra = loose.get((kind, i), 0.0)
                 if ((gap - extra).max().item() > 1e-5 * scale):
                     over.append((kind, i, d))
-            g = (cfg.group_size,) if kind == "q8" else ()
-
-            def same(x, outs, kind=kind, g=g):
-                out = self.rounding[kind](x, *g)
+            def same(x, outs, rest, kind=kind):
+                out = self.rounding[kind](x, *rest)
                 out = out if isinstance(out, tuple) else (out,)
                 return all(map(torch.equal, out, outs))
 
-            unequal[kind] = [i for i, (x, outs) in
-                             enumerate(self.card_log[kind])
-                             if not same(x, outs)]
+            unequal[kind] = [i for i, ((x, outs), rest) in enumerate(zip(
+                self.card_log[kind], self.card_args[kind]))
+                if not same(x, outs, rest)]
         tol = 1e-3 * forced_cpu.abs().max().item()
         diff = (card - forced_cpu).abs().max().item()
         top2 = torch.topk(forced_cpu, 2, dim=-1).values
@@ -1579,6 +1964,45 @@ def phase_serving_plain(torch, path: str):
     return diff
 
 
+def phase_plain_int8(torch, path: str):
+    """One 64-token prefill block in mode pallas-int8 at full size on the
+    card against the CPU plain path, step by step (see Forcing): the card's
+    per-(row, k-tile) activation quantizations, bf16 attention dot operands
+    and int8 KV encodes forced on the CPU; every op between them within
+    1e-5 of its max, every rounding step bit for bit, the logits within
+    1e-3 * max|logits| and the argmax equal at the position whose CPU top-2
+    gap is widest."""
+    from qwen3_tpu_torch.models import qwen3 as model
+    from qwen3_tpu_torch.tokenizer import Tokenizer
+
+    ids = Tokenizer.from_file(path).encode(PROMPT)[:64]
+    mode = "pallas-int8"
+    forcing = Forcing(mode)
+    t0 = time.perf_counter()
+
+    def logits_of(device, spy):
+        cfg, params = model.load_params(path, mode=mode, max_seq_len=256,
+                                        device=device)
+        k, v = model.init_kv_cache(cfg, 1, 256, "int8", device)
+        with forcing.spy(spy):
+            logits, _, _ = model.forward(params, cfg,
+                                         torch.tensor([ids], device=device),
+                                         k, v, 0, mode=mode, all_logits=True)
+        return cfg, logits[0].float().cpu()
+
+    cfg, card = logits_of("cuda", "record")
+    torch.cuda.empty_cache()
+    _, cpu = logits_of("cpu", "forced")
+    if card.shape != (64, cfg.vocab_size) or not torch.isfinite(card).all():
+        fail(f"pallas-int8 block logits: shape {tuple(card.shape)} or "
+             f"non-finite")
+    diff = forcing.check(torch, "pallas-int8 prefill block (64 tokens)",
+                         card, cpu, cfg)
+    log(f"pallas-int8 block vs the CPU plain path: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return diff
+
+
 # -- phase 6 -------------------------------------------------------------------
 
 def kernel_name(name: str) -> str:
@@ -1612,21 +2036,23 @@ def trace_busy(prof, path: str):
     return busy, len(kernels), end - kernels[0][0], by_name
 
 
-def phase_profile(torch, path: str):
+def phase_profile(torch, path: str, fuse: bool = False):
     """Where a decode step's time goes, over a warm greedy completion (one
-    64-row prefill block, then 64 decode steps): first timed alone, then
-    again under torch.profiler, read from its Chrome trace. Reports device
-    time by kernel, kernels per forward pass, and the device's idle share:
-    1 - busy / wall, with the busy time from the trace and the wall time
-    from the run without the profiler (whose own overhead would inflate
-    it); the share within the profiled span is printed beside it."""
+    64-row prefill block, then 64 decode steps; mode pallas, its matmuls
+    fused when `fuse`): first timed alone, then again under torch.profiler,
+    read from its Chrome trace. Reports device time by kernel, kernels per
+    forward pass, and the device's idle share: 1 - busy / wall, with the
+    busy time from the trace and the wall time from the run without the
+    profiler (whose own overhead would inflate it); the share within the
+    profiled span is printed beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     from qwen3_tpu_torch.models import qwen3 as model
     from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig
 
     eng = Engine(EngineConfig(path=path, temperature=0.0, seed=1,
-                              kv_dtype="int8", seq_len=4096, device="cuda"))
+                              kv_dtype="int8", seq_len=4096, device="cuda",
+                              fuse=fuse))
     prompt = PROMPT[:60]
     eng.generate(prompt, max_tokens=8)          # warm-up
     torch.cuda.synchronize()
@@ -1646,13 +2072,14 @@ def phase_profile(torch, path: str):
             "measured")
         return None
     busy, n_kernels, span, by_name = got
-    q8 = sum(v for k, v in by_name.items() if k.startswith("q8q8"))
+    matmul = sum(v for k, v in by_name.items()
+                 if k.startswith(("q8q8", "q8_fast", "q8i8", "fused_")))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    out = dict(wall_ms=wall_ms, n_generated=plain.n_generated,
+    out = dict(fuse=fuse, wall_ms=wall_ms, n_generated=plain.n_generated,
                prompt_ms=plain.prompt_ms, generate_ms=plain.generate_ms,
                ms_per_token=plain.ms_per_token, forward_passes=passes,
                kernels=n_kernels, kernels_per_pass=n_kernels / passes,
-               device_busy_ms=busy / 1e3, q8q8_kernel_ms=q8 / 1e3,
+               device_busy_ms=busy / 1e3, matmul_kernel_ms=matmul / 1e3,
                device_idle_share=1.0 - busy / 1e3 / wall_ms,
                profiled_span_ms=span / 1e3,
                profiled_idle_share=1.0 - busy / span,
@@ -1713,8 +2140,28 @@ def phase_serving_profile(torch, path: str, batch: int, seq_len: int):
 
 # -- report --------------------------------------------------------------------
 
+def matmul_entry(name, source, line, mine, per_pass, launches):
+    """A matmul kernel's line: the sums over `per_pass` rows ((row,
+    launches a pass)) of one forward pass, the worst difference over all
+    its rows `mine`."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"qwen3_tpu_torch/csrc/{source}",
+        "replaces": f"qwen3_tpu/ops/pallas/q8_matmul.py:{line}",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_diff"] for r in mine),
+        "ms": sum(r["kernel_ms"] * k for r, k in per_pass),
+        "plain_ms": sum(r["plain_ms"] * k for r, k in per_pass),
+        "bound_ms": sum(r["bound_ms"] * k for r, k in per_pass),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                   for r, _ in per_pass) else "operations",
+        "library_ms": sum(r["library_ms"] * k for r, k in per_pass),
+    }
+
+
 def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
-                  serve_err, counts):
+                  serve_err, int8_rows, fused_rows, counts):
     """Per kernel, one decoded token at the main path's shapes: the matmuls
     at b = 1 (4 stacked x 28 layers, 1 classifier), their launches over the
     path below depth 8192; flash decode at depth 8192 and flash prefill per
@@ -1722,7 +2169,10 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
     long-context path. The serving kernels per decode step of the serve
     defaults (B = 8): the fast matmuls at b = 8, batched decode at B = 8
     over 1152 rows (fast), two-segment flash at base 8192 (B = 1), their
-    launches over the serving path."""
+    launches over the serving path. The int8 and fused kernels per decoded
+    token at b = 1: the int8 matmuls (4 stacked x 28, 1 classifier) and the
+    fused matmul in mode pallas (exact: 4 x 28 layer matmuls and the
+    classifier), their launches over the modes path."""
     out = []
     for kind, source_line in (("stacked", 419), ("tiled", 314)):
         mine = [r for r in rows if r["kernel"] == kind]
@@ -1799,6 +2249,16 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"] * L,
         })
+    for kind, line in (("stacked_int8", 570), ("tiled_int8", 624)):
+        mine = [r for r in int8_rows if r["kernel"] == kind]
+        k = L if kind == "stacked_int8" else 1
+        out.append(matmul_entry(
+            f"q8i8_matmul_{kind.split('_')[0]}", "q8i8_matmul.cu", line, mine,
+            [(r, k) for r in mine if r["b"] == 1], counts["modes"][kind]))
+    out.append(matmul_entry(
+        "q8_matmul_fused", "q8_fused.cu", 748, fused_rows,
+        [(r, 1 if r["matrix"] == "classifier" else L) for r in fused_rows
+         if r["b"] == 1 and r["exact"]], counts["modes"]["fused"]))
     return out
 
 
@@ -1807,6 +2267,8 @@ def main() -> int:
     import torch
 
     _, kind = phase_device(torch)
+    # the paths below set QWEN3_TPU_FUSE themselves where they run fused
+    os.environ.pop("QWEN3_TPU_FUSE", None)
     sys.path.insert(0, str(HERE))
     try:
         import qwen3_tpu_torch  # noqa: F401
@@ -1817,6 +2279,8 @@ def main() -> int:
     flash_rows, flash_err = phase_flash_kernels(torch)
     fast_rows = phase_fast_kernels(torch)
     serve_rows, serve_err = phase_batched_kernels(torch)
+    int8_rows = phase_int8_kernels(torch)
+    fused_rows = phase_fused_kernels(torch)
     check_sampler(torch)
     workdir = HERE / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
@@ -1831,10 +2295,20 @@ def main() -> int:
                 "stacked_fast", "tiled_fast", "batched_decode_partial",
                 "flash_decode_two_segment")) == 0:
             fail("a kernel of the serving path was never launched")
+        reset_counts()
+        phase_modes(torch, path, workdir)
+        counts["modes"] = read_counts()
+        log(f"modes path launches (the runs above): {counts['modes']}")
+        if min(counts["modes"][k] for k in (
+                "stacked_int8", "tiled_int8", "fused")) == 0:
+            fail("a kernel of the modes path was never launched")
+        phase_quality(torch, path)
         phase_plain_path(torch, path)
         phase_plain_depth(torch, path)
         phase_serving_plain(torch, path)
+        phase_plain_int8(torch, path)
         phase_profile(torch, path)
+        phase_profile(torch, path, fuse=True)
         phase_serving_profile(torch, path, 8, 1024)
         phase_serving_profile(torch, path, 64, 512)
     finally:
@@ -1842,7 +2316,7 @@ def main() -> int:
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_report(
         rows, flash_rows, flash_err, fast_rows, serve_rows, serve_err,
-        counts)}), flush=True)
+        int8_rows, fused_rows, counts)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

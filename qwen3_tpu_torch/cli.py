@@ -12,8 +12,9 @@ Usage:  python -m qwen3_tpu_torch.cli <checkpoint.bin> [options]
   -r <int>     reasoning: 0=off, 1=thinking (default 1)
   --qmode      quantized math path (default pallas: the reference-exact
                Q8_0 x Q8_0 kernel; pallas-fast: bf16 activations x bf16-
-               dequantized weights; exact, bf16 and pallas-int8 are not
-               ported yet and raise)
+               dequantized weights; pallas-int8: the int8 requantized
+               kernel; exact: the reference's integer math as plain
+               products; bf16: weights dequantized once to bf16)
   --kv-dtype   float32|bfloat16|int8 KV cache dtype (default int8)
   --attn       auto|dense|flash (default auto: dense attention below depth
                8192, the flash kernels from there on)
@@ -22,6 +23,10 @@ Usage:  python -m qwen3_tpu_torch.cli <checkpoint.bin> [options]
                versions)
   --tp, --profile, --coordinator/--num-processes/--process-id
                accepted for compatibility; not ported yet (they raise)
+
+QWEN3_TPU_FUSE=1 in the environment runs the matmuls of modes pallas and
+pallas-fast through the prologue-fused kernel, as it does in the JAX package
+(the other modes ignore it).
 
 Generated text streams to stdout; diagnostics go to stderr with
 [Component] prefixes.
@@ -33,6 +38,7 @@ import argparse
 import sys
 import time
 
+from qwen3_tpu_torch.config import fuse_from_env
 from qwen3_tpu_torch.runtime.chat import ChatSession
 from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig
 
@@ -55,9 +61,10 @@ def build_engine(args) -> Engine:
         kv_dtype=args.kv_dtype,
         tp=args.tp,
         device=args.device,
+        fuse=fuse_from_env(),
     )
     print(f"[Engine] loading {cfg.path} (mode={cfg.mode}, "
-          f"device={cfg.device})", file=sys.stderr)
+          f"device={cfg.device}, fuse={int(cfg.fuse)})", file=sys.stderr)
     eng = Engine(cfg)
     mc = eng.model_cfg
     print(f"[Params] dim={mc.dim} hidden={mc.hidden_dim} layers={mc.n_layers} "

@@ -8,6 +8,7 @@ the reference bakes into compile flags or hard-codes.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 QWEN_MAGIC = 0x7177656E  # "qwen"
 QWEN_VERSION = 1
@@ -19,6 +20,16 @@ ROPE_THETA = 1e6
 
 # CLI-level context cap in the reference (include/tokenizer.h:27).
 MAX_SEQ_LEN = 32768
+
+
+def fuse_from_env(environ=None) -> bool:
+    """QWEN3_TPU_FUSE read as the JAX package reads it (qwen3_tpu/models/
+    qwen3.py::_make_fused_linear): "1" turns the prologue-fused matmuls on.
+    Only the entry points (the CLI, serve.py, the eval and the quality
+    table) call this and pass `fuse` down; nothing below them reads the
+    environment."""
+    env = os.environ if environ is None else environ
+    return env.get("QWEN3_TPU_FUSE", "0") == "1"
 
 
 @dataclasses.dataclass(frozen=True)

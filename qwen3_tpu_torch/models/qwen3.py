@@ -6,22 +6,42 @@ RoPE (theta 1e6, half-split) -> GQA attention over the KV cache -> output
 projection + residual -> FFN-RMSNorm -> w1/w3 -> SwiGLU -> w2 + residual;
 finally out-RMSNorm and the (possibly tied) classifier matmul.
 
-The contract is qwen3_tpu/models/qwen3.py's in modes "pallas" (the
-reference's integer math: activations quantized per group, int8 x int8 group
-dots, fp32 scale accumulation) and "pallas-fast" (the serving mode:
-activations rounded to bf16 times the weights dequantized to bf16, fp32
-sums; dense attention with bf16 dot operands): `forward` runs a [B, T] block
-from `start_pos`, `decode_forward` one token per slot at per-slot positions,
-optionally over the serving engine's chunk side buffer. Layers run as a
-Python loop; the KV cache is updated in place.
+The contract is qwen3_tpu/models/qwen3.py's in its five modes:
+- "pallas" (the reference's integer math: activations quantized per group,
+  int8 x int8 group dots, fp32 scale accumulation; the Q8_0 x Q8_0 kernels);
+- "pallas-fast" (the serving mode: activations rounded to bf16 times the
+  weights dequantized to bf16, fp32 sums; dense attention with bf16 dot
+  operands);
+- "pallas-int8" (the JAX package's unadopted experiment: activations
+  quantized per (row, 512-wide k-tile), the weight tile requantized to one
+  int8 scale per (k-tile, column), int8 dots; attention as pallas-fast);
+- "exact" (the reference's integer math as plain products,
+  ops/quant_matmul.py::q8_matmul_exact) and "bf16" (weights dequantized once
+  to bf16, activations rounded to bf16, ops/quant_matmul.py::
+  q8_matmul_bf16); both with separate Q/K/V and W1/W3 products and fp32
+  attention.
+`forward` runs a [B, T] block from `start_pos`, `decode_forward` one token
+per slot at per-slot positions, optionally over the serving engine's chunk
+side buffer. Layers run as a Python loop; the KV cache is updated in place.
+`fuse=True` (the JAX package's QWEN3_TPU_FUSE=1, which the entry points
+read) runs every matmul of modes pallas and pallas-fast through the
+prologue-fused kernel: the rmsnorm before wqkv, w13 and the classifier, and
+the swiglu before w2, run inside it. Its bits equal the unfused chain's;
+only the launches change. The other modes ignore it, as the JAX package's
+_make_fused_linear does.
 
 Parameters (a dict of tensors on one device):
   att_norm/ffn_norm [L, dim], out_norm [dim], q_norm/k_norm [L, head_dim]
   emb_q int8 [V, dim], emb_s f32 [V, dim/G]
-  wqkv_q [L, P + 2*KVD, dim], w13_q [L, 2*hidden, dim], wo_q [L, dim, P],
-  w2_q [L, dim, hidden] (int8, with `_s` f32 group scales [..., n/G]): the
-  checkpoint's row-major [out, in] layout, Q/K/V and W1/W3 fused along out
-  cls_q/cls_s [V, dim] (the embedding tensors themselves when tied)
+  pallas modes: wqkv_q [L, P + 2*KVD, dim], w13_q [L, 2*hidden, dim],
+  wo_q [L, dim, P], w2_q [L, dim, hidden] (int8, with `_s` f32 group scales
+  [..., n/G]): the checkpoint's row-major [out, in] layout, Q/K/V and W1/W3
+  fused along out; cls_q/cls_s [V, dim] (the embedding tensors themselves
+  when tied)
+  exact: wq_q, wk_q, wv_q, wo_q, w1_q, w2_q, w3_q [L, out, in] with `_s`,
+  and cls_q/cls_s
+  bf16: wq_t .. w3_t [L, in, out] and cls_t [dim, V], bf16 (the JAX
+  package's layout)
   rope_cos/rope_sin [max_seq_len, head_dim/2]
 """
 
@@ -47,21 +67,33 @@ from qwen3_tpu_torch.ops.cuda.flash_decode import (
     flash_prefill_gqa,
 )
 from qwen3_tpu_torch.ops.cuda.q8_matmul import (
+    q8_matmul_fused,
     q8_matmul_stacked_fast,
     q8_matmul_tiled_fast,
     q8_q8_matmul_stacked,
     q8_q8_matmul_tiled,
+    q8i8_matmul_stacked,
+    q8i8_matmul_tiled,
 )
-from qwen3_tpu_torch.ops.norms import rmsnorm
+from qwen3_tpu_torch.ops.norms import rms_inv, rmsnorm
 from qwen3_tpu_torch.ops.q8 import dequantize, quantize_act, round_bf16
+from qwen3_tpu_torch.ops.quant_matmul import (
+    dequant_weights_bf16,
+    q8_matmul_bf16,
+    q8_matmul_exact,
+)
 from qwen3_tpu_torch.ops.rope import apply_rope, rope_tables
 from qwen3_tpu_torch.runtime import kvcache as kvc
 
 Params = dict[str, Any]
 
-MODES = ("pallas", "pallas-fast")
+MODES = ("exact", "bf16", "pallas", "pallas-fast", "pallas-int8")
+# the modes with a fused-prologue kernel (qwen3_tpu's _make_fused_linear)
+FUSE_MODES = ("pallas", "pallas-fast")
+# the modes whose attention takes bf16 dot operands
+FAST_ATTN_MODES = ("pallas-fast", "pallas-int8")
 _FUSED = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3")}
-_LAYER_MATS = ("wqkv", "wo", "w13", "w2")
+_LAYER_MATS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
 
 # "fused" (the batched decode kernel) runs only in decode_forward over the
 # serving side buffer
@@ -70,11 +102,13 @@ ATTN = ("dense", "flash", "fused")
 # forward / decode_forward calls, and those of them in mode pallas-fast or
 # with a kernel attention (flash decode or prefill; over the side buffer:
 # the two-segment flash kernel, or the fused batched decode kernel), for
-# checking launch counts against them
+# checking launch counts against them; and every pass once under the route
+# its matmuls took: "mm_" + mode, or "mm_fused" for the fused-prologue kernel
 CALLS = {"forward": 0, "decode_forward": 0, "forward_flash": 0,
          "decode_forward_flash": 0, "forward_fast": 0,
          "decode_forward_fast": 0, "decode_forward_two_segment": 0,
-         "decode_forward_fused": 0}
+         "decode_forward_fused": 0, "mm_pallas": 0, "mm_pallas-fast": 0,
+         "mm_pallas-int8": 0, "mm_exact": 0, "mm_bf16": 0, "mm_fused": 0}
 
 
 def resolve_device(device) -> torch.device:
@@ -93,36 +127,70 @@ def resolve_device(device) -> torch.device:
 
 def check_mode(mode: str) -> None:
     if mode not in MODES:
-        raise NotImplementedError(
-            f"qmode {mode!r} is not ported yet (the port runs {MODES})")
+        raise ValueError(f"unknown qmode {mode!r} (the port runs {MODES})")
 
 
-def _host_params(w: Q8Weights) -> dict:
-    """Numpy parameter dict (everything but the rope tables)."""
+def _bf16_host(q: np.ndarray, s: np.ndarray, group_size: int) -> torch.Tensor:
+    """Q8_0 weights [..., d, n] to bf16 [..., n, d] on the host, one layer
+    at a time (qwen3_tpu's _dequant_bf16_host: bounds the fp32 transient)."""
+    if q.ndim == 2:
+        return dequant_weights_bf16(torch.from_numpy(np.array(q)),
+                                    torch.from_numpy(np.array(s)), group_size)
+    return torch.stack([_bf16_host(q[i], s[i], group_size)
+                        for i in range(q.shape[0])])
+
+
+def _host_params(w: Q8Weights, mode: str) -> dict:
+    """Host parameter dict for `mode` (everything but the rope tables):
+    numpy arrays, and bf16 tensors in mode bf16 (numpy has no bf16)."""
+    check_mode(mode)
     p = {
         "att_norm": w.att_norm, "ffn_norm": w.ffn_norm,
         "out_norm": w.out_norm, "q_norm": w.q_norm, "k_norm": w.k_norm,
         "emb_q": w.emb_q, "emb_s": w.emb_s,
     }
-    for out_name, parts in _FUSED.items():
-        p[out_name + "_q"] = np.concatenate(
-            [getattr(w, n + "_q") for n in parts], axis=-2)
-        p[out_name + "_s"] = np.concatenate(
-            [getattr(w, n + "_s") for n in parts], axis=-2)
-    for name in ("wo", "w2"):
-        p[name + "_q"] = getattr(w, name + "_q")
-        p[name + "_s"] = getattr(w, name + "_s")
+    if mode == "bf16":
+        g = w.config.group_size
+        for name in _LAYER_MATS:
+            p[name + "_t"] = _bf16_host(getattr(w, name + "_q"),
+                                        getattr(w, name + "_s"), g)
+        p["cls_t"] = _bf16_host(w.cls_q, w.cls_s, g)
+        return p
+    if mode == "exact":
+        for name in _LAYER_MATS:
+            p[name + "_q"] = getattr(w, name + "_q")
+            p[name + "_s"] = getattr(w, name + "_s")
+    else:   # every pallas mode packs the same tensors
+        for out_name, parts in _FUSED.items():
+            p[out_name + "_q"] = np.concatenate(
+                [getattr(w, n + "_q") for n in parts], axis=-2)
+            p[out_name + "_s"] = np.concatenate(
+                [getattr(w, n + "_s") for n in parts], axis=-2)
+        for name in ("wo", "w2"):
+            p[name + "_q"] = getattr(w, name + "_q")
+            p[name + "_s"] = getattr(w, name + "_s")
     if not w.config.shared_classifier:
         p["cls_q"], p["cls_s"] = w.cls_q, w.cls_s
     return p
 
 
+def _tensor(a) -> torch.Tensor:
+    """A host array as a tensor that owns its memory: np.array copies
+    (checkpoint arrays are read-only views of the file); a numpy bf16
+    (ml_dtypes) array goes through its uint16 bits."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def _to_device(host: dict, cfg: ModelConfig, max_seq_len: int,
                device) -> Params:
-    # np.array copies: checkpoint arrays are read-only views of the file
-    p: Params = {k: torch.from_numpy(np.array(v)).to(device)
-                 for k, v in host.items()}
-    if "cls_q" not in p:  # tied classifier: the embedding tensors themselves
+    p: Params = {k: _tensor(v).to(device) for k, v in host.items()}
+    if "cls_q" not in p and "cls_t" not in p:
+        # tied classifier: the embedding tensors themselves
         p["cls_q"], p["cls_s"] = p["emb_q"], p["emb_s"]
     p["rope_cos"], p["rope_sin"] = rope_tables(cfg.head_dim, max_seq_len,
                                                device=device)
@@ -131,25 +199,26 @@ def _to_device(host: dict, cfg: ModelConfig, max_seq_len: int,
 
 def init_params(w: Q8Weights, mode: str = "pallas",
                 max_seq_len: int | None = None, device="cuda") -> Params:
-    """Device parameters from host Q8 weights."""
-    check_mode(mode)
+    """Device parameters of `mode` from host Q8 weights."""
     dev = resolve_device(device)
     if max_seq_len is None:
         max_seq_len = w.config.seq_len
-    return _to_device(_host_params(w), w.config, max_seq_len, dev)
+    return _to_device(_host_params(w, mode), w.config, max_seq_len, dev)
 
 
 def load_params(path: str, mode: str = "pallas",
                 max_seq_len: int | None = None,
                 device="cuda") -> tuple[ModelConfig, Params]:
-    """Read a checkpoint into device parameters. Returns (ModelConfig,
-    Params). The layout needs no repack, so there is no disk cache."""
+    """Read a checkpoint into device parameters of `mode`. Returns
+    (ModelConfig, Params). The layouts need no repack, so there is no disk
+    cache."""
     check_mode(mode)
     dev = resolve_device(device)
     w = load_checkpoint(path)
     if max_seq_len is None:
         max_seq_len = w.config.seq_len
-    return w.config, _to_device(_host_params(w), w.config, max_seq_len, dev)
+    return w.config, _to_device(_host_params(w, mode), w.config, max_seq_len,
+                                dev)
 
 
 def untile(a, d: int) -> np.ndarray:
@@ -163,18 +232,26 @@ def untile(a, d: int) -> np.ndarray:
 
 def params_from_jax(jax_params: dict, cfg: ModelConfig, *,
                     device) -> Params:
-    """The port's parameters from qwen3_tpu's pytree of a pallas mode (every
-    pallas mode packs the same tensors), each leaf a numpy array: un-tiles
-    the [L, J, n, td] / [J, n, td] repack back to row-major [.., d, n] and
-    drops the classifier's zero padding."""
+    """The port's parameters from qwen3_tpu's pytree of any mode, each leaf
+    a numpy array. A pallas pytree (every pallas mode packs the same
+    tensors) is un-tiled from the [L, J, n, td] / [J, n, td] repack back to
+    row-major [.., d, n], without the classifier's zero padding; the exact
+    pytree's row-major tensors and the bf16 pytree's [.., in, out] bf16
+    tensors carry over as they are."""
     dev = resolve_device(device)
+    host = {k: np.asarray(jax_params[k]) for k in (
+        "att_norm", "ffn_norm", "out_norm", "q_norm", "k_norm",
+        "emb_q", "emb_s")}
+    if "wq_t" in jax_params or "wq_q" in jax_params:     # bf16 or exact
+        for k, v in jax_params.items():
+            if k.startswith(("w", "cls_")):
+                host[k] = np.asarray(v)
+        max_seq_len = np.asarray(jax_params["rope_cos"]).shape[0]
+        return _to_device(host, cfg, max_seq_len, dev)
     d_out = {
         "wqkv": cfg.proj_dim + 2 * cfg.kv_dim, "wo": cfg.dim,
         "w13": 2 * cfg.hidden_dim, "w2": cfg.dim, "cls": cfg.vocab_size,
     }
-    host = {k: np.asarray(jax_params[k]) for k in (
-        "att_norm", "ffn_norm", "out_norm", "q_norm", "k_norm",
-        "emb_q", "emb_s")}
     for name, d in d_out.items():
         host[name + "_q"] = untile(jax_params[name + "_q"], d)
         host[name + "_s"] = untile(jax_params[name + "_s"], d)
@@ -199,7 +276,24 @@ def _linear(p: Params, cfg: ModelConfig, x: torch.Tensor, name: str,
     """qwen3_tpu's _make_linear. Mode pallas: reference-exact integer math,
     activations quantized per group (src/forward.c:259), then the Q8_0 x
     Q8_0 kernel. Mode pallas-fast: activations rounded to bf16, then the
-    fast kernel (weights dequantized to bf16, fp32 sums)."""
+    fast kernel (weights dequantized to bf16, fp32 sums). Mode pallas-int8:
+    the int8 requantized kernel (it quantizes x per (row, k-tile)). Modes
+    exact and bf16: ops/quant_matmul.py."""
+    if mode == "exact":
+        xq, xs = quantize_act(x, cfg.group_size)
+        w_q, w_s = p[name + "_q"], p[name + "_s"]
+        if layer is not None:
+            w_q, w_s = w_q[layer], w_s[layer]
+        return q8_matmul_exact(xq, xs, w_q, w_s, cfg.group_size)
+    if mode == "bf16":
+        w_t = p[name + "_t"]
+        return q8_matmul_bf16(x, w_t if layer is None else w_t[layer])
+    if mode == "pallas-int8":
+        if layer is None:
+            return q8i8_matmul_tiled(x, p[name + "_q"], p[name + "_s"],
+                                     cfg.group_size)
+        return q8i8_matmul_stacked(x, p[name + "_q"], p[name + "_s"], layer,
+                                   cfg.group_size)
     if mode == "pallas-fast":
         xb = round_bf16(x)
         if layer is None:
@@ -215,6 +309,30 @@ def _linear(p: Params, cfg: ModelConfig, x: torch.Tensor, name: str,
                                 layer, cfg.group_size)
 
 
+def _fused(p: Params, cfg: ModelConfig, x: torch.Tensor, name: str,
+           layer: int | None, mode: str, prologue: str,
+           nw: torch.Tensor | None = None) -> torch.Tensor:
+    """qwen3_tpu's _make_fused_linear: the prologue-fused kernel against
+    layer `layer`'s weights (the classifier's for None); exact in mode
+    pallas, bf16 in pallas-fast. "norm" takes x's rms_inv and `nw`."""
+    w_q, w_s = p[name + "_q"], p[name + "_s"]
+    if layer is not None:
+        w_q, w_s = w_q[layer], w_s[layer]
+    inv = rms_inv(x) if prologue == "norm" else None
+    return q8_matmul_fused(x, w_q, w_s, cfg.group_size, inv, nw,
+                           prologue=prologue, exact=mode == "pallas")
+
+
+def _count_pass(kind: str, mode: str, fuse: bool) -> bool:
+    """Count one forward pass of `kind` in CALLS; returns whether its
+    matmuls take the fused-prologue kernel (fuse in a mode that has it)."""
+    fuse = fuse and mode in FUSE_MODES
+    CALLS[kind] += 1
+    CALLS[kind + "_fast"] += mode == "pallas-fast"
+    CALLS["mm_fused" if fuse else "mm_" + mode] += 1
+    return fuse
+
+
 def _check_attn(attn: str) -> None:
     if attn not in ATTN:
         raise NotImplementedError(
@@ -222,34 +340,60 @@ def _check_attn(attn: str) -> None:
 
 
 def _layer(p: Params, cfg: ModelConfig, x: torch.Tensor, l: int, cos, sin,
-           write_kv, attend, mode: str) -> torch.Tensor:
+           write_kv, attend, mode: str, fuse: bool) -> torch.Tensor:
     """One transformer layer on x [B, T, dim]; `write_kv(l, k, v)` stores
-    the new rows, `attend(l, q)` returns attention [B, T, H, D]."""
+    the new rows, `attend(l, q)` returns attention [B, T, H, D]. Modes exact
+    and bf16 run separate q/k/v and w1/w3 products on one normed h (the JAX
+    package's unfused layout); `fuse` (pallas modes only) runs the
+    prologue-fused kernel."""
     B, T = x.shape[:2]
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    qkv = _linear(p, cfg, rmsnorm(x, p["att_norm"][l]), "wqkv", l, mode)
-    q = qkv[..., :H * D].reshape(B, T, H, D)
-    k = qkv[..., H * D:(H + KV) * D].reshape(B, T, KV, D)
-    v = qkv[..., (H + KV) * D:(H + 2 * KV) * D].reshape(B, T, KV, D)
+    split = mode not in ("exact", "bf16")
+    if fuse:
+        qkv = _fused(p, cfg, x, "wqkv", l, mode, "norm", p["att_norm"][l])
+    elif split:
+        qkv = _linear(p, cfg, rmsnorm(x, p["att_norm"][l]), "wqkv", l, mode)
+    if split:
+        q = qkv[..., :H * D].reshape(B, T, H, D)
+        k = qkv[..., H * D:(H + KV) * D].reshape(B, T, KV, D)
+        v = qkv[..., (H + KV) * D:(H + 2 * KV) * D].reshape(B, T, KV, D)
+    else:
+        h = rmsnorm(x, p["att_norm"][l])
+        q = _linear(p, cfg, h, "wq", l, mode).reshape(B, T, H, D)
+        k = _linear(p, cfg, h, "wk", l, mode).reshape(B, T, KV, D)
+        v = _linear(p, cfg, h, "wv", l, mode).reshape(B, T, KV, D)
     q = apply_rope(rmsnorm(q, p["q_norm"][l]), cos, sin)
     k = apply_rope(rmsnorm(k, p["k_norm"][l]), cos, sin)
     write_kv(l, k, v)
     att = attend(l, q).reshape(B, T, H * D)
+    if fuse:
+        x = x + _fused(p, cfg, att, "wo", l, mode, "none")
+        gu = _fused(p, cfg, x, "w13", l, mode, "norm", p["ffn_norm"][l])
+        return x + _fused(p, cfg, gu, "w2", l, mode, "swiglu")
     x = x + _linear(p, cfg, att, "wo", l, mode)
-    gu = _linear(p, cfg, rmsnorm(x, p["ffn_norm"][l]), "w13", l, mode)
-    gate, up = gu[..., :cfg.hidden_dim], gu[..., cfg.hidden_dim:]
+    h = rmsnorm(x, p["ffn_norm"][l])
+    if split:
+        gu = _linear(p, cfg, h, "w13", l, mode)
+        gate, up = gu[..., :cfg.hidden_dim], gu[..., cfg.hidden_dim:]
+    else:
+        gate = _linear(p, cfg, h, "w1", l, mode)
+        up = _linear(p, cfg, h, "w3", l, mode)
     return x + _linear(p, cfg, swiglu(gate, up), "w2", l, mode)
 
 
 def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor,
-            mode: str) -> torch.Tensor:
-    x = rmsnorm(x, p["out_norm"])
-    return _linear(p, cfg, x, "cls", None, mode)[..., :cfg.vocab_size]
+            mode: str, fuse: bool) -> torch.Tensor:
+    if fuse:
+        out = _fused(p, cfg, x, "cls", None, mode, "norm", p["out_norm"])
+    else:
+        out = _linear(p, cfg, rmsnorm(x, p["out_norm"]), "cls", None, mode)
+    return out[..., :cfg.vocab_size]
 
 
 def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
             v_cache, start_pos: int, *, mode: str = "pallas",
-            all_logits: bool = False, attn: str = "dense", last_pos=None):
+            all_logits: bool = False, attn: str = "dense", last_pos=None,
+            fuse: bool = False):
     """Run a [B, T] block of tokens starting at absolute position `start_pos`.
 
     `last_pos` (optional): position within the block whose logits to return
@@ -260,8 +404,10 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
 
     `attn="flash"` runs the flash kernels (qwen3_tpu's forward_impl
     routing): flash decode for T == 1, with the position broadcast over B,
-    and flash prefill for T > 1. Mode pallas-fast runs the dense attention
-    with bf16 dot operands, as the JAX package does.
+    and flash prefill for T > 1. Modes pallas-fast and pallas-int8 run the
+    dense attention with bf16 dot operands, as the JAX package does.
+    `fuse`: the prologue-fused matmuls in modes pallas and pallas-fast
+    (ignored in the others, see the module docstring).
 
     Returns (logits [B, T, V] or [B, 1, V], k_cache, v_cache)."""
     check_mode(mode)
@@ -270,9 +416,8 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
         raise ValueError("attn='fused' is the serving decode step's attention "
                          "over the side buffer (decode_forward with side=); "
                          "a block runs 'dense' or 'flash'")
-    fast = mode == "pallas-fast"
-    CALLS["forward"] += 1
-    CALLS["forward_fast"] += fast
+    fast = mode in FAST_ATTN_MODES
+    fuse = _count_pass("forward", mode, fuse)
     B, T = tokens.shape
     k_vals, k_sc = kvc.split(k_cache)
     v_vals, v_sc = kvc.split(v_cache)
@@ -315,7 +460,7 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
                              live=live, fast=fast)
 
     for l in range(cfg.n_layers):
-        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode)
+        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse)
 
     if not all_logits:
         if isinstance(last_pos, torch.Tensor) and last_pos.dim() == 1:
@@ -324,14 +469,14 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
         else:
             i = T - 1 if last_pos is None else int(last_pos)
             x = x[:, i:i + 1]
-    return _logits(p, cfg, x, mode), k_cache, v_cache
+    return _logits(p, cfg, x, mode, fuse), k_cache, v_cache
 
 
 def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    k_cache, v_cache, positions: torch.Tensor, *,
                    mode: str = "pallas", attn: str = "dense",
                    live: int | None = None, side=None,
-                   attn_bucket: int | None = None):
+                   attn_bucket: int | None = None, fuse: bool = False):
     """Batched single-token decode with per-slot positions.
 
     tokens: [B] int, positions: [B] int (each stream at its own absolute
@@ -354,16 +499,16 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     max(base_pos). Returns (logits [B, V], k_side, v_side); the serving
     loop merges the side rows into the main cache once per chunk.
 
-    Mode pallas-fast takes bf16 dot operands in the dense and fused
-    attention (the flash kernels stay fp32, as in the JAX package)."""
+    Modes pallas-fast and pallas-int8 take bf16 dot operands in the dense
+    and fused attention (the flash kernels stay fp32, as in the JAX
+    package). `fuse` as in `forward`."""
     check_mode(mode)
     _check_attn(attn)
     if attn == "fused" and side is None:
         raise ValueError("attn='fused' runs over the serving side buffer "
                          "only: pass side=(k_side, v_side, base_pos, step)")
-    fast = mode == "pallas-fast"
-    CALLS["decode_forward"] += 1
-    CALLS["decode_forward_fast"] += fast
+    fast = mode in FAST_ATTN_MODES
+    fuse = _count_pass("decode_forward", mode, fuse)
     B = tokens.shape[0]
     k_vals, k_sc = kvc.split(k_cache)
     v_vals, v_sc = kvc.split(v_cache)
@@ -373,7 +518,8 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     sin = p["rope_sin"][rp][:, None, None, :]
     if side is not None:
         return _decode_side(p, cfg, x, cos, sin, k_vals, v_vals, k_sc, v_sc,
-                            positions, side, mode, attn, live, attn_bucket)
+                            positions, side, mode, attn, live, attn_bucket,
+                            fuse)
     slots = torch.arange(B, device=x.device)
     if live is None:
         live = int(positions.max()) + 1
@@ -401,14 +547,14 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                       fast=fast)[:, None]
 
     for l in range(cfg.n_layers):
-        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode)
-    return _logits(p, cfg, x, mode)[:, 0], k_cache, v_cache
+        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse)
+    return _logits(p, cfg, x, mode, fuse)[:, 0], k_cache, v_cache
 
 
 def _decode_side(p, cfg, x, cos, sin, k_vals, v_vals, k_sc, v_sc, positions,
-                 side, mode, attn, live, attn_bucket):
+                 side, mode, attn, live, attn_bucket, fuse):
     """decode_forward's side-buffer form (see there)."""
-    fast = mode == "pallas-fast"
+    fast = mode in FAST_ATTN_MODES
     k_side, v_side, base_pos, step = side
     sk, sk_sc = kvc.split(k_side)
     sv, sv_sc = kvc.split(v_side)
@@ -450,5 +596,5 @@ def _decode_side(p, cfg, x, cos, sin, k_vals, v_vals, k_sc, v_sc, positions,
             off32, kms, vms, kss, vss, fast=fast, live=live)[:, None]
 
     for l in range(cfg.n_layers):
-        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode)
-    return _logits(p, cfg, x, mode)[:, 0], k_side, v_side
+        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse)
+    return _logits(p, cfg, x, mode, fuse)[:, 0], k_side, v_side

@@ -24,8 +24,11 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "qwen3_tpu_torch"
 LIB = BUILD_DIR / "libqwen3_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# -fmad=false: no a*b+c contraction anywhere, so fp32 sums round as written
-FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# -fmad=false: no a*b+c contraction, so fp32 sums round as written. The fused
+# matmul spells every product and sum with an intrinsic and keeps nvcc's
+# default, PyTorch's own build setting, for the expf of its sigmoid
+NO_CONTRACT_EXCEPT = {"q8_fused.cu"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers and the stream as c_void_p, every int as c_int,
@@ -35,6 +38,9 @@ SIGNATURES = {
     "q8q8_matmul_stacked": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "q8_fast_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "q8_fast_matmul_stacked": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "q8i8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "q8i8_matmul_stacked": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "q8_fused_matmul": [_P] * 6 + [_I] * 7 + [_P],
     "flash_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
     "flash_decode_two_segment": [_P] * 14 + [_I] * 9 + [_F, _P],
     "flash_prefill": [_P] * 7 + [_I] * 8 + [_F, _P],
@@ -80,7 +86,9 @@ def build(verbose: bool = False) -> float:
     procs = []
     for src in sources():
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *ARCH, *FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+        fmad = [] if src.name in NO_CONTRACT_EXCEPT else ["-fmad=false"]
+        cmd = [nvcc, *ARCH, *FLAGS, *fmad, *extra, "-c", str(src), "-o",
+               str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     logs, failed = [], []

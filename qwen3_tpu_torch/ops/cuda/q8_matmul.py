@@ -1,10 +1,13 @@
 """Q8_0 matmuls: the CUDA kernels' wrappers and their plain versions.
 
 Replaces qwen3_tpu/ops/pallas/q8_matmul.py::q8_q8_matmul_stacked (every layer
-matmul) and ::q8_q8_matmul_tiled (the classifier) of mode "pallas", and
-::q8_matmul_stacked_fast / ::q8_matmul_tiled_fast of mode "pallas-fast". The
-kernels are `csrc/q8_matmul.cu`; see its sections for the designs and the
-bounds.
+matmul) and ::q8_q8_matmul_tiled (the classifier) of mode "pallas",
+::q8_matmul_stacked_fast / ::q8_matmul_tiled_fast of mode "pallas-fast",
+::q8i8_matmul_stacked / ::q8i8_matmul_tiled of mode "pallas-int8", and
+::q8_matmul_fused, the prologue-fused matmul of modes pallas and pallas-fast
+under QWEN3_TPU_FUSE=1. The kernels are `csrc/q8_matmul.cu`,
+`csrc/q8i8_matmul.cu` and `csrc/q8_fused.cu`; see their notes for the
+designs and the bounds.
 
 Layout: the checkpoint's row-major weights, one output column per row,
   x_q int8 [..., n], x_s f32 [..., n/G]    (pallas-fast: x bf16 [..., n])
@@ -22,8 +25,12 @@ from __future__ import annotations
 
 import torch
 
+from qwen3_tpu_torch.ops.activations import swiglu
+from qwen3_tpu_torch.ops.q8 import quantize_act, round_bf16
+
 LAUNCHES = {"stacked": 0, "tiled": 0, "stacked_fast": 0,
-            "tiled_fast": 0}
+            "tiled_fast": 0, "stacked_int8": 0, "tiled_int8": 0,
+            "fused": 0}
 
 
 def reset_launches() -> None:
@@ -78,11 +85,13 @@ def q8q8_matmul_plain(x_q: torch.Tensor, x_s: torch.Tensor,
     return out.reshape(*lead, d)
 
 
-def _check(x, x_s, w_q, w_s, group_size, stacked: bool):
+def _check(x, x_s, w_q, w_s, group_size, stacked: bool,
+           x_dtype=torch.bfloat16, x_contiguous: bool = True):
     """What the kernels take: int8 activations x with f32 group scales
-    x_s (Q8_0 x Q8_0), or bf16 activations x and no x_s (pallas-fast);
-    weights [d, n] (stacked [L, d, n]) with their scales; every tensor
-    contiguous, 16-byte aligned and on x's CUDA device."""
+    x_s (Q8_0 x Q8_0), or activations x of `x_dtype` and no x_s (bf16 for
+    pallas-fast, int8 for pallas-int8, f32 for the fused matmul); weights
+    [d, n] (stacked [L, d, n]) with their scales; every tensor contiguous
+    (x only when `x_contiguous`), 16-byte aligned and on x's CUDA device."""
     g = group_size
     if g < 16 or g > 512 or g & (g - 1):
         raise ValueError(f"group_size must be a power of two in [16, 512], "
@@ -97,7 +106,7 @@ def _check(x, x_s, w_q, w_s, group_size, stacked: bool):
     if tuple(w_s.shape) != tuple(w_q.shape[:-1]) + (n // g,):
         raise ValueError(f"weight scales {tuple(w_s.shape)} do not match "
                          f"{tuple(w_q.shape)} at G={g}")
-    tensors = [("x", x, torch.bfloat16)]
+    tensors = [("x", x, x_dtype)]
     if x_s is not None:
         if tuple(x_s.shape) != tuple(x.shape[:-1]) + (n // g,):
             raise ValueError(f"activation scales {tuple(x_s.shape)} do not "
@@ -109,7 +118,8 @@ def _check(x, x_s, w_q, w_s, group_size, stacked: bool):
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if ((not t.is_contiguous() and (t is not x or x_contiguous))
+                or t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
@@ -242,3 +252,194 @@ def q8_matmul_stacked_fast(x: torch.Tensor, w_q: torch.Tensor,
     if x.device.type == "cpu":
         return q8_fast_matmul_plain(x, w_q[layer], w_s[layer], group_size)
     return _launch_fast("stacked_fast", x, w_q, w_s, int(layer), group_size)
+
+
+# -- pallas-int8 -----------------------------------------------------------
+
+
+def int8_tile(n: int, group_size: int) -> int:
+    """The k-tile of mode pallas-int8: one activation scale per (row,
+    k-tile) and one requantized weight scale per (k-tile, column). The TPU
+    kernel's tk = _pick_tile(n, 8 * G, block_k) at the JAX package's default
+    block_k 512 (its QWEN3_TPU_PALLAS_BK knob, which changes these tiles and
+    so the numbers, is not ported)."""
+    return pick_tile(n, 8 * group_size, 512)
+
+
+def q8i8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                      group_size: int) -> torch.Tensor:
+    """The int8 kernel's function in PyTorch, same arithmetic in the same
+    order: x quantized per (row, k-tile) by quantize_act at group tk; per
+    k-tile t and column c, s8 = the tile's largest group scale, ratio =
+    w_s / s8 (a true division), w8 = sign(wf) * floor(|wf| + 0.5) with wf =
+    f32(w_q) * ratio; then out = sum over the tiles in order of
+    f32(dot(xq, w8)) * (xs * s8). The dots are products of integer-valued
+    floats, exact in fp32 while tk * 127 * 128 < 2^24 (every qwen3 width:
+    tk = 512), else taken in fp64 and rounded once, as the kernel's int32
+    dot is. Columns go in chunks that keep the temporaries small."""
+    *lead, n = x.shape
+    d = w_q.shape[0]
+    g = group_size
+    tk = int8_tile(n, g)
+    gpt = tk // g
+    xq, xs = quantize_act(x.reshape(-1, n).float(), tk)
+    b = xq.shape[0]
+    dt = torch.float32 if tk * 127 * 128 < 1 << 24 else torch.float64
+    xf = xq.to(dt)
+    out = torch.zeros(b, d, dtype=torch.float32, device=x.device)
+    step = max(1, _PLAIN_FAST_ELEMS // n)
+    for c0 in range(0, d, step):
+        c1 = min(d, c0 + step)
+        ws = w_s[c0:c1].float().reshape(c1 - c0, n // tk, gpt)
+        s8 = ws.amax(-1)                                       # [c, nt]
+        wf = (w_q[c0:c1].float().reshape(c1 - c0, n // tk, gpt, g)
+              * (ws / s8[..., None])[..., None])
+        w8 = (torch.sign(wf) * torch.floor(torch.abs(wf) + 0.5)).reshape(
+            c1 - c0, n)
+        o = torch.zeros(b, c1 - c0, dtype=torch.float32, device=x.device)
+        for t in range(n // tk):
+            dot = (xf[:, t * tk:(t + 1) * tk]
+                   @ w8[:, t * tk:(t + 1) * tk].to(dt).T).float()
+            o = o + dot * (xs[:, t, None] * s8[None, :, t])
+        out[:, c0:c1] = o
+    return out.reshape(*lead, d)
+
+
+def _launch_int8(kind: str, x, w_q, w_s, layer, group_size):
+    from qwen3_tpu_torch.ops.cuda.build import load_library
+
+    *lead, n = x.shape
+    tk = int8_tile(n, group_size)
+    if tk % 64:
+        raise ValueError(f"the int8 kernel takes k-tiles of a multiple of 64 "
+                         f"bytes; n={n}, G={group_size} gives {tk}")
+    xq, xs = quantize_act(x.reshape(-1, n).float(), tk)
+    _check(xq, None, w_q, w_s, group_size, stacked=layer is not None,
+           x_dtype=torch.int8)
+    if xs.device != xq.device or not xs.is_contiguous():
+        raise ValueError("activation scales must be contiguous on x's device")
+    lib = load_library()
+    d = w_q.shape[-2]
+    b = xq.shape[0]
+    out = torch.empty(b, d, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if layer is None:
+        err = lib.q8i8_matmul(xq.data_ptr(), xs.data_ptr(), w_q.data_ptr(),
+                              w_s.data_ptr(), out.data_ptr(), b, n, d,
+                              group_size, tk, stream)
+    else:
+        if not 0 <= layer < w_q.shape[0]:
+            raise IndexError(f"layer {layer} outside [0, {w_q.shape[0]})")
+        err = lib.q8i8_matmul_stacked(xq.data_ptr(), xs.data_ptr(),
+                                      w_q.data_ptr(), w_s.data_ptr(), layer,
+                                      out.data_ptr(), b, n, d, group_size, tk,
+                                      stream)
+    if err != 0:
+        raise RuntimeError(f"q8i8 {kind} kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES[kind] += 1
+    return out.reshape(*lead, d)
+
+
+def q8i8_matmul_tiled(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                      group_size: int) -> torch.Tensor:
+    """Float activations x one Q8_0 weight tensor [d, n] through the int8
+    requantized product (the classifier of mode pallas-int8)."""
+    if x.device.type == "cpu":
+        return q8i8_matmul_plain(x, w_q, w_s, group_size)
+    return _launch_int8("tiled_int8", x, w_q, w_s, None, group_size)
+
+
+def q8i8_matmul_stacked(x: torch.Tensor, w_q: torch.Tensor,
+                        w_s: torch.Tensor, layer: int,
+                        group_size: int) -> torch.Tensor:
+    """Float activations x layer `layer` of stacked Q8_0 weights [L, d, n]
+    through the int8 requantized product (mode pallas-int8)."""
+    if x.device.type == "cpu":
+        return q8i8_matmul_plain(x, w_q[layer], w_s[layer], group_size)
+    return _launch_int8("stacked_int8", x, w_q, w_s, int(layer), group_size)
+
+
+# -- the prologue-fused matmul ---------------------------------------------
+
+PROLOGUES = {"none": 0, "norm": 1, "swiglu": 2}
+
+
+def fused_prologue(x: torch.Tensor, inv, nw, prologue: str) -> torch.Tensor:
+    """The fused matmul's input h in fp32, by the port's unfused ops:
+    "norm" nw * (x * inv) (rmsnorm with its row factor rms_inv(x) given),
+    "swiglu" swiglu of x's halves [..., :n] and [..., n:], "none" x."""
+    if prologue == "norm":
+        return nw.float() * (x.float() * inv)
+    if prologue == "swiglu":
+        n = x.shape[-1] // 2
+        return swiglu(x[..., :n].float(), x[..., n:].float())
+    if prologue == "none":
+        return x.float()
+    raise ValueError(f"unknown prologue {prologue!r}")
+
+
+def q8_fused_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
+                          w_s: torch.Tensor, group_size: int, inv=None,
+                          nw=None, *, prologue: str = "none",
+                          exact: bool = False) -> torch.Tensor:
+    """The fused kernel's function in PyTorch: the port's unfused chain,
+    fused_prologue -> quantize_act -> q8q8_matmul_plain (exact) or
+    fused_prologue -> round_bf16 -> q8_fast_matmul_plain (fast)."""
+    h = fused_prologue(x, inv, nw, prologue)
+    if exact:
+        xq, xs = quantize_act(h, group_size)
+        return q8q8_matmul_plain(xq, xs, w_q, w_s, group_size)
+    return q8_fast_matmul_plain(round_bf16(h), w_q, w_s, group_size)
+
+
+def q8_matmul_fused(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                    group_size: int, inv=None, nw=None, *,
+                    prologue: str = "none",
+                    exact: bool = False) -> torch.Tensor:
+    """Prologue-fused Q8_0 matmul against one weight tensor [d, n] (a
+    layer's view of the stacked weights, or the classifier).
+
+    x: f32 [..., n] raw activations, or with prologue="swiglu" the w13
+    output [..., 2n] whose gate and up halves are read in place; inv: f32
+    [..., 1] per-row rms_inv(x) and nw: f32 [n] norm weights (prologue
+    "norm"). exact: Q8_0 x Q8_0 (mode pallas), else bf16 (pallas-fast).
+    Returns f32 [..., d]."""
+    if prologue not in PROLOGUES:
+        raise ValueError(f"unknown prologue {prologue!r}")
+    if prologue == "norm" and (inv is None or nw is None):
+        raise ValueError("prologue 'norm' needs inv and nw")
+    if x.device.type == "cpu":
+        return q8_fused_matmul_plain(x, w_q, w_s, group_size, inv, nw,
+                                     prologue=prologue, exact=exact)
+    from qwen3_tpu_torch.ops.cuda.build import load_library
+
+    *lead, last = x.shape
+    n = last // 2 if prologue == "swiglu" else last
+    xf = x.reshape(-1, last).float().contiguous()
+    b = xf.shape[0]
+    _check(xf[:, :n], None, w_q, w_s, group_size, stacked=False,
+           x_dtype=torch.float32, x_contiguous=False)
+    args = [None, None]
+    if prologue == "norm":
+        invf = inv.reshape(-1).float().contiguous()
+        nwf = nw.float().contiguous()
+        if invf.shape != (b,) or nwf.shape != (n,):
+            raise ValueError(f"inv {tuple(inv.shape)} / nw {tuple(nw.shape)} "
+                             f"do not match x {tuple(x.shape)}")
+        for name, t in (("inv", invf), ("nw", nwf)):
+            if t.device != xf.device:
+                raise ValueError(f"{name} must be on {xf.device}")
+        args = [invf.data_ptr(), nwf.data_ptr()]
+    lib = load_library()
+    d = w_q.shape[-2]
+    out = torch.empty(b, d, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.q8_fused_matmul(xf.data_ptr(), *args, w_q.data_ptr(),
+                              w_s.data_ptr(), out.data_ptr(), b, n, d,
+                              group_size, groups_per_tile(n, group_size),
+                              PROLOGUES[prologue], int(exact), stream)
+    if err != 0:
+        raise RuntimeError(f"q8 fused kernel launch failed: CUDA error {err}")
+    LAUNCHES["fused"] += 1
+    return out.reshape(*lead, d)

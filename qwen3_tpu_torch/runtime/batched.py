@@ -106,7 +106,7 @@ def _put_rows(cache, rows, slots: list[int]) -> None:
 
 def prefill_slot_chunk(params, cfg, k_cache, v_cache, tokens: list[int],
                        slot: int, start_pos: int, last_pos: int, *,
-                       mode: str):
+                       mode: str, fuse: bool = False):
     """One prompt chunk into cache slot `slot`: the same [1, T] forward the
     single-stream engine's prefill dispatches, on the slot's rows in place.
     tokens: [T] padded per decode_loop.prefill_blocks (padded rows only
@@ -116,7 +116,8 @@ def prefill_slot_chunk(params, cfg, k_cache, v_cache, tokens: list[int],
     dev = params["emb_q"].device
     logits, kr, vr = forward(params, cfg,
                              torch.tensor([tokens], device=dev), kr, vr,
-                             start_pos, mode=mode, last_pos=last_pos)
+                             start_pos, mode=mode, last_pos=last_pos,
+                             fuse=fuse)
     _put_rows(k_cache, kr, [slot])
     _put_rows(v_cache, vr, [slot])
     return logits[0, 0], k_cache, v_cache
@@ -124,7 +125,8 @@ def prefill_slot_chunk(params, cfg, k_cache, v_cache, tokens: list[int],
 
 def prefill_slots_chunk(params, cfg, k_cache, v_cache,
                         tokens: list[list[int]], slots: list[int],
-                        start_pos: int, last_pos: list[int], *, mode: str):
+                        start_pos: int, last_pos: list[int], *, mode: str,
+                        fuse: bool = False):
     """One prompt chunk for N requests at once: one [N, C] forward over the
     N slots' rows (a view when the slots are consecutive, else gathered and
     scattered back). Per-row math does not depend on the batch size, so each
@@ -136,7 +138,8 @@ def prefill_slots_chunk(params, cfg, k_cache, v_cache,
     dev = params["emb_q"].device
     logits, kr, vr = forward(params, cfg, torch.tensor(tokens, device=dev),
                              kr, vr, start_pos, mode=mode,
-                             last_pos=torch.tensor(last_pos, device=dev))
+                             last_pos=torch.tensor(last_pos, device=dev),
+                             fuse=fuse)
     _put_rows(k_cache, kr, slots)
     _put_rows(v_cache, vr, slots)
     return logits[:, 0], k_cache, v_cache
@@ -208,11 +211,14 @@ class BatchedEngine:
                  top_k: int = 64, attn: str = "auto",
                  side_buffer: bool = True, tp: int = 1, dp: int = 1,
                  model_cfg: ModelConfig | None = None, params=None,
-                 aot_dir: str | None = None, device="cuda"):
+                 aot_dir: str | None = None, device="cuda",
+                 fuse: bool = False):
         """`model_cfg`/`params` inject parameters already on the device,
         skipping the checkpoint load; `path` is then only read for the
         `.tokenizer` sidecar. `device` is "cuda" (the default; without a
-        card it raises) or "cpu" (the kernels' plain versions)."""
+        card it raises) or "cpu" (the kernels' plain versions). `fuse`: the
+        prologue-fused matmuls in modes pallas and pallas-fast (ignored in
+        the others)."""
         check_mode(mode)
         if tp > 1 or dp > 1:
             raise NotImplementedError("tp/dp > 1 serving is not ported yet")
@@ -233,6 +239,7 @@ class BatchedEngine:
                                           device=self.device)
         self.cfg: ModelConfig = mc.with_seq_len(seq_len)
         self.mode = mode
+        self.fuse = fuse
         if attn == "auto":
             # the JAX engine's rule: flash only single-stream at long
             # context, else the fused batched kernel on the side buffer
@@ -395,7 +402,7 @@ class BatchedEngine:
                 blocks.append(blk + [0] * (size - len(blk)))
             logits, k, v = prefill_slots_chunk(self.params, self.cfg, k, v,
                                                blocks, slots, off, lasts,
-                                               mode=self.mode)
+                                               mode=self.mode, fuse=self.fuse)
         self._kv = (k, v)
         seeds = [req.seed & _M64 for _, req, _ in items]
         toks, rngs = first_tokens_batch(logits, seeds, temps, topps,
@@ -424,7 +431,7 @@ class BatchedEngine:
                 ids, req.start_pos, self.prefill_bucket, self.cfg.seq_len):
             logits, k, v = prefill_slot_chunk(
                 self.params, self.cfg, k, v, block, b, req.start_pos + off,
-                n_valid - 1, mode=self.mode)
+                n_valid - 1, mode=self.mode, fuse=self.fuse)
         self._kv = (k, v)
 
         rng = req.seed & _M64 if req.rng is None else req.rng
@@ -458,7 +465,7 @@ class BatchedEngine:
             self._emit, chunk=self.decode_chunk, greedy=all_greedy,
             bos=self.tokenizer.special.bos, eos=self.tokenizer.special.eos,
             top_k=self.top_k, attn=self.attn, mode=self.mode,
-            use_side=self.side_buffer, bucket=self._bucket())
+            use_side=self.side_buffer, bucket=self._bucket(), fuse=self.fuse)
         self._kv = (k, v)
         self._token, self._pos, self._done, self._rng = tok, pos, done, rng
         finished = []

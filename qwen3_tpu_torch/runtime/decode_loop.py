@@ -85,7 +85,8 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
                          done, rng, temp, topp, emit_lim, *, chunk: int,
                          greedy: bool, bos: int, eos: int, top_k: int = 0,
                          attn: str = "dense", mode: str = "pallas",
-                         use_side: bool = False, bucket: int | None = None):
+                         use_side: bool = False, bucket: int | None = None,
+                         fuse: bool = False):
     """Up to `chunk` decode steps over all live slots.
 
     token/pos/limit/done/rng/temp/topp/emit_lim: per-slot [B] host arrays
@@ -98,7 +99,8 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
     only, and each slot's rows merge into the main cache at its chunk-start
     position after the loop (the cache needs `chunk` rows past the last
     position, which BatchedEngine allocates). `bucket`: the fused
-    attention's rows (host-chosen, >= every slot's position).
+    attention's rows (host-chosen, >= every slot's position). `fuse`: the
+    prologue-fused matmuls (models.qwen3.forward).
 
     Returns (packed int32 [B, chunk + 2] = (tokens.., pos, done) with -1
     padding, k, v, token, pos, done, rng)."""
@@ -137,7 +139,7 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
                 params, cfg, tok_t, k_cache, v_cache,
                 torch.from_numpy(pos).to(dev), mode=mode, attn=attn,
                 side=(side_k, side_v, base_t, step),
-                live=int(base_pos.max()), attn_bucket=bucket)
+                live=int(base_pos.max()), attn_bucket=bucket, fuse=fuse)
         else:
             # done slots still run (their rows are wasted work); their
             # write position is clamped into the cache
@@ -145,7 +147,7 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
             logits, k_cache, v_cache = decode_forward(
                 params, cfg, tok_t, k_cache, v_cache,
                 torch.from_numpy(write_pos).to(dev), mode=mode, attn=attn,
-                live=int(write_pos.max()) + 1)
+                live=int(write_pos.max()) + 1, fuse=fuse)
         nxt = sample_tokens(logits, coin, temp_t, topp_t, greedy=g,
                             top_k_hint=top_k).cpu().numpy()
         live = ~newly_done

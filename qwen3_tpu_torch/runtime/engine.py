@@ -54,7 +54,7 @@ class EngineConfig:
     temperature: float = 1.0
     top_p: float = 0.9
     seq_len: int = 0               # 0 -> min(checkpoint max, 32768) like the CLI
-    mode: str = "pallas"           # "pallas" | "pallas-fast" (the ported ones)
+    mode: str = "pallas"           # models.qwen3.MODES
     attn: str = "auto"             # "auto" | "dense" | "flash"
     kv_dtype: str = "float32"      # "float32" | "bfloat16" | "int8"
     prefill_chunk: int = 64
@@ -62,6 +62,7 @@ class EngineConfig:
     top_k: int = 64                # top-k fast path for nucleus sampling (0=off)
     tp: int = 1                    # tensor parallelism: not ported yet
     device: str = "cuda"
+    fuse: bool = False             # prologue-fused matmuls (pallas modes)
 
 
 @dataclasses.dataclass
@@ -140,7 +141,7 @@ class Engine:
             lg, k, v = forward(self.params, cfg, toks, k, v, start_pos + off,
                                mode=self.cfg.mode,
                                attn=self._attn_for(start_pos + off),
-                               last_pos=n_valid - 1)
+                               last_pos=n_valid - 1, fuse=self.cfg.fuse)
             logits = lg[:, 0]
         self._kv = (k, v)
         return logits  # [1, V]
@@ -169,7 +170,8 @@ class Engine:
                 [self.sampler.temperature], [self.sampler.top_p],
                 [emit_at_limit], chunk=chunk, greedy=self.greedy,
                 bos=t.special.bos, eos=t.special.eos, top_k=self.cfg.top_k,
-                attn=self._attn_for(cur), mode=self.cfg.mode)
+                attn=self._attn_for(cur), mode=self.cfg.mode,
+                fuse=self.cfg.fuse)
             state = dict(token=tok_a, pos=pos_a, done=done_a, rng=rng)
             row = packed[0]
             cur = int(row[-2])

@@ -18,8 +18,9 @@ Diagnostics go to stderr with [Component] prefixes (reference convention).
   -c                context window
   --max-tokens      per-request generation cap
   --batch           slot pool size (default 8)
-  --qmode/--kv-dtype/--attn/--no-side-buffer   engine knobs (qmode pallas
-                    or pallas-fast; the others are not ported yet and raise)
+  --qmode/--kv-dtype/--attn/--no-side-buffer   engine knobs (every qmode
+                    of the CLI; QWEN3_TPU_FUSE=1 runs the matmuls of pallas
+                    and pallas-fast through the prologue-fused kernel)
   --tp/--dp, --aot-dir   accepted for compatibility; not ported yet (> 1, or
                     a directory, raises)
   --device          torch device: cuda (default) or cpu (the kernels' plain
@@ -66,6 +67,7 @@ def main(argv=None) -> int:
                     help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    from qwen3_tpu_torch.config import fuse_from_env
     from qwen3_tpu_torch.runtime.batched import BatchedEngine, Request
 
     lines = (sys.stdin if args.prompts == "-"
@@ -76,9 +78,10 @@ def main(argv=None) -> int:
         return 1
 
     seed0 = args.s if args.s else int(time.time())
+    fuse = fuse_from_env()
     print(f"[Serve] loading {args.checkpoint} (mode={args.qmode}, "
-          f"batch={args.batch}, tp={args.tp}, dp={args.dp})",
-          file=sys.stderr)
+          f"batch={args.batch}, tp={args.tp}, dp={args.dp}, "
+          f"fuse={int(fuse)})", file=sys.stderr)
     t_load = time.perf_counter()
     eng = BatchedEngine(args.checkpoint, max_batch=args.batch,
                         seq_len=args.c, mode=args.qmode,
@@ -88,7 +91,7 @@ def main(argv=None) -> int:
                         prefill_bucket=args.prefill_bucket,
                         decode_chunk=args.decode_chunk,
                         tp=args.tp, dp=args.dp, aot_dir=args.aot_dir,
-                        device=args.device)
+                        device=args.device, fuse=fuse)
     print(f"[Serve] engine ready in {time.perf_counter() - t_load:.1f}s "
           f"(checkpoint load + device transfer; attn={eng.attn}, "
           f"device={eng.device})", file=sys.stderr)

@@ -20,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from qwen3_tpu_torch.ops import norms as tq_norms  # noqa: E402
 from qwen3_tpu_torch.ops.cuda import q8_matmul as tq  # noqa: E402
 from qwen3_tpu_torch.ops.q8 import quantize_act  # noqa: E402
 
@@ -105,6 +106,74 @@ def test_fast_kernel_rows_do_not_depend_on_the_batch(dev):
     for r in (0, 13, 63):
         alone = tq.q8_matmul_tiled_fast(x[r:r + 1].contiguous(), wq, ws, g)
         assert torch.equal(full[r:r + 1], alone)
+
+
+def _weights(rng, layers, d, n, g, dev):
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(layers, d, n)).astype(
+        np.int8)).to(dev)
+    ws = torch.from_numpy((0.02 / 127 * (0.5 + rng.random(
+        (layers, d, n // g)))).astype(np.float32)).to(dev)
+    return wq, ws
+
+
+@pytest.mark.parametrize("b", [1, 8, 9, 64, 130])
+@pytest.mark.parametrize("n,g", [(128, 32), (512, 64), (768, 64),
+                                 (3072, 64)])
+def test_int8_kernel_matches_plain_on_card(dev, b, n, g):
+    """The pallas-int8 kernels (one k-tile, the whole-axis fallback at 768,
+    six tiles at 3072), bit for bit, one launch counted per call; a row's
+    bits are the same alone and within the call."""
+    rng = np.random.default_rng(b * 5 + n)
+    x = torch.from_numpy(rng.standard_normal((b, n)).astype(
+        np.float32)).to(dev)
+    wq, ws = _weights(rng, 2, 200, n, g, dev)
+    tq.reset_launches()
+    got = tq.q8i8_matmul_stacked(x, wq, ws, 1, g)
+    want = tq.q8i8_matmul_plain(x, wq[1], ws[1], g)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["stacked_int8"] == 1
+    assert torch.equal(got, want)
+    got = tq.q8i8_matmul_tiled(x, wq[0], ws[0], g)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["tiled_int8"] == 1
+    assert torch.equal(got, tq.q8i8_matmul_plain(x, wq[0], ws[0], g))
+    alone = tq.q8i8_matmul_tiled(x[b - 1:].contiguous(), wq[0], ws[0], g)
+    assert torch.equal(got[b - 1:], alone)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("prologue", ["norm", "none", "swiglu"])
+@pytest.mark.parametrize("b", [1, 8, 9, 64])
+@pytest.mark.parametrize("n,g", [(128, 32), (1024, 64)])
+def test_fused_kernel_matches_plain_on_card(dev, b, n, g, prologue, exact):
+    """The prologue-fused kernel against its plain version (the port's
+    unfused chain in plain ops) and against the unfused kernel on the plain
+    prologue's output, bit for bit (the swiglu prologue's sigmoid is
+    torch.sigmoid's formula and expf)."""
+    rng = np.random.default_rng(b * 3 + n + exact)
+    width = 2 * n if prologue == "swiglu" else n
+    x = torch.from_numpy(rng.standard_normal((b, width)).astype(
+        np.float32)).to(dev)
+    nw = torch.from_numpy((1 + 0.1 * rng.standard_normal(n)).astype(
+        np.float32)).to(dev)
+    inv = tq_norms.rms_inv(x) if prologue == "norm" else None
+    wq, ws = _weights(rng, 1, 200, n, g, dev)
+    tq.reset_launches()
+    got = tq.q8_matmul_fused(x, wq[0], ws[0], g, inv, nw, prologue=prologue,
+                             exact=exact)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["fused"] == 1
+    want = tq.q8_fused_matmul_plain(x, wq[0], ws[0], g, inv, nw,
+                                    prologue=prologue, exact=exact)
+    h = tq.fused_prologue(x, inv, nw, prologue)
+    if exact:
+        unfused = tq.q8_q8_matmul_tiled(*quantize_act(h, g), wq[0], ws[0], g)
+    else:
+        unfused = tq.q8_matmul_tiled_fast(h.to(torch.bfloat16), wq[0], ws[0],
+                                          g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, unfused)
 
 
 def _flash_cache(seed, b, s, kv, d, dtype, dev):

@@ -162,8 +162,14 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
                                   torch.from_numpy(wq), torch.from_numpy(ws),
                                   32)
     assert out.shape == (2, 64)
+    x = torch.from_numpy(xq).float()
+    assert tq.q8i8_matmul_tiled(x, torch.from_numpy(wq), torch.from_numpy(ws),
+                                32).shape == (2, 64)
+    assert tq.q8_matmul_fused(x, torch.from_numpy(wq), torch.from_numpy(ws),
+                              32, exact=True).shape == (2, 64)
     assert tq.LAUNCHES == {"stacked": 0, "tiled": 0, "stacked_fast": 0,
-                           "tiled_fast": 0}
+                           "tiled_fast": 0, "stacked_int8": 0,
+                           "tiled_int8": 0, "fused": 0}
 
 
 def test_non_cpu_tensor_never_takes_plain_version():
@@ -182,6 +188,14 @@ def test_non_cpu_tensor_never_takes_plain_version():
         tq.q8_matmul_tiled_fast(x, wq, ws, 32)
     with pytest.raises(ValueError, match="power of two"):
         tq.q8_matmul_stacked_fast(x, wq[None], ws[None], 0, 48)
+    xf = torch.empty(1, 128, device="meta")
+    with pytest.raises(ValueError, match="must be on"):
+        tq.q8i8_matmul_tiled(xf, wq, ws, 32)
+    with pytest.raises(ValueError, match="must be on"):
+        tq.q8i8_matmul_stacked(xf, wq[None], ws[None], 0, 32)
+    with pytest.raises(ValueError, match="must be on"):
+        tq.q8_matmul_fused(xf, wq, ws, 32, exact=True)
+    assert all(v == 0 for v in tq.LAUNCHES.values())
 
 
 # -- pallas-fast --------------------------------------------------------------

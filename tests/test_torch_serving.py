@@ -123,12 +123,16 @@ def test_serve_prints_jax_serves_records(ckpt, tmp_path, capsys,
     assert got == want
 
 
-def test_serve_refuses_what_is_not_ported(ckpt, tmp_path):
+def test_serve_refuses_what_is_not_ported(ckpt, tmp_path, capsys):
+    """--tp, --aot-dir and the card without one are refused; --qmode bf16
+    (refused before it was ported) runs."""
     pfile = tmp_path / "p.txt"
     pfile.write_text("the cat\n")
     base = [ckpt, "--prompts", str(pfile), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve(base + ["--qmode", "bf16"])
+    assert serve(base + ["--qmode", "bf16", "-c", "64", "--max-tokens",
+                         "4"]) == 0
+    (rec,) = map(json.loads, capsys.readouterr().out.splitlines())
+    assert rec["prompt"] == "the cat" and 0 <= rec["n_tokens"] <= 4
     with pytest.raises(NotImplementedError, match="not ported"):
         serve(base + ["--tp", "2"])
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -242,7 +242,7 @@ def test_more_requests_than_slots_all_finish(ckpt):
 def test_engine_resolves_attention_as_the_jax_engine_does(ckpt, tmp_path):
     """auto: fused with the side buffer, dense without; flash only for one
     slot at a context of 8192 or more. fused without the side buffer and
-    the mesh/compile-cache knobs are refused."""
+    the mesh/compile-cache knobs are refused; mode bf16 runs."""
     import dataclasses
 
     assert _engine(ckpt).attn == "fused"
@@ -256,7 +256,10 @@ def test_engine_resolves_attention_as_the_jax_engine_does(ckpt, tmp_path):
     assert eng.attn == "flash" and eng._kv[0][0].shape[2] == 8448
     with pytest.raises(ValueError, match="side buffer"):
         _engine(ckpt, attn="fused", side_buffer=False)
-    for kw in (dict(tp=2), dict(dp=2), dict(aot_dir=str(tmp_path)),
-               dict(mode="bf16")):
+    for kw in (dict(tp=2), dict(dp=2), dict(aot_dir=str(tmp_path))):
         with pytest.raises(NotImplementedError, match="not ported"):
             _engine(ckpt, **kw)
+    # mode bf16, refused before it was ported, runs
+    eng = _engine(ckpt, mode="bf16")
+    req = eng.submit(Request(prompt="the cat", seed=1, max_tokens=4))
+    assert eng.run() == [req] and len(req.out_ids) <= 4
