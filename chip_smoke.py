@@ -21,8 +21,12 @@ final line:
    within their tolerances; the pallas-int8 matmuls (b = 1, 8, 64, 256, 512)
    bit for bit and across batch sizes; the fused-prologue matmul for each
    (prologue, exact/fast) pair of the main path (b = 1, 8, 64, 512) against
-   its plain version and the unfused kernel; then the sampler on the card
-   against its CPU run at the vocabulary of qwen3-0.6b (see check_sampler);
+   its plain version and the unfused kernel; the KV row write at the B = 64
+   serving cache (f32, bf16) and the untiled matmuls on [n, d] weights
+   (b = 1, 8, 512; the exact one bit for bit, the dequant one in f32 and
+   bf16, pre- and post-scaled, within 1e-5 * max|plain|), which only the
+   tests call; then the sampler on the card against its CPU run at the
+   vocabulary of qwen3-0.6b (see check_sampler);
 4. end to end: a synthetic qwen3-0.6b checkpoint (full width and depth,
    random weights from a seed) through the port's CLI main() with its
    defaults (--qmode pallas --kv-dtype int8 --attn auto --device cuda):
@@ -36,7 +40,12 @@ final line:
    with QWEN3_TPU_FUSE=1 (the same tokens as without), serve.py --qmode
    pallas-int8; after each run the kernels' launch counts must equal what
    its forward passes need; 4b. the quality table on the same checkpoint at
-   -c 1024 (see phase_quality);
+   -c 1024 (see phase_quality); 4c. the host tools (model_check,
+   tokenizer_check, the native encode against the Python one on every
+   prompt, the CLI with --profile, see phase_host_tools); 4d. the DMA
+   probe at qwen3-4b's full width (tools/probe_dma.py: the Q8_0 GEMV
+   against the pure-read kernels, their checksums against the plain
+   version, no rate past 1.05 x 3.35 TB/s; see phase_probe);
 5. the path against its plain version, step by step with the card's
    rounding decisions forced on the CPU (every op within 1e-5 of its max,
    every rounding step bit for bit, logits and argmax): a 64-token prefill
@@ -954,6 +963,171 @@ def phase_fused_kernels(torch):
     return rows
 
 
+KV_CACHE = (28, 64, 512, 8, 128)   # qwen3-0.6b's cache at serve --batch 64 -c 512
+
+
+def phase_kv_write(torch):
+    """kv_write_rows (the JAX package's in-place per-slot row write, which
+    no path runs) at qwen3-0.6b's B = 64 serving cache [28, 64, 512, 8,
+    128], f32 and bf16, layers 0 and 27, positions with both edges and a
+    duplicate: bit-equal to its plain version, and every row it did not
+    write unchanged. Times: the kernel, its plain version, and as the
+    library yardstick the same indexed assignment as one index_put_. The
+    bound: the f32 rows read once and written once in the cache's type,
+    over the memory rate."""
+    from qwen3_tpu_torch.ops.cuda import kv_write as kw
+
+    n_layers, B, S, KV, D = KV_CACHE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    rows_in = torch.randn(B, KV, D, device="cuda", generator=gen)
+    pos = torch.randint(0, S, (B,), device="cuda", generator=gen)
+    pos[:4] = torch.tensor([0, S - 1, 7, 7], device="cuda")
+    slots = torch.arange(B, device="cuda")
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cache = torch.randn(KV_CACHE, device="cuda", generator=gen).to(dtype)
+        for layer in (0, n_layers - 1):
+            got = kw.kv_write_rows(cache.clone(), rows_in, layer, pos)
+            want = kw.kv_write_rows_plain(cache.clone(), rows_in, layer, pos)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"kv_write {dtype} layer={layer}: kernel != plain")
+            got[layer, slots, pos] = cache[layer, slots, pos]
+            if not torch.equal(got, cache):
+                fail(f"kv_write {dtype} layer={layer}: a row it did not "
+                     f"write changed")
+            del got, want
+        cast = rows_in.to(dtype)
+
+        def library(i):
+            cache[i % n_layers].index_put_((slots, pos), cast)
+
+        es = cache.element_size()
+        row = dict(kernel="kv_write_rows", dtype=str(dtype).split(".")[-1],
+                   cache=list(KV_CACHE), max_abs_diff=0.0,
+                   kernel_ms=device_ms(torch, lambda i: kw.kv_write_rows(
+                       cache, rows_in, i % n_layers, pos)),
+                   plain_ms=device_ms(torch, lambda i: kw.kv_write_rows_plain(
+                       cache, rows_in, i % n_layers, pos)),
+                   library_ms=device_ms(torch, library),
+                   bound_ms=1e3 * (B * KV * D * (4 + es) + 4 * B)
+                   / HBM_BYTES_PER_S, bound_by="bytes")
+        out.append(row)
+        log("kv_write " + json.dumps(row))
+        del cache
+        torch.cuda.empty_cache()
+    return out
+
+
+UNTILED_BATCHES = (1, 8, 512)
+# q8_matmul_pallas's (compute dtype, postscale) pairs
+UNTILED_MODES = (("float32", False), ("float32", True), ("bfloat16", False),
+                 ("bfloat16", True))
+
+
+def untiled_bound_ms(b, n, d, compute):
+    """The least time for q8_matmul_pallas: the int8 weights and their f32
+    scales, the f32 activations read once and the f32 output written once,
+    over the memory rate; or its operations over the peak of the compute
+    type (fp32 outside the tensor cores, or bf16)."""
+    nbytes = d * n + 4 * d * (n // G) + 4 * b * n + 4 * b * d
+    peak = FP32_OPS_PER_S if compute == "float32" else BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * b * n * d / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_untiled_kernels(torch):
+    """The untiled matmuls on contraction-leading weights (which only the
+    JAX package's tests call) at qwen3-0.6b's five matrices in [n, d]
+    layout, b in UNTILED_BATCHES: q8_q8_matmul_pallas bit for bit against
+    its plain version; q8_matmul_pallas in f32 and bf16, pre- and
+    post-scaled, within 1e-5 * max|plain| (the kernel sums each dot as an
+    fmaf chain in k order, the plain version's torch.matmul in its own
+    order; bf16 products are exact in fp32). Times: the kernel, its plain
+    version and as the library yardstick F.linear on bf16 with the weights
+    dequantized once to bf16 (bound_ms for q8q8 as phase_kernels')."""
+    import torch.nn.functional as F
+
+    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+    from qwen3_tpu_torch.ops.q8 import quantize_act
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    rows = []
+    for name, (n, d) in MATRICES.items():
+        w_q = torch.randint(-127, 128, (n, d), dtype=torch.int8,
+                            device="cuda", generator=gen)
+        w_s = 0.02 / 127 * (0.5 + torch.rand(n // G, d, device="cuda",
+                                             generator=gen))
+        w_bf = (w_q.float().reshape(n // G, G, d) * w_s[:, None, :]).reshape(
+            n, d).T.contiguous().to(torch.bfloat16)
+        for b in UNTILED_BATCHES:
+            x = torch.randn(b, n, device="cuda", generator=gen)
+            xq, xs = quantize_act(x, G)
+            x_bf = x.to(torch.bfloat16)
+
+            def library(i, x_bf=x_bf):
+                return F.linear(x_bf, w_bf)
+
+            l_ms = device_ms(torch, library)
+            got = qm.q8_q8_matmul_pallas(xq, xs, w_q, w_s, G)
+            want = qm.q8_q8_matmul_pallas_plain(xq, xs, w_q, w_s, G)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not torch.isfinite(got).all() or not torch.equal(got, want):
+                fail(f"untiled q8q8 {name} b={b}: kernel != plain "
+                     f"(max_abs_diff {err:.3e})")
+            bnd, by = bound_ms(b, n, d)
+            variants = [("q8q8_pallas", bnd, by, err,
+                         lambda i, xq=xq, xs=xs: qm.q8_q8_matmul_pallas(
+                             xq, xs, w_q, w_s, G),
+                         lambda i, xq=xq, xs=xs: qm.q8_q8_matmul_pallas_plain(
+                             xq, xs, w_q, w_s, G))]
+            for compute, post in UNTILED_MODES:
+                cdt = getattr(torch, compute)
+
+                def kernel(i, x=x, cdt=cdt, post=post):
+                    return qm.q8_matmul_pallas(x, w_q, w_s, G,
+                                               compute_dtype=cdt,
+                                               postscale=post)
+
+                def plain(i, x=x, cdt=cdt, post=post):
+                    return qm.q8_matmul_pallas_plain(x, w_q, w_s, G,
+                                                     compute_dtype=cdt,
+                                                     postscale=post)
+
+                got, want = kernel(0), plain(0)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                label = f"untiled {name} {compute} postscale={post} b={b}"
+                if not torch.isfinite(got).all():
+                    fail(f"{label}: non-finite kernel output")
+                if err > 1e-5 * want.abs().max().item():
+                    fail(f"{label}: kernel vs plain {err:.3e} past 1e-5 * "
+                         f"max|plain|")
+                bnd, by = untiled_bound_ms(b, n, d, compute)
+                variants.append((f"pallas_{compute}_"
+                                 f"{'post' if post else 'pre'}", bnd, by, err,
+                                 kernel, plain))
+            for kind, bnd, by, err, kernel, plain in variants:
+                row = dict(matrix=name, kernel=kind, b=b, n=n, d=d,
+                           max_abs_diff=err,
+                           kernel_ms=device_ms(torch, kernel),
+                           plain_ms=device_ms(torch, plain, reps=3),
+                           library_ms=l_ms, bound_ms=bnd, bound_by=by)
+                rows.append(row)
+                log("untiled " + json.dumps(row))
+        del w_q, w_s, w_bf
+        torch.cuda.empty_cache()
+    log("untiled matmuls: q8q8 bit-equal to its plain version everywhere, "
+        "the dequant kernel within 1e-5 * max|plain|; library_ms = "
+        "torch.nn.functional.linear on bf16 with the weights dequantized "
+        "once to bf16")
+    return rows
+
+
 def check_sampler(torch, n_rows=64, vocab=151936, seed=0):
     """The sampler on the card against its run on the CPU (which
     tests/test_torch_runtime.py holds to the JAX package) on the same
@@ -1076,9 +1250,11 @@ def run_cli(argv, stdin_text=""):
 def launch_modules():
     from qwen3_tpu_torch.ops.cuda import batched_decode as bd
     from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+    from qwen3_tpu_torch.ops.cuda import kv_write as kw
     from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+    from qwen3_tpu_torch.tools import probe_dma as pd
 
-    return qm, fd, bd
+    return qm, fd, bd, kw, pd
 
 
 def want_launches(calls):
@@ -1090,7 +1266,9 @@ def want_launches(calls):
     that resolved to a kernel attention 28 launches of it (prefill blocks
     flash prefill; decode steps flash decode, or over the serving side
     buffer the two-segment flash or the batched decode kernel); no other
-    pass launches an attention kernel."""
+    pass launches an attention kernel; no pass launches the kernels that
+    only the tests and the probe call (the KV row write, the untiled
+    matmuls, the pure reads)."""
     mm = {route: calls["mm_" + route] for route in (
         "pallas", "pallas-fast", "pallas-int8", "fused")}
     return {"stacked": 4 * L * mm["pallas"], "tiled": mm["pallas"],
@@ -1103,7 +1281,9 @@ def want_launches(calls):
             "flash_prefill": L * calls["forward_flash"],
             "flash_decode_two_segment":
                 L * calls["decode_forward_two_segment"],
-            "batched_decode_partial": L * calls["decode_forward_fused"]}
+            "batched_decode_partial": L * calls["decode_forward_fused"],
+            "kv_write": 0, "q8q8_pallas": 0, "pallas": 0,
+            "pure_read_stacked": 0, "pure_read_manual": 0}
 
 
 def checked(torch, label, fn):
@@ -1594,6 +1774,135 @@ def phase_quality(torch, path: str):
                  f"{err.getvalue()}")
         results[label] = res
     return results
+
+
+PROBE_LAYERS = (0, 17, 35)
+
+
+def phase_probe(torch):
+    """The DMA probe's path (qwen3_tpu_torch/tools/probe_dma.py) at its own
+    full-width configuration: qwen3-4b's parameters generated on the card,
+    w13 [36, 19456, 2560] int8, 64 calls a row, call i reading layer i % 36.
+    The launch counts are set to 0 just before it and read just after.
+    Then, outside the counted run: each pure-read kernel's checksum equal
+    to the plain version's at layers PROBE_LAYERS, for n_buf 2, 3 and 4;
+    no row may read faster than 1.05 x 3.35 TB/s (that would mean dropped
+    loads or L2 hits); the plain version's time for one layer, and as a
+    yardstick a device-to-device copy_ of one layer (its read and write
+    bytes counted). Returns (rows, counts, plain ms, layer bytes)."""
+    from qwen3_tpu_torch.tools import probe_dma as pd
+
+    t0 = time.perf_counter()
+    reset_counts()
+    rows, w_q, nbytes = pd.run_probe(torch.device("cuda"))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for label, ms, gbs in rows:
+        log(f"probe {label:24s} {ms:7.3f} ms/layer  {gbs:6.1f} GB/s")
+    log(f"probe path launches: { {k: c for k, c in counts.items() if c} }")
+    if min(counts[k] for k in ("stacked", "pure_read_stacked",
+                               "pure_read_manual")) == 0:
+        fail("a kernel of the probe path was never launched")
+    limit = 1.05 * HBM_BYTES_PER_S / 1e9
+    for label, ms, gbs in rows:
+        if gbs > limit:
+            fail(f"probe {label}: {gbs:.1f} GB/s is past 1.05 x the card's "
+                 f"memory rate ({limit:.0f} GB/s)")
+    for layer in PROBE_LAYERS:
+        want = pd.pure_read_plain(w_q, layer)
+        got = {"stacked": pd.pure_read_stacked(w_q, layer)}
+        for n_buf in pd.N_BUFS:
+            got[f"manual {n_buf}"] = pd.pure_read_manual(w_q, layer, n_buf)
+        torch.cuda.synchronize()
+        for name, g in got.items():
+            if not torch.equal(g, want):
+                fail(f"probe checksum, {name}, layer {layer}: kernel != "
+                     f"plain")
+    plain_ms = device_ms(torch, lambda i: pd.pure_read_plain(
+        w_q, i % w_q.shape[0]), reps=5)
+    dst = torch.empty_like(w_q[0])
+    copy_ms = device_ms(torch, lambda i: dst.copy_(w_q[i % w_q.shape[0]]))
+    log(f"probe checksums equal the plain version's at layers "
+        f"{list(PROBE_LAYERS)}, n_buf {list(pd.N_BUFS)}; plain "
+        f"{plain_ms:.3f} ms/layer; yardstick copy_ of one layer "
+        f"{copy_ms:.4f} ms, {2 * nbytes / copy_ms / 1e6:.1f} GB/s read + "
+        f"written; {time.perf_counter() - t0:.1f} s")
+    del w_q, dst
+    torch.cuda.empty_cache()
+    return rows, counts, plain_ms, nbytes
+
+
+def phase_host_tools(torch, path: str, workdir: Path):
+    """The host tools on the phases' checkpoint: model_check and
+    tokenizer_check (rc 0, every round trip ok); the native C++ encode
+    against the Python encode on every prompt the phases feed (the 8378-token
+    one included), both encode times logged; and the CLI with --profile
+    (launch counts checked), which must leave a trace with kernel events and
+    print the same tokens as the same run without it."""
+    from qwen3_tpu_torch.tokenizer import Tokenizer
+    from qwen3_tpu_torch.tools import model_check, tokenizer_check
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = model_check.main([path])
+    if rc != 0:
+        fail(f"model_check returned {rc}:\n{err.getvalue()}")
+    log(f"model_check: rc 0, {err.getvalue().strip().splitlines()[-1]}")
+    out = io.StringIO()
+    texts = [PROMPT, "<|im_start|>user\nhi<|im_end|>", "héllo wörld"]
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = tokenizer_check.main([path] + texts)
+    if rc != 0 or out.getvalue().count("[ok]") != len(texts):
+        fail(f"tokenizer_check returned {rc}:\n{out.getvalue()}")
+    log(f"tokenizer_check: rc 0, {len(texts)} round trips ok")
+
+    tok = Tokenizer.from_file(path)
+    if tok._native is None:
+        fail("the native tokenizer did not build")
+    prompts = ([PROMPT, LONG_PROMPT, LONG_PROMPT.strip(), PROMPT[:200],
+                PROMPT[:120], PROMPT[:60], "You are brief.",
+                "Tell me about the clockmaker.", "And the children?"]
+               + [PROMPT[:60 + 25 * i] for i in range(8)]
+               + [p for args in ((16, 5, 30, 1), (64, 5, 30, 2), (1, 8, 12, 3),
+                                 (7, 45, 55, 4), (7, 8, 25, 5), (8, 5, 30, 6))
+                  for p in serve_prompts(*args)])
+    t_native = t_python = 0.0
+    longest = 0
+    for text in prompts:
+        t0 = time.perf_counter()
+        ids = tok.encode(text)
+        t1 = time.perf_counter()
+        want = tok.encode_python(text)
+        t_python += time.perf_counter() - t1
+        t_native += t1 - t0
+        if ids != want:
+            fail(f"native encode != Python encode on {text[:60]!r}")
+        longest = max(longest, len(ids))
+    log(f"native encode equals the Python encode on {len(prompts)} prompts "
+        f"(longest {longest} tokens): native {t_native * 1e3:.1f} ms, "
+        f"Python {t_python * 1e3:.1f} ms in all")
+
+    argv = [path, "--device", "cuda", "-m", "completion", "-i", PROMPT[:200],
+            "-t", "0", "-s", "42", "-c", "512", "--max-tokens", "16"]
+    plain, _, _ = checked_run(torch, "profile off", argv)
+    pdir = workdir / "profile"
+    traced, err, _ = checked_run(torch, "--profile", argv + [
+        "--profile", str(pdir)])
+    if f"[Profile] tracing to {pdir}" not in err:
+        fail("--profile: no [Profile] line")
+    if traced != plain:
+        fail("--profile: other tokens than the same run without it")
+    traces = sorted(pdir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"--profile: {len(traces)} trace files in {pdir}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    n_kernels = sum(e.get("cat") == "kernel" for e in events)
+    log(f"--profile: the same {len(plain)} stdout bytes; trace "
+        f"{traces[0].name}, {traces[0].stat().st_size / 1e6:.1f} MB, "
+        f"{n_kernels} kernel events")
+    if n_kernels == 0:
+        fail("--profile: the trace holds no kernel events")
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -2161,7 +2470,8 @@ def matmul_entry(name, source, line, mine, per_pass, launches):
 
 
 def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
-                  serve_err, int8_rows, fused_rows, counts):
+                  serve_err, int8_rows, fused_rows, kv_rows, untiled_rows,
+                  probe, counts):
     """Per kernel, one decoded token at the main path's shapes: the matmuls
     at b = 1 (4 stacked x 28 layers, 1 classifier), their launches over the
     path below depth 8192; flash decode at depth 8192 and flash prefill per
@@ -2172,7 +2482,12 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
     launches over the serving path. The int8 and fused kernels per decoded
     token at b = 1: the int8 matmuls (4 stacked x 28, 1 classifier) and the
     fused matmul in mode pallas (exact: 4 x 28 layer matmuls and the
-    classifier), their launches over the modes path."""
+    classifier), their launches over the modes path. The kernels that no
+    path runs, with their launches over every path (0): the KV row write
+    for one call at the B = 64 cache in bf16; the untiled matmuls per
+    decoded token at b = 1 (q8_matmul_pallas in the JAX defaults, f32
+    pre-scaled). The pure reads per layer of qwen3-4b's w13 (the manual
+    ring at its fastest n_buf), their launches over the probe path."""
     out = []
     for kind, source_line in (("stacked", 419), ("tiled", 314)):
         mine = [r for r in rows if r["kernel"] == kind]
@@ -2259,6 +2574,44 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
         "q8_matmul_fused", "q8_fused.cu", 748, fused_rows,
         [(r, 1 if r["matrix"] == "classifier" else L) for r in fused_rows
          if r["b"] == 1 and r["exact"]], counts["modes"]["fused"]))
+
+    def on_paths(key):
+        return sum(c[key] for name, c in counts.items() if name != "probe")
+
+    r = next(r for r in kv_rows if r["dtype"] == "bfloat16")
+    out.append({
+        "name": "kv_write_rows", "route": "cuda",
+        "source": "qwen3_tpu_torch/csrc/kv_write.cu",
+        "replaces": "qwen3_tpu/ops/pallas/kv_write.py:50",
+        "launches": on_paths("kv_write"),
+        "max_abs_err": max(r["max_abs_diff"] for r in kv_rows),
+        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"]})
+    for name, count, prefix, kind, line in (
+            ("q8_q8_matmul_pallas", "q8q8_pallas", "q8q8_", "q8q8_pallas", 96),
+            ("q8_matmul_pallas", "pallas", "pallas_", "pallas_float32_pre",
+             848)):
+        mine = [r for r in untiled_rows if r["kernel"].startswith(prefix)]
+        out.append(matmul_entry(
+            name, "q8_untiled.cu", line, mine,
+            [(r, 1 if r["matrix"] == "classifier" else L)
+             for r in mine if r["b"] == 1 and r["kernel"] == kind],
+            on_paths(count)))
+    probe_rows, probe_counts, plain_ms, nbytes = probe
+    bound = 1e3 * (nbytes + 4 * 8 * 1024) / HBM_BYTES_PER_S
+    for name, line, labels in (
+            ("pure_read_stacked", 37, ("pure-read same walk",)),
+            ("pure_read_manual", 70, tuple(f"manual DMA {k}-buffer"
+                                           for k in (2, 3, 4)))):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "qwen3_tpu_torch/csrc/probe_dma.cu",
+            "replaces": f"tools/probe_dma.py:{line}",
+            "launches": probe_counts[name], "max_abs_err": 0,
+            "ms": min(ms for label, ms, _ in probe_rows if label in labels),
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None})
     return out
 
 
@@ -2281,6 +2634,8 @@ def main() -> int:
     serve_rows, serve_err = phase_batched_kernels(torch)
     int8_rows = phase_int8_kernels(torch)
     fused_rows = phase_fused_kernels(torch)
+    kv_rows = phase_kv_write(torch)
+    untiled_rows = phase_untiled_kernels(torch)
     check_sampler(torch)
     workdir = HERE / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
@@ -2303,6 +2658,9 @@ def main() -> int:
                 "stacked_int8", "tiled_int8", "fused")) == 0:
             fail("a kernel of the modes path was never launched")
         phase_quality(torch, path)
+        phase_host_tools(torch, path, workdir)
+        probe = phase_probe(torch)
+        counts["probe"] = probe[1]
         phase_plain_path(torch, path)
         phase_plain_depth(torch, path)
         phase_serving_plain(torch, path)
@@ -2316,7 +2674,8 @@ def main() -> int:
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_report(
         rows, flash_rows, flash_err, fast_rows, serve_rows, serve_err,
-        int8_rows, fused_rows, counts)}), flush=True)
+        int8_rows, fused_rows, kv_rows, untiled_rows, probe, counts)}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -21,7 +21,9 @@ Usage:  python -m qwen3_tpu_torch.cli <checkpoint.bin> [options]
   --max-tokens cap on generated tokens (completion mode)
   --device     torch device (default cuda; cpu runs the kernels' plain
                versions)
-  --tp, --profile, --coordinator/--num-processes/--process-id
+  --profile DIR
+               trace the run with torch.profiler into DIR (a Chrome trace)
+  --tp, --coordinator/--num-processes/--process-id
                accepted for compatibility; not ported yet (they raise)
 
 QWEN3_TPU_FUSE=1 in the environment runs the matmuls of modes pallas and
@@ -35,10 +37,11 @@ Generated text streams to stdout; diagnostics go to stderr with
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
-from qwen3_tpu_torch.config import fuse_from_env
+from qwen3_tpu_torch.config import fuse_from_env, native_tokenizer_from_env
 from qwen3_tpu_torch.runtime.chat import ChatSession
 from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig
 
@@ -62,6 +65,7 @@ def build_engine(args) -> Engine:
         tp=args.tp,
         device=args.device,
         fuse=fuse_from_env(),
+        native_tokenizer=native_tokenizer_from_env(),
     )
     print(f"[Engine] loading {cfg.path} (mode={cfg.mode}, "
           f"device={cfg.device}, fuse={int(cfg.fuse)})", file=sys.stderr)
@@ -135,18 +139,23 @@ def main(argv=None) -> int:
                     help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.profile:
-        raise NotImplementedError("--profile is not ported yet")
     if (args.coordinator is not None or args.num_processes is not None
             or args.process_id is not None):
         raise NotImplementedError("multi-host (--coordinator) is not ported "
                                   "yet")
 
     eng = build_engine(args)
-    if args.m == "completion":
-        run_completion(eng, args)
-    else:
-        run_chat(eng, args)
+    ctx = contextlib.nullcontext()
+    if args.profile:
+        from qwen3_tpu_torch.utils.profiling import profile_trace
+
+        print(f"[Profile] tracing to {args.profile}", file=sys.stderr)
+        ctx = profile_trace(args.profile, device=args.device)
+    with ctx:
+        if args.m == "completion":
+            run_completion(eng, args)
+        else:
+            run_chat(eng, args)
     return 0
 
 

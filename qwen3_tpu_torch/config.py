@@ -32,6 +32,15 @@ def fuse_from_env(environ=None) -> bool:
     return env.get("QWEN3_TPU_FUSE", "0") == "1"
 
 
+def native_tokenizer_from_env(environ=None) -> bool:
+    """QWEN3_TPU_NATIVE_TOKENIZER read as the JAX package reads it
+    (qwen3_tpu/tokenizer/bpe.py): "1", the default, encodes through the
+    native C++ core. Only the entry points call this and pass the result
+    down, as with fuse_from_env."""
+    env = os.environ if environ is None else environ
+    return env.get("QWEN3_TPU_NATIVE_TOKENIZER", "1") == "1"
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Static architecture hyperparameters (checkpoint header contents)."""

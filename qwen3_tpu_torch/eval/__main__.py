@@ -34,7 +34,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from qwen3_tpu_torch.config import fuse_from_env
+    from qwen3_tpu_torch.config import fuse_from_env, native_tokenizer_from_env
     from qwen3_tpu_torch.eval.perplexity import sequence_nll
     from qwen3_tpu_torch.io.checkpoint import read_header
     from qwen3_tpu_torch.models.qwen3 import load_params
@@ -43,7 +43,7 @@ def main(argv=None) -> int:
     cfg = read_header(args.checkpoint)
     if args.ctx:
         cfg = cfg.with_seq_len(args.ctx)
-    tok = Tokenizer.from_file(args.checkpoint)
+    tok = Tokenizer.from_file(args.checkpoint, native_tokenizer_from_env())
     ids = tok.encode(text)
     if len(ids) < 2:
         print("[eval] need at least 2 tokens", file=sys.stderr)

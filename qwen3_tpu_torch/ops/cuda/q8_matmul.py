@@ -5,8 +5,10 @@ matmul) and ::q8_q8_matmul_tiled (the classifier) of mode "pallas",
 ::q8_matmul_stacked_fast / ::q8_matmul_tiled_fast of mode "pallas-fast",
 ::q8i8_matmul_stacked / ::q8i8_matmul_tiled of mode "pallas-int8", and
 ::q8_matmul_fused, the prologue-fused matmul of modes pallas and pallas-fast
-under QWEN3_TPU_FUSE=1. The kernels are `csrc/q8_matmul.cu`,
-`csrc/q8i8_matmul.cu` and `csrc/q8_fused.cu`; see their notes for the
+under QWEN3_TPU_FUSE=1, and the untiled ::q8_q8_matmul_pallas and
+::q8_matmul_pallas on contraction-leading weights, which only the tests
+call. The kernels are `csrc/q8_matmul.cu`, `csrc/q8i8_matmul.cu`,
+`csrc/q8_fused.cu` and `csrc/q8_untiled.cu`; see their notes for the
 designs and the bounds.
 
 Layout: the checkpoint's row-major weights, one output column per row,
@@ -14,7 +16,8 @@ Layout: the checkpoint's row-major weights, one output column per row,
   w_q int8 [d, n],   w_s f32 [d, n/G]    (stacked: [L, d, n], [L, d, n/G])
   -> out f32 [..., d]
 The TPU package's [J, n, td] tile repack (and the classifier's zero padding)
-exists for the TPU's DMA blocks and has no counterpart here.
+exists for the TPU's DMA blocks and has no counterpart here. The untiled
+functions keep their JAX layout, w_q int8 [n, d] and w_s f32 [n/G, d].
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `LAUNCHES` counts kernel launches,
@@ -30,7 +33,7 @@ from qwen3_tpu_torch.ops.q8 import quantize_act, round_bf16
 
 LAUNCHES = {"stacked": 0, "tiled": 0, "stacked_fast": 0,
             "tiled_fast": 0, "stacked_int8": 0, "tiled_int8": 0,
-            "fused": 0}
+            "fused": 0, "q8q8_pallas": 0, "pallas": 0}
 
 
 def reset_launches() -> None:
@@ -58,8 +61,9 @@ def groups_per_tile(n: int, group_size: int) -> int:
 
 def q8q8_matmul_plain(x_q: torch.Tensor, x_s: torch.Tensor,
                       w_q: torch.Tensor, w_s: torch.Tensor,
-                      group_size: int) -> torch.Tensor:
-    """The kernel's function in PyTorch, same arithmetic in the same order.
+                      group_size: int, block_k: int = 512) -> torch.Tensor:
+    """The kernel's function in PyTorch, same arithmetic in the same order,
+    with k-tiles tk = _pick_tile(n, 8 * G, block_k).
 
     Each group dot is computed as a float32 product of int8 values cast to
     float32, which is exact (every partial sum is an integer below 2^24).
@@ -68,13 +72,13 @@ def q8q8_matmul_plain(x_q: torch.Tensor, x_s: torch.Tensor,
     d = w_q.shape[0]
     g = group_size
     ng = n // g
-    gpt = groups_per_tile(n, g)
     xg = x_q.reshape(-1, ng, g).float()            # [b, ng, G]
     wg = w_q.reshape(d, ng, g).float()             # [d, ng, G]
     xs = x_s.reshape(-1, ng).float()
     ws = w_s.float()
     b = xg.shape[0]
     out = torch.zeros(b, d, dtype=torch.float32, device=x_q.device)
+    gpt = pick_tile(n, 8 * g, block_k) // g
     for t0 in range(0, ng, gpt):
         dots = torch.bmm(xg[:, t0:t0 + gpt].transpose(0, 1),
                          wg[:, t0:t0 + gpt].permute(1, 2, 0))   # [gpt, b, d]
@@ -442,4 +446,178 @@ def q8_matmul_fused(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"q8 fused kernel launch failed: CUDA error {err}")
     LAUNCHES["fused"] += 1
+    return out.reshape(*lead, d)
+
+
+# -- the untiled matmuls on contraction-leading weights --------------------
+
+
+def q8_q8_matmul_pallas_plain(x_q: torch.Tensor, x_s: torch.Tensor,
+                              w_q: torch.Tensor, w_s: torch.Tensor,
+                              group_size: int,
+                              block_k: int = 512) -> torch.Tensor:
+    """The untiled exact kernel's function in PyTorch: q8q8_matmul_plain on
+    the [n, d] weights' transpose, the same arithmetic in the same order."""
+    return q8q8_matmul_plain(x_q, x_s, w_q.T, w_s.T, group_size, block_k)
+
+
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def q8_matmul_pallas_plain(x: torch.Tensor, w_q: torch.Tensor,
+                           w_s: torch.Tensor, group_size: int,
+                           block_k: int = 512,
+                           compute_dtype=torch.float32,
+                           postscale: bool = False) -> torch.Tensor:
+    """The untiled dequant kernel's function in PyTorch, per k-tile tk =
+    _pick_tile(n, 8 * G, block_k): x rounded to `compute_dtype`; prescale
+    dots it with the tile's weights dequantized as f32(w_q) * w_s and
+    rounded to `compute_dtype`, postscale dots each group with f32(w_q)
+    and scales the group's dot by w_s after it; each tile's sum is added to
+    out in k order. The dots are fp32 products of values held in fp32
+    (TF32 off; products of bf16 values are exact), summed in torch.matmul's
+    order."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{compute_dtype}")
+    *lead, n = x.shape
+    d = w_q.shape[1]
+    g = group_size
+    tk = pick_tile(n, 8 * g, block_k)
+    xc = x.reshape(-1, n).to(compute_dtype).float()
+    out = torch.zeros(xc.shape[0], d, dtype=torch.float32, device=x.device)
+    for k0 in range(0, n, tk):
+        if postscale:
+            acc = torch.zeros_like(out)
+            for i in range(k0 // g, (k0 + tk) // g):
+                dot = xc[:, i * g:(i + 1) * g] @ w_q[i * g:(i + 1) * g].float()
+                acc = acc + dot * w_s[i].float()[None, :]
+            out = out + acc
+        else:
+            w = (w_q[k0:k0 + tk].float().reshape(tk // g, g, d)
+                 * w_s[k0 // g:(k0 + tk) // g].float()[:, None, :])
+            w = w.reshape(tk, d).to(compute_dtype).float()
+            out = out + xc[:, k0:k0 + tk] @ w
+    return out.reshape(*lead, d)
+
+
+def _check_untiled(x, x_s, w_q, w_s, group_size, x_dtype):
+    """What the untiled kernels take: x of `x_dtype` [..., n] (and, for the
+    exact kernel, f32 group scales x_s), weights w_q int8 [n, d] and w_s
+    f32 [n/G, d] with d % 4 == 0; every tensor contiguous, 16-byte aligned
+    and on x's CUDA device."""
+    g = group_size
+    if g < 16 or g > 512 or g & (g - 1):
+        raise ValueError(f"group_size must be a power of two in [16, 512], "
+                         f"got {g}")
+    n = x.shape[-1]
+    if w_q.dim() != 2 or w_q.shape[0] != n or n % g:
+        raise ValueError(f"contraction mismatch: x {tuple(x.shape)}, "
+                         f"w {tuple(w_q.shape)}, G={g}")
+    d = w_q.shape[1]
+    if d % 4:
+        raise ValueError(f"the untiled kernels take d % 4 == 0, got d={d}")
+    if tuple(w_s.shape) != (n // g, d):
+        raise ValueError(f"weight scales {tuple(w_s.shape)} do not match "
+                         f"{tuple(w_q.shape)} at G={g}")
+    tensors = [("x", x, x_dtype), ("w_q", w_q, torch.int8),
+               ("w_s", w_s, torch.float32)]
+    if x_s is not None:
+        if tuple(x_s.shape) != tuple(x.shape[:-1]) + (n // g,):
+            raise ValueError(f"activation scales {tuple(x_s.shape)} do not "
+                             f"match {tuple(x.shape)} at G={g}")
+        tensors.append(("x_s", x_s, torch.float32))
+    for name, t, dt in tensors:
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name} must be on {x.device}, got {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _untiled_launch(kind, fn, x, b, n, d, group_size, block_k, args):
+    """Launch an untiled kernel: the k-tiles split across blocks (with the
+    ordered sum after) when the row and column blocks alone would leave
+    SMs idle."""
+    gpt = pick_tile(n, 8 * group_size, block_k) // group_size
+    nt = n // group_size // gpt
+    out = torch.empty(b, d, dtype=torch.float32, device=x.device)
+    blocks = -(-d // 64) * -(-b // (8 if b <= 8 else 64))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    part = None
+    if nt > 1 and blocks < 2 * sms:
+        part = torch.empty(nt, b, d, dtype=torch.float32, device=x.device)
+    err = fn(*args, out.data_ptr(), None if part is None else part.data_ptr(),
+             b, n, d, group_size, gpt)
+    if err != 0:
+        raise RuntimeError(f"{kind} kernel launch failed: CUDA error {err}")
+    LAUNCHES[kind] += 1
+    return out
+
+
+def q8_q8_matmul_pallas(x_q: torch.Tensor, x_s: torch.Tensor,
+                        w_q: torch.Tensor, w_s: torch.Tensor,
+                        group_size: int, block_k: int = 512,
+                        block_d: int = 1024) -> torch.Tensor:
+    """int8 activations (x_q [..., n], x_s f32 [..., n/G]) x Q8_0 weights
+    w_q int8 [n, d], w_s f32 [n/G, d] -> f32 [..., d]: exact int32 group
+    dots, then the fp32 scale-and-sum in group and k-tile order. block_d
+    sizes the TPU's column tiles only; columns are independent, so it
+    changes no number."""
+    del block_d
+    if x_q.device.type == "cpu":
+        return q8_q8_matmul_pallas_plain(x_q, x_s, w_q, w_s, group_size,
+                                         block_k)
+    from qwen3_tpu_torch.ops.cuda.build import load_library
+
+    _check_untiled(x_q, x_s, w_q, w_s, group_size, torch.int8)
+    *lead, n = x_q.shape
+    d = w_q.shape[1]
+    b = x_q.numel() // n
+    lib = load_library()
+    stream = torch.cuda.current_stream(x_q.device).cuda_stream
+
+    def launch(*a):
+        return lib.q8q8_untiled(*a, stream)
+
+    out = _untiled_launch("q8q8_pallas", launch, x_q, b, n, d, group_size,
+                          block_k, (x_q.data_ptr(), x_s.data_ptr(),
+                                    w_q.data_ptr(), w_s.data_ptr()))
+    return out.reshape(*lead, d)
+
+
+def q8_matmul_pallas(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                     group_size: int, block_k: int = 512, block_d: int = 512,
+                     compute_dtype=torch.float32,
+                     postscale: bool = False) -> torch.Tensor:
+    """x [..., n] (f32 or bf16) @ dequant(w_q int8 [n, d], w_s f32 [n/G,
+    d]) -> f32 [..., d], in `compute_dtype` f32 (true fp32) or bf16, the
+    scales applied to the weight tile before the dot or, with `postscale`,
+    to each group's dot after it. block_d as for q8_q8_matmul_pallas."""
+    del block_d
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{compute_dtype}")
+    if x.device.type == "cpu":
+        return q8_matmul_pallas_plain(x, w_q, w_s, group_size, block_k,
+                                      compute_dtype, postscale)
+    from qwen3_tpu_torch.ops.cuda.build import load_library
+
+    if x.dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    xf = x.float().contiguous()
+    _check_untiled(xf, None, w_q, w_s, group_size, torch.float32)
+    *lead, n = x.shape
+    d = w_q.shape[1]
+    b = xf.numel() // n
+    lib = load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def launch(*a):
+        return lib.q8_untiled(*a, int(compute_dtype == torch.bfloat16),
+                              int(postscale), stream)
+
+    out = _untiled_launch("pallas", launch, xf, b, n, d, group_size, block_k,
+                          (xf.data_ptr(), w_q.data_ptr(), w_s.data_ptr()))
     return out.reshape(*lead, d)

@@ -212,13 +212,14 @@ class BatchedEngine:
                  side_buffer: bool = True, tp: int = 1, dp: int = 1,
                  model_cfg: ModelConfig | None = None, params=None,
                  aot_dir: str | None = None, device="cuda",
-                 fuse: bool = False):
+                 fuse: bool = False, native_tokenizer: bool = True):
         """`model_cfg`/`params` inject parameters already on the device,
         skipping the checkpoint load; `path` is then only read for the
         `.tokenizer` sidecar. `device` is "cuda" (the default; without a
         card it raises) or "cpu" (the kernels' plain versions). `fuse`: the
         prologue-fused matmuls in modes pallas and pallas-fast (ignored in
-        the others)."""
+        the others). `native_tokenizer`: encode through the native C++
+        core."""
         check_mode(mode)
         if tp > 1 or dp > 1:
             raise NotImplementedError("tp/dp > 1 serving is not ported yet")
@@ -228,7 +229,7 @@ class BatchedEngine:
         if attn not in ("auto", "dense", "flash", "fused"):
             raise NotImplementedError(f"attn={attn!r} is not ported yet")
         self.device = resolve_device(device)
-        self.tokenizer = Tokenizer.from_file(path)
+        self.tokenizer = Tokenizer.from_file(path, native_tokenizer)
         if params is not None:
             if model_cfg is None:
                 raise ValueError("params injection needs model_cfg")

@@ -63,6 +63,7 @@ class EngineConfig:
     tp: int = 1                    # tensor parallelism: not ported yet
     device: str = "cuda"
     fuse: bool = False             # prologue-fused matmuls (pallas modes)
+    native_tokenizer: bool = True  # encode with the native C++ core
 
 
 @dataclasses.dataclass
@@ -93,7 +94,7 @@ class Engine:
         _not_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        self.tokenizer = Tokenizer.from_file(cfg.path)
+        self.tokenizer = Tokenizer.from_file(cfg.path, cfg.native_tokenizer)
         seq_len = cfg.seq_len if cfg.seq_len > 0 else MAX_SEQ_LEN
         self.model_cfg: ModelConfig = read_header(cfg.path).with_seq_len(
             seq_len)

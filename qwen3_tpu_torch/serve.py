@@ -67,7 +67,7 @@ def main(argv=None) -> int:
                     help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    from qwen3_tpu_torch.config import fuse_from_env
+    from qwen3_tpu_torch.config import fuse_from_env, native_tokenizer_from_env
     from qwen3_tpu_torch.runtime.batched import BatchedEngine, Request
 
     lines = (sys.stdin if args.prompts == "-"
@@ -91,7 +91,8 @@ def main(argv=None) -> int:
                         prefill_bucket=args.prefill_bucket,
                         decode_chunk=args.decode_chunk,
                         tp=args.tp, dp=args.dp, aot_dir=args.aot_dir,
-                        device=args.device, fuse=fuse)
+                        device=args.device, fuse=fuse,
+                        native_tokenizer=native_tokenizer_from_env())
     print(f"[Serve] engine ready in {time.perf_counter() - t_load:.1f}s "
           f"(checkpoint load + device transfer; attn={eng.attn}, "
           f"device={eng.device})", file=sys.stderr)

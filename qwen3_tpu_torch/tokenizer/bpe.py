@@ -15,17 +15,26 @@ token lookups; this implementation keeps identical selection semantics with a
 hash-map vocab and a lazy heap (O(T log T)), so prompt processing is not a
 bottleneck. Any vocab entry is a merge candidate (scores default to -1e6 for
 base/special/pad tokens, still above the C scan's -1e10 sentinel).
+
+`use_native` (default on) encodes through the native C++ core
+(tokenizer/native.py), the same ids faster; without g++ the Python encode
+runs. The entry points pass config.native_tokenizer_from_env(), the JAX
+package's QWEN3_TPU_NATIVE_TOKENIZER; nothing here reads the environment.
 """
 
 from __future__ import annotations
 
 import heapq
 
-from qwen3_tpu_torch.io.tokenizer_bin import TokenizerData, load_tokenizer_bin
+from qwen3_tpu_torch.io.tokenizer_bin import (
+    TokenizerData,
+    dumps_tokenizer_bin,
+    load_tokenizer_bin,
+)
 
 
 class Tokenizer:
-    def __init__(self, data: TokenizerData):
+    def __init__(self, data: TokenizerData, use_native: bool = True):
         self._data = data
         self.tokens = data.tokens
         self.scores = data.scores
@@ -36,13 +45,18 @@ class Tokenizer:
         self._vocab: dict[bytes, int] = {}
         for i, tok in enumerate(data.tokens):
             self._vocab.setdefault(tok, i)
+        self._native = None
+        if use_native:
+            from qwen3_tpu_torch.tokenizer.native import load_native
+
+            self._native = load_native(dumps_tokenizer_bin(data))
 
     @classmethod
-    def from_file(cls, path: str) -> "Tokenizer":
+    def from_file(cls, path: str, use_native: bool = True) -> "Tokenizer":
         """Load `<path>.tokenizer` (suffix appended like the C loader)."""
         if not path.endswith(".tokenizer"):
             path = path + ".tokenizer"
-        return cls(load_tokenizer_bin(path))
+        return cls(load_tokenizer_bin(path), use_native)
 
     @property
     def vocab_size(self) -> int:
@@ -136,5 +150,13 @@ class Tokenizer:
         return out
 
     def encode(self, text: str | bytes) -> list[int]:
+        data = text.encode("utf-8") if isinstance(text, str) else text
+        if self._native is not None:
+            return self._native.encode(data)
+        return self._merge(self._pre_tokenize(data))
+
+    def encode_python(self, text: str | bytes) -> list[int]:
+        """The Python encode, whatever `use_native` (the native core's
+        cross-check)."""
         data = text.encode("utf-8") if isinstance(text, str) else text
         return self._merge(self._pre_tokenize(data))

@@ -64,7 +64,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from qwen3_tpu_torch.config import fuse_from_env
+    from qwen3_tpu_torch.config import fuse_from_env, native_tokenizer_from_env
     from qwen3_tpu_torch.eval.perplexity import sequence_nll
     from qwen3_tpu_torch.io.checkpoint import read_header
     from qwen3_tpu_torch.models.qwen3 import load_params
@@ -72,7 +72,7 @@ def main(argv=None) -> int:
 
     fuse = fuse_from_env()
     cfg = read_header(args.checkpoint).with_seq_len(args.ctx)
-    tok = Tokenizer.from_file(args.checkpoint)
+    tok = Tokenizer.from_file(args.checkpoint, native_tokenizer_from_env())
     text = (open(args.text, encoding="utf-8").read() if args.text
             else pseudo_text(8 * args.ctx))
     ids = tok.encode(text)[: args.ctx]

@@ -423,3 +423,147 @@ def test_sample_tokens_on_card_match_cpu(dev):
     assert report["top-64 fast path"] == 0
     assert report["healed mass, top-64"] == 0
     assert report["healed mass, full scan"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_write_rows_matches_plain_on_card(dev, dtype):
+    """One launch writes every slot's row at its own position, duplicate
+    and edge positions included, bit-equal to the indexed assignment (bf16
+    rounds to nearest even in both); every other row unchanged."""
+    from qwen3_tpu_torch.ops.cuda import kv_write as kw
+
+    L, B, S, KV, D = 3, 8, 16, 2, 64
+    rng = np.random.default_rng(0)
+    cache = torch.from_numpy(rng.standard_normal((L, B, S, KV, D)).astype(
+        np.float32)).to(dev).to(dtype)
+    rows = torch.from_numpy(rng.standard_normal((B, KV, D)).astype(
+        np.float32)).to(dev)
+    positions = torch.tensor([0, 3, 3, S - 1, 7, 0, S - 1, 5], device=dev)
+    for layer in (0, L - 1):
+        kw.reset_launches()
+        got = kw.kv_write_rows(cache.clone(), rows, layer, positions)
+        want = kw.kv_write_rows_plain(cache.clone(), rows, layer, positions)
+        torch.cuda.synchronize()
+        assert kw.LAUNCHES["kv_write"] == 1
+        assert torch.equal(got, want)
+        keep = torch.ones(L, B, S, dtype=torch.bool, device=dev)
+        keep[layer, torch.arange(B, device=dev), positions] = False
+        assert torch.equal(got[keep], cache[keep])
+
+
+def test_kv_write_rows_refuses_on_card(dev):
+    """Other cache dtypes raise, and so do rows on another device than the
+    cache (a CUDA tensor meeting a CPU one, either way round)."""
+    from qwen3_tpu_torch.ops.cuda import kv_write as kw
+
+    rows = torch.zeros(2, 1, 8, device=dev)
+    with pytest.raises(TypeError):
+        kw.kv_write_rows(torch.zeros(1, 2, 4, 1, 8, dtype=torch.int8,
+                                     device=dev), rows, 0, [0, 1])
+    with pytest.raises(ValueError):
+        kw.kv_write_rows(torch.zeros(1, 2, 4, 1, 8, device=dev), rows.cpu(),
+                         0, [0, 1])
+    with pytest.raises(ValueError):
+        kw.kv_write_rows(torch.zeros(1, 2, 4, 1, 8), rows, 0, [0, 1])
+
+
+# (n, G): one and two 512-wide k-tiles, w2's six, the whole-axis fallback at
+# n = 768, and the tiny preset's G = 32
+UNTILED = [(512, 64), (1024, 64), (3072, 64), (768, 64), (128, 32)]
+
+
+def _untiled_inputs(seed, lead, n, d, g, dev):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(lead + (n,)).astype(
+        np.float32)).to(dev)
+    wq = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(
+        np.int8)).to(dev)
+    ws = torch.from_numpy((0.02 / 127 * (0.5 + rng.random(
+        (n // g, d)))).astype(np.float32)).to(dev)
+    return x, wq, ws
+
+
+@pytest.mark.parametrize("lead", [(1,), (8,), (9,), (2, 33)])
+@pytest.mark.parametrize("n,g", UNTILED)
+def test_q8q8_untiled_matches_plain_on_card(dev, lead, n, g):
+    """q8_q8_matmul_pallas on [n, d] weights, bit for bit: the k-tiles
+    split across blocks (small b) and walked by one block (b = 66), the
+    8-row and the 64-row blocks."""
+    from qwen3_tpu_torch.ops.q8 import quantize_act
+
+    x, wq, ws = _untiled_inputs(n + len(lead), lead, n, 200, g, dev)
+    xq, xs = quantize_act(x, g)
+    tq.reset_launches()
+    got = tq.q8_q8_matmul_pallas(xq, xs, wq, ws, g)
+    want = tq.q8_q8_matmul_pallas_plain(xq, xs, wq, ws, g)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["q8q8_pallas"] == 1
+    assert got.shape == lead + (200,)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("postscale", [False, True])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead", [(1,), (8,), (2, 33)])
+@pytest.mark.parametrize("n,g", UNTILED)
+def test_q8_untiled_matches_plain_on_card(dev, lead, n, g, cdt, postscale):
+    """q8_matmul_pallas on [n, d] weights within 1e-5 * max|plain|: the
+    kernel sums each dot as an fmaf chain in k order, torch.matmul in its
+    own order (products of bf16 values are exact in fp32, so bf16 differs
+    by the same sums' order only)."""
+    x, wq, ws = _untiled_inputs(n * 3 + len(lead), lead, n, 196, g, dev)
+    for xin in (x, x.to(torch.bfloat16)):
+        tq.reset_launches()
+        got = tq.q8_matmul_pallas(xin, wq, ws, g, compute_dtype=cdt,
+                                  postscale=postscale)
+        want = tq.q8_matmul_pallas_plain(xin, wq, ws, g, compute_dtype=cdt,
+                                         postscale=postscale)
+        torch.cuda.synchronize()
+        assert tq.LAUNCHES["pallas"] == 1
+        assert got.shape == lead + (196,)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_untiled_refuse_on_card(dev):
+    """d % 4 != 0, a CPU weight beside CUDA activations, and a compute
+    dtype other than f32 and bf16 raise."""
+    from qwen3_tpu_torch.ops.q8 import quantize_act
+
+    x, wq, ws = _untiled_inputs(0, (2,), 128, 64, 32, dev)
+    xq, xs = quantize_act(x, 32)
+    with pytest.raises(ValueError):
+        tq.q8_q8_matmul_pallas(xq, xs, wq[:, :62].contiguous(),
+                               ws[:, :62].contiguous(), 32)
+    with pytest.raises(ValueError):
+        tq.q8_q8_matmul_pallas(xq, xs, wq.cpu(), ws.cpu(), 32)
+    with pytest.raises(ValueError):
+        tq.q8_matmul_pallas(x, wq, ws, 32, compute_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("shape", [(3, 512, 1024), (2, 384, 2560),
+                                   (2, 256, 768)])
+def test_pure_read_matches_plain_on_card(dev, shape):
+    """Both pure-read kernels give the plain checksum at every layer and
+    n_buf, each call one launch; the manual ring needs tk <= 512, so the
+    n = 768 case (tk = 768, the whole axis) runs the GEMV walk only."""
+    from qwen3_tpu_torch.tools import probe_dma as pd
+
+    rng = np.random.default_rng(shape[2])
+    w = torch.from_numpy(rng.integers(-128, 128, shape).astype(
+        np.int8)).to(dev)
+    for layer in range(shape[0]):
+        want = pd.pure_read_plain(w, layer)
+        pd.reset_launches()
+        got = pd.pure_read_stacked(w, layer)
+        torch.cuda.synchronize()
+        assert pd.LAUNCHES["pure_read_stacked"] == 1
+        assert torch.equal(got, want)
+        if shape[2] == 768:
+            with pytest.raises(ValueError):
+                pd.pure_read_manual(w, layer, 2)
+            continue
+        for n_buf in pd.N_BUFS:
+            got = pd.pure_read_manual(w, layer, n_buf)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), n_buf
+        assert pd.LAUNCHES["pure_read_manual"] == len(pd.N_BUFS)

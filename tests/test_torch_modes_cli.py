@@ -130,8 +130,6 @@ def test_serve_with_fuse_prints_the_unfused_records(ckpt, tmp_path, capsys,
 
 def test_cli_still_refuses_what_is_not_ported(ckpt):
     base = [ckpt, "-m", "completion", "-i", "hi", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="--profile is not ported"):
-        cli(base + ["--profile", "profile_dir"])
     with pytest.raises(NotImplementedError, match="tp > 1 is not ported"):
         cli(base + ["--tp", "2"])
     for flag in (["--coordinator", "localhost:1234"], ["--num-processes", "2"],

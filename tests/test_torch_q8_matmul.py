@@ -167,9 +167,15 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
                                 32).shape == (2, 64)
     assert tq.q8_matmul_fused(x, torch.from_numpy(wq), torch.from_numpy(ws),
                               32, exact=True).shape == (2, 64)
+    wt = torch.from_numpy(wq).T.contiguous()         # the untiled [n, d]
+    st = torch.from_numpy(ws).T.contiguous()
+    assert tq.q8_q8_matmul_pallas(torch.from_numpy(xq), torch.from_numpy(xs),
+                                  wt, st, 32).shape == (2, 64)
+    assert tq.q8_matmul_pallas(x, wt, st, 32).shape == (2, 64)
     assert tq.LAUNCHES == {"stacked": 0, "tiled": 0, "stacked_fast": 0,
                            "tiled_fast": 0, "stacked_int8": 0,
-                           "tiled_int8": 0, "fused": 0}
+                           "tiled_int8": 0, "fused": 0, "q8q8_pallas": 0,
+                           "pallas": 0}
 
 
 def test_non_cpu_tensor_never_takes_plain_version():
