@@ -16,7 +16,9 @@ final line:
    Qwen3-0.6B's main-path shapes, with device times (CUDA events, median of
    20 runs after warm-up), the bound and a library yardstick: the Q8_0 x
    Q8_0 matmuls (b = 1, 64, 256, 512) and the pallas-fast matmuls (b = 1,
-   8, 64, 128, 512) bit for bit, the latter also across batch sizes; the
+   8, 64, 128, 512, with the fp32 FMA floor beside the bound) bit for bit,
+   the latter also across batch sizes; the pallas-fast and pallas-int8
+   matmuls also summed over one forward step at b = 1, 8 and 64; the
    flash kernels, batched decode (B = 8 and 64) and two-segment flash
    within their tolerances; the pallas-int8 matmuls (b = 1, 8, 64, 256, 512)
    bit for bit and across batch sizes; the fused-prologue matmul for each
@@ -54,9 +56,11 @@ final line:
    step at depth 8192, one serving decode step at B = 8 (see
    phase_serving_plain) and a 64-token pallas-int8 block;
 6. profile: torch.profiler over a warm greedy completion (one prefill
-   block, 64 decode steps), unfused and with the fused matmuls, and over one 32-step serving chunk at B = 8
-   (-c 1024) and at B = 64 (-c 512):
-   device time by kernel, kernels per step and the device's idle share.
+   block, 64 decode steps) in mode pallas, unfused and with the fused
+   matmuls, and in mode pallas-int8, and over one 32-step serving chunk at
+   B = 8 (-c 1024) and at B = 64 (-c 512): device time by kernel (the
+   matmul kernels' sum apart), kernels per step and the device's idle
+   share.
 
 The last two lines are a JSON object of per-kernel numbers and
 {"ok": true, "device": {...}}.
@@ -432,6 +436,19 @@ TWO_SEG_BASES = (0, 8192, 32736)
 TWO_SEG_ROWS = 33024           # -c 32768 + 32, padded to 256
 
 
+STEP_BATCHES = (1, 8, 64)      # the per-step sums of the fast and int8 phases
+
+
+def step_lines(label, rows, keys=("kernel_ms", "library_ms", "bound_ms")):
+    """Log one forward step's sums at each b in STEP_BATCHES: the four
+    layer matrices x 28 plus the classifier, for each of `keys`."""
+    for b in STEP_BATCHES:
+        mine = [r for r in rows if r["b"] == b]
+        step = {key: sum(r[key] * (1 if r["matrix"] == "classifier" else L)
+                         for r in mine) for key in keys}
+        log(f"{label} step " + json.dumps(dict(b=b, **step)))
+
+
 def fast_bound_ms(b, n, d):
     """The least time for a fast matmul: the int8 weights and their f32
     scales, the bf16 activations read once and the f32 output written once,
@@ -537,14 +554,19 @@ def phase_fast_kernels(torch):
                        kernel_ms=device_ms(torch, kernel),
                        plain_ms=device_ms(torch, plain, reps=5),
                        library_ms=device_ms(torch, library), bound_ms=bnd,
-                       bound_by=by)
+                       bound_by=by,
+                       fma_floor_ms=1e3 * 2 * b * n * d / FP32_OPS_PER_S)
             rows.append(row)
             log("fast " + json.dumps(row))
         del w_q, w_s, w_bf
         torch.cuda.empty_cache()
+    step_lines("fast", rows, ("kernel_ms", "library_ms", "bound_ms",
+                              "fma_floor_ms"))
     log(f"fast matmuls: every row bit-equal at b in {list(FAST_BATCHES)}; "
         "library_ms = torch.nn.functional.linear on bf16 with the weights "
-        "dequantized once to bf16")
+        "dequantized once to bf16; fma_floor_ms = the fp32 FMAs over the "
+        "67 TFLOP/s outside the tensor cores, the floor under the bit rule "
+        "(the kernel sums each group in k order, which an MMA does not)")
     return rows
 
 
@@ -783,9 +805,9 @@ def phase_int8_kernels(torch):
     """The pallas-int8 matmul kernels (q8i8 stacked and tiled) against
     their plain version on the card at qwen3-0.6b's matrices, b in
     INT8_BATCHES, bit for bit; each row of every b equal, bit for bit, to
-    the same row in the b = 512 call. Times as phase_kernels' (the wrapper,
-    which quantizes the activations per (row, k-tile) with PyTorch ops
-    before the kernel, as the JAX function does with XLA ops)."""
+    the same row in the b = 512 call. Times as phase_kernels' (the wrapper:
+    its quantization kernel, which quantizes the activations per (row,
+    k-tile) as the JAX function does with XLA ops, and the matmul)."""
     import torch.nn.functional as F
 
     from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
@@ -844,6 +866,7 @@ def phase_int8_kernels(torch):
             log("int8 " + json.dumps(row))
         del w_q, w_s, w_bf
         torch.cuda.empty_cache()
+    step_lines("int8", rows)
     log(f"int8 matmuls: every row bit-equal at b in {list(INT8_BATCHES)}; "
         "ms includes the activation quantization; library_ms = "
         "torch.nn.functional.linear on bf16 with the weights dequantized "
@@ -1917,7 +1940,10 @@ class Forcing:
     in all an int8 KV encode. Under spy("record") each step runs and keeps
     its input, its other arguments and its outputs (on the host); under
     spy("forced") each step returns the recorded outputs, in order, and
-    keeps the input it was given."""
+    keeps the input it was given. The int8 kernels quantize their
+    activations inside; on the card that step is recorded by quantize_act
+    on the kernel's input at its k-tile, the plain op phase 3 holds the
+    kernels to bit for bit."""
 
     def __init__(self, mode: str = "pallas"):
         from qwen3_tpu_torch.models import qwen3 as model
@@ -1929,8 +1955,11 @@ class Forcing:
                "pallas-fast": ("bf16", model, "round_bf16"),
                "pallas-int8": ("q8i8", qm, "quantize_act")}[mode]
         self.sites = {act[0]: act[1:], "kv": (kvc, "quantize_heads")}
+        self.kernels = {}
         if mode == "pallas-int8":
             self.sites["att"] = (attention, "dot_operand")
+            self.kernels = {name: getattr(model, name) for name in (
+                "q8i8_matmul_stacked", "q8i8_matmul_tiled")}
         self.rounding = {k: getattr(*w) for k, w in self.sites.items()}
         self.card_log = {k: [] for k in self.sites}
         self.card_args = {k: [] for k in self.sites}
@@ -1952,17 +1981,34 @@ class Forcing:
             return tuple(outs) if len(outs) > 1 else outs[0]
         return step
 
+    def _int8_recorded(self, fn):
+        from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+
+        def call(x, *rest):
+            n = x.shape[-1]
+            self._record("q8i8")(x.reshape(-1, n).float(),
+                                 qm.int8_tile(n, rest[-1]))
+            return fn(x, *rest)
+        return call
+
     @contextlib.contextmanager
     def spy(self, how):
         """how: None (the plain steps), "record" or "forced"."""
+        from qwen3_tpu_torch.models import qwen3 as model
+
         for kind, (mod, name) in self.sites.items():
             setattr(mod, name, getattr(self, "_" + how)(kind) if how
                     else self.rounding[kind])
+        for name, fn in self.kernels.items():
+            setattr(model, name, self._int8_recorded(fn) if how == "record"
+                    else fn)
         try:
             yield
         finally:
             for kind, (mod, name) in self.sites.items():
                 setattr(mod, name, self.rounding[kind])
+            for name, fn in self.kernels.items():
+                setattr(model, name, fn)
 
     def check(self, torch, label, card, forced_cpu, cfg, need_gap=True,
               loose=None, every_row=False):
@@ -2325,6 +2371,11 @@ def kernel_name(name: str) -> str:
     return f"{short}[{inner[-1]}]" if inner else short
 
 
+# the trace names of the matmul kernels (csrc/q8_matmul.cu, q8i8_matmul.cu,
+# q8_fused.cu), summed as the profiles' matmul time
+MATMUL_KERNELS = ("q8q8", "q8_fast", "q8i8", "fused_")
+
+
 def trace_busy(prof, path: str):
     """(device busy us, kernel events, span us, {short name: us}) from a
     profiler's Chrome trace, or None when it holds no kernel events."""
@@ -2345,9 +2396,10 @@ def trace_busy(prof, path: str):
     return busy, len(kernels), end - kernels[0][0], by_name
 
 
-def phase_profile(torch, path: str, fuse: bool = False):
+def phase_profile(torch, path: str, fuse: bool = False,
+                  mode: str = "pallas"):
     """Where a decode step's time goes, over a warm greedy completion (one
-    64-row prefill block, then 64 decode steps; mode pallas, its matmuls
+    64-row prefill block, then 64 decode steps; in `mode`, its matmuls
     fused when `fuse`): first timed alone, then again under torch.profiler,
     read from its Chrome trace. Reports device time by kernel, kernels per
     forward pass, and the device's idle share: 1 - busy / wall, with the
@@ -2360,8 +2412,8 @@ def phase_profile(torch, path: str, fuse: bool = False):
     from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig
 
     eng = Engine(EngineConfig(path=path, temperature=0.0, seed=1,
-                              kv_dtype="int8", seq_len=4096, device="cuda",
-                              fuse=fuse))
+                              mode=mode, kv_dtype="int8", seq_len=4096,
+                              device="cuda", fuse=fuse))
     prompt = PROMPT[:60]
     eng.generate(prompt, max_tokens=8)          # warm-up
     torch.cuda.synchronize()
@@ -2382,9 +2434,9 @@ def phase_profile(torch, path: str, fuse: bool = False):
         return None
     busy, n_kernels, span, by_name = got
     matmul = sum(v for k, v in by_name.items()
-                 if k.startswith(("q8q8", "q8_fast", "q8i8", "fused_")))
+                 if k.startswith(MATMUL_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    out = dict(fuse=fuse, wall_ms=wall_ms, n_generated=plain.n_generated,
+    out = dict(mode=mode, fuse=fuse, wall_ms=wall_ms, n_generated=plain.n_generated,
                prompt_ms=plain.prompt_ms, generate_ms=plain.generate_ms,
                ms_per_token=plain.ms_per_token, forward_passes=passes,
                kernels=n_kernels, kernels_per_pass=n_kernels / passes,
@@ -2434,10 +2486,13 @@ def phase_serving_profile(torch, path: str, batch: int, seq_len: int):
             "time not measured")
         return None
     busy, n_kernels, span, by_name = got
+    matmul = sum(v for k, v in by_name.items()
+                 if k.startswith(MATMUL_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out = dict(batch=batch, seq_len=seq_len, steps=steps,
                wall_ms_per_step=wall_ms / steps,
                device_busy_ms_per_step=busy / 1e3 / steps,
+               matmul_kernel_ms_per_step=matmul / 1e3 / steps,
                device_idle_share=1.0 - busy / 1e3 / wall_ms,
                profiled_idle_share=1.0 - busy / span,
                kernels_per_step=n_kernels / steps,
@@ -2667,6 +2722,7 @@ def main() -> int:
         phase_plain_int8(torch, path)
         phase_profile(torch, path)
         phase_profile(torch, path, fuse=True)
+        phase_profile(torch, path, mode="pallas-int8")
         phase_serving_profile(torch, path, 8, 1024)
         phase_serving_profile(torch, path, 64, 512)
     finally:

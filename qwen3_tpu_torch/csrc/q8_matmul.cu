@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 __device__ __forceinline__ int dot16(const int4 w, const int4 x, int acc) {
@@ -217,26 +219,234 @@ q8q8_tile_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
 // way whatever b is, so a row's bits never depend on its batch-mates (the
 // serving engine's contract that a stream's tokens do not).
 //
-// Bound: weight bytes at decode (as for the exact kernel), operations at
-// large b. A block owns BM rows x 64 columns with 256 threads; per chunk of
-// kc = min(G, 64) k it stages the activations [BM][kc] and the dequantized
-// weights [64][kc] as f32 in shared memory (rows padded to 65 words: the
-// column reads of a warp hit distinct banks), and each thread runs TM x TN
-// outputs as sequential fmaf chains. BM = 8 (decode, b <= 8): thread (ty,
-// tx) owns row ty and columns tx, tx + 32; BM = 64 (prefill): rows ty + 16 i
-// and columns tx + 16 j, i, j < 4. Each weight byte is read once per BM rows.
-// No tensor cores: an MMA's internal sum order is not this one.
-constexpr int kFastCols = 64, kFastThreads = 256;
+// Why CUDA cores: an MMA sums its products in an order of its own, not the
+// k order of each s_g, so tensor cores would break the bits.
+//
+// Bound: at decode (b <= 8) the weight bytes, 1 + 4/G a weight, over the
+// memory rate (qwen3-0.6b's layer matrices: 0.7-2.0 us); at b = 512 the
+// fp32 FMAs over the card's 67 TFLOP/s outside the tensor cores (wqkv: 64
+// us), which the bit rule makes the floor.
+//
+// Design. The parallelism the function allows is over (row, column,
+// group): every s_g starts at 0 and depends on no other group. A block of
+// 8 rows x 64 columns that walks all groups alone runs 16 blocks for wo and
+// w2 on 132 SMs, multiplies 7 zero rows at b = 1, and dequantizes every
+// weight into shared memory (75.9 us for wo at b = 1 against a 0.67 us
+// bound). Two kernels, picked by the call's shape:
+//  - q8_fast_split_kernel (b <= 8, and b > 8 while the tile kernel would
+//    have fewer than 128 blocks): the group split. A thread owns one group
+//    of TN columns (1, or 2 for d > 4224) and keeps that group's fmaf chains
+//    for the block's R rows in registers (R = b rounded up to a power of
+//    two when b <= 8, else 16 or 32 rows a block, the rows split over
+//    blockIdx.y). It issues its 64-byte weight loads (16 bytes a load)
+//    before the block stages the activations, and dequantizes each weight
+//    once, in registers. Lane l of a warp takes group l / SL and column slot
+//    l % SL (SL = 4 / TN), so a warp spans 8 TN groups of 4 columns; WG
+//    warps side by side span a pass of GP groups, WC warps CB = 4 WC
+//    columns. The block stages the pass's activations as f32 in shared
+//    memory, each group's values padded to G + 4 words, so a quarter-warp
+//    reads its float4s from distinct banks and SL lanes share each one.
+//    The chains land in shared memory, and the thread that owns a (row,
+//    column) adds them to its running sum in group order, pass after pass:
+//    the plain version's order. WC is the widest that still gives >= 256
+//    blocks (qwen3-0.6b at b <= 8: wqkv and wo 256, w13 384, w2 256).
+//  - q8_fast_tile_kernel (b > 8 with >= 128 of its blocks): a 64 x 64
+//    tile, 4 x 4 outputs a thread from shared memory, each group's chain
+//    and then the ordered sum in registers. It is the faster of the two at
+//    b = 512 on every qwen3-0.6b matrix and for the classifier from b = 64.
+// Both compute each row alone in the same order, so the choice by shape
+// changes no bit.
+constexpr int kFastMinBlocks = 256;       // about two blocks an SM
+constexpr int kFastSmemBudget = 112 * 1024;
 
 __device__ __forceinline__ float bf16_bits_to_f32(unsigned short h) {
   return __uint_as_float(((unsigned)h) << 16);
 }
 
-template <int BM, int TM, int TN>
+template <int R, int TN>
+__global__ void q8_fast_split_kernel(const unsigned short* __restrict__ x,
+                                     const int8_t* __restrict__ wq,
+                                     const float* __restrict__ ws,
+                                     float* __restrict__ out, int b, int n,
+                                     int d, int G, int WG, int WC) {
+  extern __shared__ float4 fast_smem[];
+  constexpr int GW = 8 * TN;   // groups of a warp
+  constexpr int SL = 32 / GW;  // column slots of a warp, TN columns each
+  // lane l: group l / SL, slot l % SL, so a quarter-warp reads the float4s
+  // of 8 / SL groups, each shared by SL lanes
+  const int GP = GW * WG, CB = SL * TN * WC, T = 32 * WG * WC;
+  const int GS = G + 4;  // a group's padded stride in x_sm, in words
+  float* x_sm = reinterpret_cast<float*>(fast_smem);   // [R][GP][GS]
+  float* part = x_sm + (size_t)R * GP * GS;            // [R][CB][GP + 1]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gl = (warp % WG) * GW + lane / SL;           // group in the pass
+  const int cl = ((warp / WG) * SL + lane % SL) * TN;    // first column
+  const int c = blockIdx.x * CB + cl;
+  const int r0 = blockIdx.y * R;
+  const int rows = min(R, b - r0);
+  const int ng = n / G;
+  const int segs = G / 16;  // 16-byte weight loads a group
+  float o[4] = {0.f, 0.f, 0.f, 0.f};  // the ordered sums of pairs tid + i T
+
+  for (int g0 = 0; g0 < ng; g0 += GP) {
+    const int g = g0 + gl;
+    int4 raw[TN][4];
+    float sc[TN];
+#pragma unroll
+    for (int t = 0; t < TN; ++t) {
+      sc[t] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) raw[t][j] = make_int4(0, 0, 0, 0);
+      if (g < ng && c + t < d) {
+        const int8_t* wp = wq + (size_t)(c + t) * n + (size_t)g * G;
+        sc[t] = ws[(size_t)(c + t) * ng + g];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < segs)
+            raw[t][j] = __ldg(reinterpret_cast<const int4*>(wp) + j);
+      }
+    }
+    // the pass's activations, rows r0.. (zeros past b), k from g0 G
+    const int vecs = (min(ng, g0 + GP) - g0) * G / 8;  // int4s a row
+    __syncthreads();  // the last pass's x_sm and part have been read
+    for (int e = tid; e < R * vecs; e += T) {
+      const int r = e / vecs, v = e % vecs;
+      int4 xv = make_int4(0, 0, 0, 0);
+      if (r < rows)
+        xv = __ldg(reinterpret_cast<const int4*>(
+                       x + (size_t)(r0 + r) * n + (size_t)g0 * G) + v);
+      const int k = 8 * v;
+      float* dst = x_sm + ((size_t)r * GP + k / G) * GS + k % G;
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(&xv);
+      reinterpret_cast<float4*>(dst)[0] =
+          make_float4(bf16_bits_to_f32(h[0]), bf16_bits_to_f32(h[1]),
+                      bf16_bits_to_f32(h[2]), bf16_bits_to_f32(h[3]));
+      reinterpret_cast<float4*>(dst)[1] =
+          make_float4(bf16_bits_to_f32(h[4]), bf16_bits_to_f32(h[5]),
+                      bf16_bits_to_f32(h[6]), bf16_bits_to_f32(h[7]));
+    }
+    __syncthreads();
+    if (g < ng) {
+      float s[TN][R];
+#pragma unroll
+      for (int t = 0; t < TN; ++t)
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[t][r] = 0.f;
+      const float* xg = x_sm + (size_t)gl * GS;
+      for (int k0 = 0; k0 < G; k0 += 64) {
+        if (k0 > 0) {
+#pragma unroll
+          for (int t = 0; t < TN; ++t)
+            if (c + t < d) {
+              const int8_t* wp = wq + (size_t)(c + t) * n + (size_t)g * G + k0;
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                raw[t][j] = __ldg(reinterpret_cast<const int4*>(wp) + j);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j < segs) {
+            float w[TN][16];
+#pragma unroll
+            for (int t = 0; t < TN; ++t) {
+              const int8_t* q = reinterpret_cast<const int8_t*>(&raw[t][j]);
+#pragma unroll
+              for (int i = 0; i < 16; ++i)
+                w[t][i] = __bfloat162float(
+                    __float2bfloat16_rn(__fmul_rn((float)q[i], sc[t])));
+            }
+#pragma unroll
+            for (int qd = 0; qd < 4; ++qd) {
+              const int k = k0 + 16 * j + 4 * qd;
+#pragma unroll
+              for (int r = 0; r < R; ++r) {
+                const float4 xv = *reinterpret_cast<const float4*>(
+                    xg + (size_t)r * GP * GS + k);
+#pragma unroll
+                for (int t = 0; t < TN; ++t) {
+                  s[t][r] = fmaf(xv.x, w[t][4 * qd], s[t][r]);
+                  s[t][r] = fmaf(xv.y, w[t][4 * qd + 1], s[t][r]);
+                  s[t][r] = fmaf(xv.z, w[t][4 * qd + 2], s[t][r]);
+                  s[t][r] = fmaf(xv.w, w[t][4 * qd + 3], s[t][r]);
+                }
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < TN; ++t)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          part[((size_t)r * CB + cl + t) * (GP + 1) + gl] = s[t][r];
+    }
+    __syncthreads();
+    const int gn = min(GP, ng - g0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = tid + i * T;  // pair (row p / CB, column p % CB)
+      if (p < R * CB) {
+        const float* ps = part + (size_t)p * (GP + 1);
+        for (int j = 0; j < gn; ++j) o[i] = __fadd_rn(o[i], ps[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = tid + i * T;
+    const int r = p / CB, col = blockIdx.x * CB + p % CB;
+    if (p < R * CB && r < rows && col < d)
+      out[(size_t)(r0 + r) * d + col] = o[i];
+  }
+}
+
+template <int R, int TN>
+int launch_fast_split(const void* x, const void* wq, const void* ws,
+                      void* out, int b, int n, int d, int G, cudaStream_t s) {
+  static size_t set[16] = {};
+  constexpr int GW = 8 * TN;
+  const int ng = n / G;
+  const size_t wg_bytes = (size_t)R * GW * (G + 4) * sizeof(float);
+  int WG = max(1, min((ng + GW - 1) / GW, (R <= 8 ? 64 : GW) / GW));
+  while (WG > 1 && WG * wg_bytes > (size_t)kFastSmemBudget) --WG;
+  const int row_tiles = (b + R - 1) / R;
+  int WC = 1;
+  for (int w = WG == 1 ? 8 : WG == 2 ? 4 : 2; w > 1; w /= 2)
+    if ((size_t)((d + 4 * w - 1) / (4 * w)) * row_tiles >= kFastMinBlocks) {
+      WC = w;
+      break;
+    }
+  const int GP = GW * WG, CB = 4 * WC;
+  const size_t smem = wg_bytes * WG +
+                      (size_t)R * CB * (GP + 1) * sizeof(float);
+  const int err = allow_smem(q8_fast_split_kernel<R, TN>, smem, set);
+  if (err) return err;
+  const dim3 blocks((unsigned)((d + CB - 1) / CB), (unsigned)row_tiles);
+  q8_fast_split_kernel<R, TN><<<blocks, 32 * WG * WC, smem, s>>>(
+      static_cast<const unsigned short*>(x), static_cast<const int8_t*>(wq),
+      static_cast<const float*>(ws), static_cast<float*>(out), b, n, d, G,
+      WG, WC);
+  return (int)cudaGetLastError();
+}
+
+// The tile kernel: a block owns 64 rows x 64 columns with 256 threads; per
+// chunk of kc = min(G, 64) k it stages the activations [64][kc] and the
+// dequantized weights [64][kc] as f32 in shared memory (rows padded to 65
+// words), and each thread runs 4 x 4 outputs as sequential fmaf chains,
+// rows ty + 16 i and columns tx + 16 j.
+constexpr int kFastCols = 64, kFastThreads = 256;
+// the tile kernel takes b > 8 once it has this many blocks
+constexpr int kFastTileBlocks = 128;
+// above this many columns the split kernel gives a thread two of them
+constexpr int kFastWideCols = 4224;
+
 __global__ void __launch_bounds__(kFastThreads)
-q8_fast_kernel(const unsigned short* __restrict__ x,
-               const int8_t* __restrict__ wq, const float* __restrict__ ws,
-               float* __restrict__ out, int b, int n, int d, int G) {
+q8_fast_tile_kernel(const unsigned short* __restrict__ x,
+                    const int8_t* __restrict__ wq,
+                    const float* __restrict__ ws, float* __restrict__ out,
+                    int b, int n, int d, int G) {
+  constexpr int BM = 64, TM = 4, TN = 4;
   constexpr int TY = BM / TM, TX = kFastThreads / TY;
   static_assert(TX * TN == kFastCols, "a block owns 64 columns");
   __shared__ float x_sm[BM][kMaxChunk + 1];
@@ -318,12 +528,11 @@ q8_fast_kernel(const unsigned short* __restrict__ x,
   }
 }
 
-template <int BM, int TM, int TN>
-int launch_fast(const void* x, const void* wq, const void* ws, void* out,
-                int b, int n, int d, int G, cudaStream_t s) {
+int launch_fast_tile(const void* x, const void* wq, const void* ws, void* out,
+                     int b, int n, int d, int G, cudaStream_t s) {
   const dim3 blocks((unsigned)((d + kFastCols - 1) / kFastCols),
-                    (unsigned)((b + BM - 1) / BM));
-  q8_fast_kernel<BM, TM, TN><<<blocks, kFastThreads, 0, s>>>(
+                    (unsigned)((b + 63) / 64));
+  q8_fast_tile_kernel<<<blocks, kFastThreads, 0, s>>>(
       static_cast<const unsigned short*>(x), static_cast<const int8_t*>(wq),
       static_cast<const float*>(ws), static_cast<float*>(out), b, n, d, G);
   return (int)cudaGetLastError();
@@ -338,9 +547,28 @@ extern "C" {
 int q8_fast_matmul(const void* x, const void* wq, const void* ws, void* out,
                    int b, int n, int d, int group_size, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 8)
-    return launch_fast<8, 1, 2>(x, wq, ws, out, b, n, d, group_size, s);
-  return launch_fast<64, 4, 4>(x, wq, ws, out, b, n, d, group_size, s);
+  const int G = group_size, ng = n / G;
+  // two columns a thread where more than about two waves of column blocks
+  // share each activation load (measured on qwen3-0.6b's matrices)
+  const bool wide = d > kFastWideCols;
+  if (b <= 1) return launch_fast_split<1, 1>(x, wq, ws, out, b, n, d, G, s);
+  if (b <= 8) {
+    if (b <= 2)
+      return wide ? launch_fast_split<2, 2>(x, wq, ws, out, b, n, d, G, s)
+                  : launch_fast_split<2, 1>(x, wq, ws, out, b, n, d, G, s);
+    if (b <= 4)
+      return wide ? launch_fast_split<4, 2>(x, wq, ws, out, b, n, d, G, s)
+                  : launch_fast_split<4, 1>(x, wq, ws, out, b, n, d, G, s);
+    return wide ? launch_fast_split<8, 2>(x, wq, ws, out, b, n, d, G, s)
+                : launch_fast_split<8, 1>(x, wq, ws, out, b, n, d, G, s);
+  }
+  if ((size_t)((d + kFastCols - 1) / kFastCols) * ((b + 63) / 64) >=
+      kFastTileBlocks)
+    return launch_fast_tile(x, wq, ws, out, b, n, d, G, s);
+  if (G > 64) return launch_fast_split<8, 2>(x, wq, ws, out, b, n, d, G, s);
+  if (ng <= 16 && b > 16)
+    return launch_fast_split<32, 2>(x, wq, ws, out, b, n, d, G, s);
+  return launch_fast_split<16, 2>(x, wq, ws, out, b, n, d, G, s);
 }
 
 // The same against layer `layer` of stacked weights [L, d, n] / [L, d, n/G].

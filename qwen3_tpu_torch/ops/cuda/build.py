@@ -38,8 +38,8 @@ SIGNATURES = {
     "q8q8_matmul_stacked": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "q8_fast_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "q8_fast_matmul_stacked": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
-    "q8i8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "q8i8_matmul_stacked": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "q8i8_matmul": [_P] * 6 + [_I] * 5 + [_P],
+    "q8i8_matmul_stacked": [_P] * 5 + [_I, _P] + [_I] * 5 + [_P],
     "q8_fused_matmul": [_P] * 6 + [_I] * 7 + [_P],
     "flash_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
     "flash_decode_two_segment": [_P] * 14 + [_I] * 9 + [_F, _P],

@@ -317,27 +317,30 @@ def _launch_int8(kind: str, x, w_q, w_s, layer, group_size):
     if tk % 64:
         raise ValueError(f"the int8 kernel takes k-tiles of a multiple of 64 "
                          f"bytes; n={n}, G={group_size} gives {tk}")
-    xq, xs = quantize_act(x.reshape(-1, n).float(), tk)
-    _check(xq, None, w_q, w_s, group_size, stacked=layer is not None,
-           x_dtype=torch.int8)
-    if xs.device != xq.device or not xs.is_contiguous():
-        raise ValueError("activation scales must be contiguous on x's device")
+    xf = x.reshape(-1, n).float().contiguous()
+    _check(xf, None, w_q, w_s, group_size, stacked=layer is not None,
+           x_dtype=torch.float32)
     lib = load_library()
     d = w_q.shape[-2]
-    b = xq.shape[0]
+    b = xf.shape[0]
+    # the kernel's quantized activations: xq int8 [b, n], then xs f32
+    # [b, n / tk] at a 16-byte boundary
+    off = -(-b * n // 16) * 16
+    scratch = torch.empty(off + 4 * b * (n // tk), dtype=torch.uint8,
+                          device=x.device)
+    xq, xs = scratch.data_ptr(), scratch.data_ptr() + off
     out = torch.empty(b, d, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if layer is None:
-        err = lib.q8i8_matmul(xq.data_ptr(), xs.data_ptr(), w_q.data_ptr(),
+        err = lib.q8i8_matmul(xf.data_ptr(), xq, xs, w_q.data_ptr(),
                               w_s.data_ptr(), out.data_ptr(), b, n, d,
                               group_size, tk, stream)
     else:
         if not 0 <= layer < w_q.shape[0]:
             raise IndexError(f"layer {layer} outside [0, {w_q.shape[0]})")
-        err = lib.q8i8_matmul_stacked(xq.data_ptr(), xs.data_ptr(),
-                                      w_q.data_ptr(), w_s.data_ptr(), layer,
-                                      out.data_ptr(), b, n, d, group_size, tk,
-                                      stream)
+        err = lib.q8i8_matmul_stacked(xf.data_ptr(), xq, xs, w_q.data_ptr(),
+                                      w_s.data_ptr(), layer, out.data_ptr(),
+                                      b, n, d, group_size, tk, stream)
     if err != 0:
         raise RuntimeError(f"q8i8 {kind} kernel launch failed: CUDA error "
                            f"{err}")

@@ -205,7 +205,7 @@ class BatchedEngine:
     """Continuous-batching server over a fixed slot pool."""
 
     def __init__(self, path: str, *, max_batch: int = 8, seq_len: int = 1024,
-                 mode: str = "pallas-fast", temperature: float = 1.0,
+                 mode: str = "bf16", temperature: float = 1.0,
                  top_p: float = 0.9, kv_dtype: str = "float32",
                  prefill_bucket: int = 128, decode_chunk: int = 32,
                  top_k: int = 64, attn: str = "auto",
@@ -243,9 +243,12 @@ class BatchedEngine:
         self.fuse = fuse
         if attn == "auto":
             # the JAX engine's rule: flash only single-stream at long
-            # context, else the fused batched kernel on the side buffer
+            # context, else the fused batched kernel on the side buffer in
+            # a pallas mode, else dense
             attn = ("flash" if max_batch == 1 and seq_len >= 8192
-                    else "fused" if side_buffer else "dense")
+                    else "fused" if (side_buffer
+                                     and mode.startswith("pallas"))
+                    else "dense")
         if attn == "fused" and not side_buffer:
             raise ValueError("attn='fused' runs over the side buffer: "
                              "leave side_buffer on")

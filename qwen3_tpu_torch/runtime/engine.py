@@ -54,7 +54,7 @@ class EngineConfig:
     temperature: float = 1.0
     top_p: float = 0.9
     seq_len: int = 0               # 0 -> min(checkpoint max, 32768) like the CLI
-    mode: str = "pallas"           # models.qwen3.MODES
+    mode: str = "bf16"             # models.qwen3.MODES
     attn: str = "auto"             # "auto" | "dense" | "flash"
     kv_dtype: str = "float32"      # "float32" | "bfloat16" | "int8"
     prefill_chunk: int = 64

@@ -68,8 +68,9 @@ def test_kernel_matches_plain_on_card(dev, b, n, g):
 @pytest.mark.parametrize("b", [1, 2, 8, 9, 64, 130])
 @pytest.mark.parametrize("n,g", [(128, 32), (1024, 64), (3072, 64)])
 def test_fast_kernel_matches_plain_on_card(dev, b, n, g):
-    """The pallas-fast kernels (b <= 8 runs the 8-row block, b > 8 the
-    64-row block), bit for bit, with one launch counted per call."""
+    """The pallas-fast kernels (the group split at 1, 2, 4 or 8 rows a
+    block for b <= 8, at 16 or 32 rows a block above), bit for bit, with one
+    launch counted per call."""
     rng = np.random.default_rng(b * 7 + n)
     x = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
     x = x.to(dev).to(torch.bfloat16)
@@ -90,8 +91,8 @@ def test_fast_kernel_matches_plain_on_card(dev, b, n, g):
 
 
 def test_fast_kernel_rows_do_not_depend_on_the_batch(dev):
-    """Row r of a b = 64 call (the 64-row block) equals, bit for bit, the
-    same row run alone (the 8-row block) and within b = 8."""
+    """Row r of a b = 64 call (32-row blocks) equals, bit for bit, the same
+    row run alone (one row a block) and within b = 8."""
     rng = np.random.default_rng(1)
     n, d, g = 1024, 4096, 64
     x = torch.from_numpy(rng.standard_normal((64, n)).astype(
@@ -106,6 +107,51 @@ def test_fast_kernel_rows_do_not_depend_on_the_batch(dev):
     for r in (0, 13, 63):
         alone = tq.q8_matmul_tiled_fast(x[r:r + 1].contiguous(), wq, ws, g)
         assert torch.equal(full[r:r + 1], alone)
+
+
+RAGGED_B = (1, 2, 3, 7, 8, 9, 13, 64, 65, 128)
+# (n, G, d): d off the fast kernel's column tiles (4-32 columns) and the
+# int8 kernel's 16; the last pass of groups ragged at n / G = 48
+RAGGED_SHAPES = ((1024, 64, 200), (3072, 64, 1000), (1024, 32, 200),
+                 (1536, 64, 72))
+
+
+@pytest.mark.parametrize("n,g,d", RAGGED_SHAPES)
+@pytest.mark.parametrize("b", RAGGED_B)
+def test_fast_kernel_ragged_rows_on_card(dev, b, n, g, d):
+    """The group-split fast kernel at ragged b and d: bit-equal to its plain
+    version, each row equal to the same row of the b = 512 call, one launch
+    a call."""
+    rng = np.random.default_rng(b + n + d + g)
+    x = torch.from_numpy(rng.standard_normal((512, n)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    wq, ws = _weights(rng, 2, d, n, g, dev)
+    widest = tq.q8_matmul_stacked_fast(x, wq, ws, 1, g)
+    tq.reset_launches()
+    got = tq.q8_matmul_stacked_fast(x[:b].contiguous(), wq, ws, 1, g)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["stacked_fast"] == 1
+    assert torch.equal(got, tq.q8_fast_matmul_plain(x[:b], wq[1], ws[1], g))
+    assert torch.equal(got, widest[:b])
+
+
+@pytest.mark.parametrize("n,g,d", RAGGED_SHAPES + ((768, 64, 200),))
+@pytest.mark.parametrize("b", RAGGED_B)
+def test_int8_kernel_ragged_rows_on_card(dev, b, n, g, d):
+    """The tensor-core int8 kernel at ragged b and d (768: the whole-axis
+    k-tile): bit-equal to its plain version, each row equal to the same row
+    of the b = 512 call, one launch a call."""
+    rng = np.random.default_rng(b + n + d + g)
+    x = torch.from_numpy(rng.standard_normal((512, n)).astype(
+        np.float32)).to(dev)
+    wq, ws = _weights(rng, 2, d, n, g, dev)
+    widest = tq.q8i8_matmul_stacked(x, wq, ws, 1, g)
+    tq.reset_launches()
+    got = tq.q8i8_matmul_stacked(x[:b].contiguous(), wq, ws, 1, g)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["stacked_int8"] == 1
+    assert torch.equal(got, tq.q8i8_matmul_plain(x[:b], wq[1], ws[1], g))
+    assert torch.equal(got, widest[:b])
 
 
 def _weights(rng, layers, d, n, g, dev):

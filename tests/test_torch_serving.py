@@ -81,19 +81,51 @@ def _streams(make, request, ckpt, mode, attn, kv_dtype, temperature, side):
      ("pallas-fast", "flash", "int8", 0.9, True),
      ("pallas", "flash", "float32", 0.0, True),
      ("pallas-fast", "flash", "int8", 0.0, False),
-     ("pallas", "flash", "int8", 0.9, False)])
+     ("pallas", "flash", "int8", 0.9, False),
+     ("exact", "auto", "int8", 0.9, True),
+     ("bf16", "auto", "float32", 0.0, True)])
 def test_engine_streams_match_jax(ckpt, mode, attn, kv_dtype, temperature,
                                   side):
     """"auto" resolves to fused (three slots, side buffer, a pallas mode),
-    in both packages; flash with the side buffer runs the two-segment
-    kernel, without it flash decode."""
+    in both packages, and to dense in modes exact and bf16; flash with the
+    side buffer runs the two-segment kernel, without it flash decode."""
     want_attn, want = _streams(JaxEngine, JaxRequest, ckpt, mode, attn,
                                kv_dtype, temperature, side)
     got_attn, got = _streams(
         lambda *a, **kw: BatchedEngine(*a, device="cpu", **kw), Request,
         ckpt, mode, attn, kv_dtype, temperature, side)
-    assert got_attn == want_attn == ("fused" if attn == "auto" else attn)
+    auto = "fused" if mode.startswith("pallas") else "dense"
+    assert got_attn == want_attn == (auto if attn == "auto" else attn)
     assert got == want
+
+
+def test_library_defaults_match_jax():
+    """The engines' library defaults are the JAX package's: every
+    EngineConfig field and every BatchedEngine keyword the two share (mode
+    "bf16" among them); the port's own knobs (device, fuse,
+    native_tokenizer) are the only ones the JAX side lacks."""
+    import dataclasses
+    import inspect
+
+    from qwen3_tpu.runtime.engine import EngineConfig as JaxConfig
+    from qwen3_tpu_torch.runtime.engine import EngineConfig
+
+    own = {"device", "fuse", "native_tokenizer"}
+    jax_fields = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    fields = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
+    assert set(fields) - set(jax_fields) == own
+    assert {k: fields[k] for k in fields.keys() & jax_fields.keys()} == {
+        k: jax_fields[k] for k in fields.keys() & jax_fields.keys()}
+    assert fields["mode"] == "bf16"
+
+    def defaults(cls):
+        return {k: p.default for k, p in
+                inspect.signature(cls.__init__).parameters.items()}
+
+    jax_kw, kw = defaults(JaxEngine), defaults(BatchedEngine)
+    assert set(kw) - set(jax_kw) == own
+    assert {k: kw[k] for k in jax_kw} == jax_kw
+    assert kw["mode"] == "bf16"
 
 
 def _serve_records(main, argv, capsys):
