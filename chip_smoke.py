@@ -97,6 +97,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (data sheet)
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 peak outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core peak
 # flash attention at qwen3-0.6b's shape, in the CLI's default 32768-row cache
 FLASH_H, FLASH_KV, FLASH_D, FLASH_S = 16, 8, 128, 32768
 FLASH_DEPTHS = (0, 255, 256, 8191, 16384, 32767)   # decode positions
@@ -106,6 +107,11 @@ FLASH_TIMED = (("flash_decode", 8192, 1), ("flash_decode", 16384, 1),
                ("flash_decode", 32767, 1), ("flash_prefill", 8192, 64),
                ("flash_prefill", 8192, 512), ("flash_prefill", 32256, 512))
 FLASH_DEPTH = 8192             # --attn auto switches to flash here
+# the redesigned kernels' predecessors as PERF.md's kernel table records
+# them (ms per token or per 28-layer block, as the kernels line counts; an
+# NVIDIA H100 80GB HBM3 at 700 W): logged beside this run's times
+BEFORE_MS = {"q8_q8_matmul_stacked": 1.349, "q8_q8_matmul_tiled": 0.138,
+             "flash_prefill_gqa": 87.16}
 REPS, WARMUP = 20, 3
 SLEEP_CYCLES = 4_000_000       # a ~2 ms device spin queued before each timed run
 
@@ -145,9 +151,16 @@ def phase_build():
     from qwen3_tpu_torch.ops.cuda import build
 
     secs = build.build(verbose=True)
+    entry = spill = ""
     for line in build.last_build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if line.startswith("=="):
             log(f"ptxas: {line.strip()}")
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            log(f"ptxas: {entry}: {line.split(':', 1)[-1].strip()}; {spill}")
     build.load_library()
     log(f"build: {secs:.2f} s")
 
@@ -172,11 +185,16 @@ def device_ms(torch, fn, reps=REPS):
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
+def matmul_bytes(b, n, d):
+    """The bytes a Q8_0 x Q8_0 matmul must move: weights, their scales, the
+    activations and their scales read once, the output written once."""
+    return d * n + 4 * d * (n // G) + b * n + 4 * b * (n // G) + 4 * b * d
+
+
 def bound_ms(b, n, d):
-    """The least time for the function: bytes it must move (weights, their
-    scales, the activations and their scales read once, the output written
-    once) over the memory rate, or its int8 operations over the peak."""
-    nbytes = d * n + 4 * d * (n // G) + b * n + 4 * b * (n // G) + 4 * b * d
+    """The least time for the function: bytes it must move (matmul_bytes)
+    over the memory rate, or its int8 operations over the peak."""
+    nbytes = matmul_bytes(b, n, d)
     ops = 2 * b * n * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -243,7 +261,8 @@ def phase_kernels(torch):
             row = dict(matrix=name, kernel="stacked" if stacked else "tiled",
                        b=b, n=n, d=d, layers_cycled=n_layers,
                        max_abs_diff=err, kernel_ms=k_ms, bound_ms=bnd,
-                       bound_by=by, plain_ms=p_ms, library_ms=l_ms)
+                       bound_by=by, plain_ms=p_ms, library_ms=l_ms,
+                       tb_s=matmul_bytes(b, n, d) / k_ms / 1e9)
             rows.append(row)
             log("kernel " + json.dumps(row))
         del w_q, w_s, w_bf
@@ -255,19 +274,24 @@ def phase_kernels(torch):
     return rows
 
 
-def attn_bound_ms(q_rows, rows_read, score_pairs, fast=False, outputs=None):
+def attn_bound_ms(q_rows, rows_read, score_pairs, fast=False, outputs=None,
+                  tf32_mmas=0):
     """The least time for one attention launch: the bytes it must move (the
     f32 queries, the int8 K/V values and f32 scales of the rows it reads,
     once each, and `outputs` f32 values, by default one a query value) over
     the memory rate, or its operations (2 for q . k and 2 for p v per score
-    pair and head dim) over the peak of the dots' type (bf16 when `fast`,
-    else fp32 outside the tensor cores)."""
+    pair and head dim) over the peak of the dots' type: bf16 when `fast`,
+    `tf32_mmas` TF32 tensor-core products each when it is nonzero (the
+    flash prefill's split fp32), else fp32 outside the tensor cores."""
     if outputs is None:
         outputs = q_rows * FLASH_H * FLASH_D
     nbytes = 4 * q_rows * FLASH_H * FLASH_D + 4 * outputs + \
         2 * rows_read * FLASH_KV * (FLASH_D + 4)
     ops = 4 * score_pairs * FLASH_H * FLASH_D
-    peak = BF16_OPS_PER_S if fast else FP32_OPS_PER_S
+    if tf32_mmas:
+        ops, peak = tf32_mmas * ops, TF32_OPS_PER_S
+    else:
+        peak = BF16_OPS_PER_S if fast else FP32_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -297,7 +321,9 @@ def phase_flash_kernels(torch):
     (16 heads over 8 kv heads of 128): decode at depths 0, 255, 256, 8191,
     16384 and 32767, prefill blocks of 64 and 512 rows starting at 0, 8192
     and 32256, each within 2e-5 * max(1, max|plain|) (the JAX package's
-    flash tolerance). Then times for int8 (the main path's cache) over a
+    flash tolerance); the prefill also equal bit for bit across two calls,
+    and within the tolerance with its grid sized for the whole cache (no
+    `live`). Then times for int8 (the main path's cache) over a
     28-layer cache, a layer per run, so that no run finds its rows in L2:
     the kernel, its plain version and the library yardstick
     (scaled_dot_product_attention on K/V dequantized once to f32)."""
@@ -345,9 +371,28 @@ def phase_flash_kernels(torch):
                                     device="cuda")
                 want = fd.flash_prefill_plain(q, kl, vl, qpos, ksl, vsl,
                                               live=start + t)
-                got = fd.flash_prefill_gqa(q, kl, vl, qpos, ksl, vsl)
+                got = fd.flash_prefill_gqa(q, kl, vl, qpos, ksl, vsl,
+                                           live=start + t)
                 diffs.append(check("flash_prefill", got, want,
                                    f"{dtype} T {t} start {start}"))
+                # the segments' partials combine in a fixed order, and a
+                # grid sized without `live` (the whole cache) reads the same
+                again = fd.flash_prefill_gqa(q, kl, vl, qpos, ksl, vsl,
+                                             live=start + t)
+                whole = fd.flash_prefill_gqa(q, kl, vl, qpos, ksl, vsl)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"flash_prefill {dtype} T {t} start {start}: two "
+                         f"calls differ")
+                check("flash_prefill", whole, want,
+                      f"{dtype} T {t} start {start}, grid without live")
+                # a `live` below the positions sizes a smaller grid, whose
+                # segments grow to hold every visible chunk
+                short = fd.flash_prefill_gqa(q, kl, vl, qpos, ksl, vsl,
+                                             live=max(1, start // 2))
+                check("flash_prefill", short, want,
+                      f"{dtype} T {t} start {start}, live "
+                      f"{max(1, start // 2)}")
         log(f"flash kernels vs plain, {dtype} KV: max_abs_diff per case "
             f"(decode at {list(FLASH_DEPTHS)}, then prefill T x start "
             f"{[(t, s) for t in FLASH_BLOCKS for s in FLASH_STARTS]}): "
@@ -387,9 +432,9 @@ def phase_flash_kernels(torch):
                     <= pos[:, None])                     # [T, n]
             pairs = int((pos.long() + 1).sum())
 
-            def kernel(i, q=q, pos=pos):
+            def kernel(i, q=q, pos=pos, n=n):
                 return fd.flash_prefill_gqa(q, k[i % L], v[i % L], pos,
-                                            ks[i % L], vs[i % L])
+                                            ks[i % L], vs[i % L], live=n)
 
             def plain(i, q=q, pos=pos, n=n):
                 return fd.flash_prefill_plain(q, k[i % L], v[i % L], pos,
@@ -407,12 +452,29 @@ def phase_flash_kernels(torch):
         lib = library(0)
         lib = lib[:, :, 0] if kind == "flash_decode" else lib.transpose(1, 2)
         lib_diff = (lib - got).abs().max().item()
-        bnd, by = attn_bound_ms(t, n, pairs)
+        # the prefill's dots run as two TF32 MMAs a product on the int8
+        # cache (csrc/flash_decode.cu), the decode's in fp32 on CUDA cores
+        bnd, by = attn_bound_ms(t, n, pairs,
+                                tf32_mmas=2 * (kind == "flash_prefill"))
         row = dict(kernel=kind, depth=depth, T=t, rows_read=n,
                    kernel_ms=device_ms(torch, kernel),
                    plain_ms=device_ms(torch, plain),
                    library_ms=device_ms(torch, library), bound_ms=bnd,
                    bound_by=by, library_vs_kernel_max_abs_diff=lib_diff)
+        if kind == "flash_prefill":
+            # the grid's blocks with work, the fp32-equivalent rate, and the
+            # bound of the same operations in fp32 on CUDA cores
+            tq = fd.prefill_tq(t, FLASH_H // FLASH_KV)
+            seg, n_seg = fd.plan_prefill(t, tq, FLASH_S, FLASH_KV, 1, n)
+            blocks = FLASH_KV * sum(
+                len(fd.prefill_segments(
+                    min((depth + t0 + tq - 1) // fd.PREFILL_CHUNK + 1,
+                        FLASH_S // fd.PREFILL_CHUNK), seg, n_seg))
+                for t0 in range(0, t, tq))
+            row.update(blocks=blocks, seg_chunks=seg, n_seg=n_seg,
+                       tflop_s=4 * pairs * FLASH_H * FLASH_D
+                       / row["kernel_ms"] / 1e9,
+                       fp32_bound_ms=attn_bound_ms(t, n, pairs)[0])
         rows.append(row)
         log("flash " + json.dumps(row))
         del kf, vf
@@ -2579,6 +2641,10 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "bound_ms": r["bound_ms"] * L,
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"] * L,
+            # the prefill's bound in fp32 on CUDA cores, beside that of the
+            # TF32 MMAs it runs
+            **({"fp32_bound_ms": r["fp32_bound_ms"] * L}
+               if kind == "flash_prefill" else {}),
         })
     for kind, source_line in (("stacked_fast", 476), ("tiled_fast", 263)):
         mine = [r for r in fast_rows if r["kernel"] == kind]
@@ -2728,10 +2794,15 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernel_report(
+    report = kernel_report(
         rows, flash_rows, flash_err, fast_rows, serve_rows, serve_err,
-        int8_rows, fused_rows, kv_rows, untiled_rows, probe, counts)}),
-        flush=True)
+        int8_rows, fused_rows, kv_rows, untiled_rows, probe, counts)
+    for e in report:
+        if e["name"] in BEFORE_MS:
+            log(f"redesigned {e['name']}: {e['ms']:.4f} ms, recorded "
+                f"before {BEFORE_MS[e['name']]} ms, library "
+                f"{e['library_ms']:.4f} ms")
+    print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,9 +18,10 @@
 // streams it at.
 //
 //  - pure_read_stacked keeps the grid, block shape and load pattern of the
-//    Q8_0 GEMV the CLI decodes with (q8_matmul.cu::q8q8_gemv_kernel): one warp
-//    a weight row, 8 rows a 256-thread block, each lane 16 bytes an iteration,
-//    so a warp-iteration reads a 512-byte run of the row. The checksum uses
+//    first design of the Q8_0 GEMV the CLI decodes with (q8_matmul.cu::
+//    q8q8_gemv_kernel): one warp a weight row, 8 rows a 256-thread block,
+//    each lane 16 bytes an iteration, so a warp-iteration reads a 512-byte
+//    run of the row. The checksum uses
 //    8 bytes of each tk-byte run, and ptxas drops a load whose value is
 //    unused (a first version read 3.9 TB/s, above the card's 3.35), where
 //    the TPU's DMA read the whole tile: so every loaded word also goes into

@@ -25,11 +25,23 @@
 // the card's ratio, so the time floor is the weight bytes over the memory rate.
 // Two kernels, picked by b:
 //  - b == 1 (decode, and the classifier's last-position row in prefill): a
-//    GEMV that streams each weight byte once per call, one warp per output
-//    column; each lane loads 16 contiguous weight bytes per
-//    iteration, so one warp-iteration reads a 512-byte run of the column.
-//    Lanes of a group combine their __dp4a partial sums by shuffles, and lane
-//    0 gathers the group terms in order.
+//    GEMV that streams each weight byte once per call. Its first design (a
+//    warp a column, one 16-byte load a lane in flight, then a shuffle
+//    reduction and eight serial shuffle-broadcast adds before the next
+//    load) read 1.09 TB/s where a pure read of the same bytes reaches
+//    2.26-2.34. Now a warp issues the 16-byte weight, activation and scale
+//    loads of NB (2, 4 or 8) 512-byte chunks of its column (or of two
+//    columns, CPW = 2, sharing the activation loads) before it reduces any;
+//    each group's term is formed in its own lanes and parked in shared
+//    memory; and the ordered fp32 sum runs once per column after the loads:
+//    lane t adds k-tile t's terms in order, then every lane adds the tile
+//    sums in order. Where d is small (wo, w2 at 1024 columns) or a column
+//    long, wpc warps share a column's chunks, so that enough loads are in
+//    flight to fill the card. No bit changes: the group dots are exact, and
+//    the sum's order is the plain version's. On an NVIDIA H100 80GB HBM3 at
+//    700 W (chip_smoke.py, cold L2): a token's 112 layer launches 1.00 ms
+//    (the first design 1.35, F.linear on bf16 1.18, the byte bound 0.14),
+//    the classifier 0.090 ms, 1.84 TB/s (0.138, 0.115, 0.050).
 //  - b > 1 (prefill blocks): a block owns a 64-row x 64-column output tile.
 //    Per group it stages the tile's activations and weights (up to 64 bytes
 //    of k) in shared memory, and each of its 256 threads runs 4 x 4 outputs:
@@ -52,55 +64,139 @@ __device__ __forceinline__ int dot16(const int4 w, const int4 x, int acc) {
   return acc;
 }
 
-// b == 1 path: one warp per output column, 16 bytes per lane per iteration.
-// Requires G a power of two in [16, 512] and n % G == 0, so every 512-byte
-// chunk holds whole groups and the lanes of a group are aligned.
-__global__ void q8q8_gemv_kernel(const int8_t* __restrict__ xq,
-                                 const float* __restrict__ xs,
-                                 const int8_t* __restrict__ wq,
-                                 const float* __restrict__ ws,
-                                 float* __restrict__ out, int b, int n, int d,
-                                 int G, int gpt) {
-  const int c = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (c >= d) return;  // uniform over the warp
-  const int ng = n / G;
-  const int lpg = G >> 4;     // lanes per group
-  const int gpc = 512 / G;    // groups per 512-byte chunk
-  const int8_t* wrow = wq + (size_t)c * n;
-  const float* wsrow = ws + (size_t)c * ng;
-  for (int r = 0; r < b; ++r) {
-    const int8_t* xrow = xq + (size_t)r * n;
-    const float* xsrow = xs + (size_t)r * ng;
-    float acc = 0.f, o = 0.f;
-    for (int k0 = 0; k0 < n; k0 += 512) {
-      const int k = k0 + lane * 16;
-      int dot = 0;
-      if (k < n) {
-        const int4 w = __ldg(reinterpret_cast<const int4*>(wrow + k));
-        const int4 x = __ldg(reinterpret_cast<const int4*>(xrow + k));
-        dot = dot16(w, x, 0);
-      }
-      for (int off = lpg >> 1; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      float term = 0.f;
-      if (k < n) {
-        const int g = k / G;
-        term = __fmul_rn(__int2float_rn(dot), __fmul_rn(xsrow[g], wsrow[g]));
-      }
-      const int g0 = k0 / G;
-      const int here = min(gpc, ng - g0);
-      for (int j = 0; j < here; ++j) {
-        const float t = __shfl_sync(0xffffffffu, term, j * lpg);
-        acc = __fadd_rn(acc, t);
-        if ((g0 + j + 1) % gpt == 0) {
-          o = __fadd_rn(o, acc);
-          acc = 0.f;
-        }
+// b == 1 path. A block of kGemvThreads threads owns cols = kGemvWarps / wpc
+// * CPW columns: warp w serves columns CPW * (w / wpc) + cc (cc < CPW) over
+// piece w % wpc of their 512-byte chunks (contiguous pieces of whole
+// chunks), NB chunks of each column in flight at a time. Requires G a power
+// of two in [16, 512] and n % G == 0, so every chunk holds whole groups and
+// the lanes of a group are aligned. Shared memory: the group terms,
+// [cols][ng] floats.
+constexpr int kGemvThreads = 256, kGemvWarps = kGemvThreads / 32;
+
+template <int CPW, int NB>
+__global__ void __launch_bounds__(kGemvThreads)
+q8q8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                 const int8_t* __restrict__ wq, const float* __restrict__ ws,
+                 float* __restrict__ out, int n, int d, int G, int gpt,
+                 int wpc) {
+  extern __shared__ float terms[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ng = n / G, lpg = G >> 4;
+  const int cols = kGemvWarps / wpc * CPW;
+  const int slot0 = warp / wpc * CPW;   // this warp's first column slot
+  const int c0 = blockIdx.x * cols + slot0;
+  const int chunks = (n + 511) / 512;
+  const int per = (chunks + wpc - 1) / wpc;
+  const int j0 = warp % wpc * per, j1 = min(chunks, j0 + per);
+  const int4 zero = make_int4(0, 0, 0, 0);
+  for (int jb = j0; jb < j1; jb += NB) {
+    // every load of the batch first ...
+    int4 x[NB], w[CPW][NB];
+    float sx[NB], sw[CPW][NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int k = (jb + i) * 512 + lane * 16;
+      const bool in = jb + i < j1 && k < n;
+      x[i] = in ? __ldg(reinterpret_cast<const int4*>(xq + k)) : zero;
+      sx[i] = in ? __ldg(xs + k / G) : 0.f;
+#pragma unroll
+      for (int cc = 0; cc < CPW; ++cc) {
+        const bool on = in && c0 + cc < d;
+        w[cc][i] = on ? __ldg(reinterpret_cast<const int4*>(
+                            wq + (size_t)(c0 + cc) * n + k))
+                      : zero;
+        sw[cc][i] = on ? __ldg(ws + (size_t)(c0 + cc) * ng + k / G) : 0.f;
       }
     }
-    if (lane == 0) out[(size_t)r * d + c] = o;
+    // ... then the group dots and their terms
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int k = (jb + i) * 512 + lane * 16;
+      const bool in = jb + i < j1 && k < n && (lane & (lpg - 1)) == 0;
+#pragma unroll
+      for (int cc = 0; cc < CPW; ++cc) {
+        int dot = dot16(w[cc][i], x[i], 0);
+        for (int off = lpg >> 1; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (in)
+          terms[(slot0 + cc) * ng + k / G] =
+              __fmul_rn(__int2float_rn(dot), __fmul_rn(sx[i], sw[cc][i]));
+      }
+    }
   }
+  __syncthreads();
+  // the ordered sum, one warp per column slot: lane t adds k-tile t's
+  // terms in order, then every lane adds the tile sums in order
+  const int n_tiles = ng / gpt;
+  for (int slot = warp; slot < cols; slot += kGemvWarps) {
+    const float* row = terms + slot * ng;
+    float o = 0.f;
+    for (int t0 = 0; t0 < n_tiles; t0 += 32) {
+      const int t = t0 + lane;
+      float acc = 0.f;
+      if (t < n_tiles)
+        for (int i = 0; i < gpt; ++i) acc = __fadd_rn(acc, row[t * gpt + i]);
+      const int m = min(32, n_tiles - t0);
+      for (int i = 0; i < m; ++i)
+        o = __fadd_rn(o, __shfl_sync(0xffffffffu, acc, i));
+    }
+    const int c = blockIdx.x * cols + slot;
+    if (lane == 0 && c < d) out[c] = o;
+  }
+}
+
+// The GEMV's shape, from n and d: wpc warps share a column where d alone
+// gives fewer than kGemvMinWarps warps (wo and w2 of qwen3-0.6b: 2) or a
+// warp would walk more than kGemvMaxBatch chunks (long columns); NB, the
+// chunks a warp has in flight, the least power of two that holds its
+// piece; two columns a warp past kGemvPairCols columns (the classifier,
+// whose 2-chunk columns would otherwise leave each lane 2 loads in
+// flight). Registers, and with them the warps an SM holds, grow with NB
+// and CPW. Returns a cudaError_t as an int.
+constexpr int kGemvMinWarps = 2048, kGemvMaxBatch = 4,
+              kGemvPairCols = 16384;
+
+template <int CPW, int NB>
+int launch_gemv_shape(const int8_t* xq, const float* xs, const int8_t* wq,
+                      const float* ws, float* out, int n, int d, int G,
+                      int gpt, int wpc, cudaStream_t s) {
+  static size_t set[16] = {};
+  const int cols = kGemvWarps / wpc * CPW;
+  const size_t smem = sizeof(float) * (size_t)cols * (n / G);
+  const int err = allow_smem(q8q8_gemv_kernel<CPW, NB>, smem, set);
+  if (err) return err;
+  const unsigned blocks = (unsigned)((d + cols - 1) / cols);
+  q8q8_gemv_kernel<CPW, NB><<<blocks, kGemvThreads, smem, s>>>(
+      xq, xs, wq, ws, out, n, d, G, gpt, wpc);
+  return (int)cudaGetLastError();
+}
+
+template <int CPW>
+int launch_gemv_cpw(const int8_t* xq, const float* xs, const int8_t* wq,
+                    const float* ws, float* out, int n, int d, int G, int gpt,
+                    int wpc, int per, cudaStream_t s) {
+  if (per <= 2)
+    return launch_gemv_shape<CPW, 2>(xq, xs, wq, ws, out, n, d, G, gpt, wpc,
+                                     s);
+  if (per <= 4)
+    return launch_gemv_shape<CPW, 4>(xq, xs, wq, ws, out, n, d, G, gpt, wpc,
+                                     s);
+  return launch_gemv_shape<CPW, 8>(xq, xs, wq, ws, out, n, d, G, gpt, wpc, s);
+}
+
+int launch_gemv(const int8_t* xq, const float* xs, const int8_t* wq,
+                const float* ws, float* out, int n, int d, int G, int gpt,
+                cudaStream_t s) {
+  const int chunks = (n + 511) / 512;
+  int wpc = 1;
+  while (wpc < kGemvWarps && 2 * wpc <= chunks &&
+         ((size_t)d * wpc < kGemvMinWarps ||
+          (chunks + wpc - 1) / wpc > kGemvMaxBatch))
+    wpc *= 2;
+  const int per = (chunks + wpc - 1) / wpc;
+  if (d >= kGemvPairCols)
+    return launch_gemv_cpw<2>(xq, xs, wq, ws, out, n, d, G, gpt, wpc, per, s);
+  return launch_gemv_cpw<1>(xq, xs, wq, ws, out, n, d, G, gpt, wpc, per, s);
 }
 
 // b > 1 path: one block per 64 x 64 output tile, 256 threads, thread (ty, tx)
@@ -592,17 +688,12 @@ int q8q8_matmul(const void* xq, const void* xs, const void* wq,
   const int8_t* wq8 = static_cast<const int8_t*>(wq);
   const float* wsf = static_cast<const float*>(ws);
   float* o = static_cast<float*>(out);
-  if (b == 1) {
-    const int threads = 256;  // 8 columns per block
-    const unsigned blocks = (unsigned)(((size_t)d * 32 + threads - 1) / threads);
-    q8q8_gemv_kernel<<<blocks, threads, 0, s>>>(xq8, xsf, wq8, wsf, o, b, n, d,
-                                                group_size, gpt);
-  } else {
-    const dim3 blocks((unsigned)((d + kTile - 1) / kTile),
-                      (unsigned)((b + kTile - 1) / kTile));
-    q8q8_tile_kernel<<<blocks, 256, 0, s>>>(xq8, xsf, wq8, wsf, o, b, n, d,
-                                            group_size, gpt);
-  }
+  if (b == 1)
+    return launch_gemv(xq8, xsf, wq8, wsf, o, n, d, group_size, gpt, s);
+  const dim3 blocks((unsigned)((d + kTile - 1) / kTile),
+                    (unsigned)((b + kTile - 1) / kTile));
+  q8q8_tile_kernel<<<blocks, 256, 0, s>>>(xq8, xsf, wq8, wsf, o, b, n, d,
+                                          group_size, gpt);
   return (int)cudaGetLastError();
 }
 

@@ -43,7 +43,7 @@ SIGNATURES = {
     "q8_fused_matmul": [_P] * 6 + [_I] * 7 + [_P],
     "flash_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
     "flash_decode_two_segment": [_P] * 14 + [_I] * 9 + [_F, _P],
-    "flash_prefill": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "flash_prefill": [_P] * 9 + [_I] * 10 + [_F, _P],
     "batched_decode_partial": [_P] * 11 + [_I] * 9 + [_F, _P],
     "kv_write_rows": [_P] * 3 + [_I] * 5 + [_P],
     "q8q8_untiled": [_P] * 6 + [_I] * 5 + [_P],

@@ -28,7 +28,13 @@ for Mosaic, the TPU's kernel compiler, and not for the function:
 
 `live` (host int, optional) is max(positions) + 1, as for the dense
 functions in ops/attention.py: it bounds the tile loop of the plain versions
-and the grid of the decode kernel without a read back from the device.
+and the grids of the decode and prefill kernels without a read back from the
+device.
+
+The prefill kernel cuts each query tile's walk over the cache into segments
+of whole 64-row chunks, so that the grid fills the card; `plan_prefill`
+picks the segment length on the host and `prefill_segments` is the cut the
+kernel makes.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `LAUNCHES` counts kernel launches,
@@ -49,7 +55,12 @@ LAUNCHES = {"flash_decode": 0, "flash_prefill": 0,
 _NEG = torch.finfo(torch.float32).min   # the JAX kernels' mask value
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_HEAD_DIM = 128        # the kernels hold a row's outputs in registers
-MAX_SCORE_ROWS = 128      # prefill: query rows x heads of a block
+MAX_SCORE_ROWS = 64       # prefill: query rows x heads of a block
+PREFILL_CHUNK = 64        # prefill: cache rows a kernel step
+PREFILL_SLOTS = 264       # prefill blocks resident at once: two on each of
+                          # the H100's 132 SMs
+PREFILL_MIN_SEG = 2       # chunks a segment at least: a block's set-up (its
+                          # queries, its partial) costs about one chunk
 
 
 def reset_launches() -> None:
@@ -221,6 +232,49 @@ def flash_prefill_plain(q: torch.Tensor, k_cache: torch.Tensor,
         B, T, H, D)
 
 
+def prefill_tq(T: int, M: int, block_t: int = 64) -> int:
+    """The prefill kernel's query tile: flash_prefill_gqa's tile of T rows
+    (pick_ts from block_t), halved until its tq * M score rows fit a block.
+    A finer query tile skips more past cache rows and changes no value."""
+    tq = pick_ts(T, block_t)
+    while tq * M > MAX_SCORE_ROWS and tq > 1:
+        tq //= 2
+    return tq
+
+
+def prefill_segments(chunks: int, seg: int,
+                     n_seg: int) -> list[tuple[int, int]]:
+    """A query tile's `chunks` 64-row chunks cut into near-equal segments of
+    at most max(seg, ceil(chunks / n_seg)) chunks, in order, as [first, end)
+    chunk ranges: the kernel's prefill_segment (csrc/flash_decode.cu). There
+    are at most n_seg, so the grid holds every chunk whatever `live` the
+    plan was made for; none is empty."""
+    seg = max(seg, -(-chunks // n_seg))
+    n_t = -(-chunks // seg)
+    return [(j * chunks // n_t, (j + 1) * chunks // n_t) for j in range(n_t)]
+
+
+def plan_prefill(T: int, tq: int, S: int, KV: int, B: int,
+                 live: int | None = None) -> tuple[int, int]:
+    """(seg, n_seg): the prefill kernel's segment length in chunks and its
+    grid's segment axis, from shapes and `live` on the host.
+
+    A block runs one (query tile, segment, kv head, slot). The last query
+    tile sees the most chunks, those up to row live - 1 (the whole cache
+    without `live`); it is cut into 2 * PREFILL_SLOTS // units segments,
+    units = (T / tq) * KV * B: about two full waves, where one wave of
+    ceil(PREFILL_SLOTS / units) would leave most of a second one idle
+    (units rarely divides 264). A segment holds at least PREFILL_MIN_SEG
+    chunks, so a tile of so few stays whole; n_seg = 1 leaves every tile
+    whole and the kernel writes the output itself. `live` sizes the grid
+    only (prefill_segments)."""
+    last = (S if live is None else max(1, min(live, S))) - 1
+    chunks = last // PREFILL_CHUNK + 1
+    n = max(1, 2 * PREFILL_SLOTS // ((T // tq) * KV * B))
+    seg = max(min(PREFILL_MIN_SEG, chunks), -(-chunks // n))
+    return seg, -(-chunks // seg)
+
+
 def _check(q, k_cache, v_cache, positions, k_s, v_s, n_pos):
     """What the kernels take: CUDA tensors on one device, contiguous,
     K/V of one dtype among float32/bfloat16/int8, scales both or neither."""
@@ -326,7 +380,8 @@ def _launch_two_segment(q, k_main, v_main, k_side, v_side, base_pos, offsets,
     return out
 
 
-def _launch_prefill(q, k_cache, v_cache, q_positions, k_s, v_s, block_t):
+def _launch_prefill(q, k_cache, v_cache, q_positions, k_s, v_s, block_t,
+                    live):
     from qwen3_tpu_torch.ops.cuda.build import load_library
 
     B, T, H, D = q.shape
@@ -338,19 +393,23 @@ def _launch_prefill(q, k_cache, v_cache, q_positions, k_s, v_s, block_t):
     q = q.float().contiguous()
     q_positions = q_positions.to(torch.int32).reshape(T).contiguous()
     _check(q, k_cache, v_cache, q_positions, k_s, v_s, T)
-    # a block holds tq * M score rows; a finer query tile than flash_prefill_
-    # gqa's skips more past tiles and changes no value
-    tq = pick_ts(T, block_t)
-    while tq * M > MAX_SCORE_ROWS:
-        tq //= 2
+    tq = prefill_tq(T, M, block_t)
+    seg, n_seg = plan_prefill(T, tq, S, KV, B, live)
     lib = load_library()
     out = torch.empty(B, T, H, D, dtype=torch.float32, device=q.device)
+    part_acc = part_ml = None
+    if n_seg > 1:
+        shape = (B, KV, T // tq, n_seg, MAX_SCORE_ROWS)
+        part_acc = torch.empty(*shape, D, dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty(*shape, 2, dtype=torch.float32,
+                              device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_prefill(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_s),
-        _ptr(v_s), q_positions.data_ptr(), out.data_ptr(),
-        DTYPE_CODES[k_cache.dtype], B, T, S, H, KV, D, tq,
-        1.0 / math.sqrt(D), stream)
+        _ptr(v_s), q_positions.data_ptr(), out.data_ptr(), _ptr(part_acc),
+        _ptr(part_ml), DTYPE_CODES[k_cache.dtype], B, T, S, H, KV, D, tq,
+        seg, n_seg, 1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error "
                            f"{err}")
@@ -397,9 +456,11 @@ def flash_prefill_gqa(q: torch.Tensor, k_cache: torch.Tensor,
                       live: int | None = None) -> torch.Tensor:
     """Block-causal GQA prefill attention: q [B, T, H, D], q_positions [T]
     (absolute, increasing); returns [B, T, H, D] fp32. The kernel reads each
-    query tile's last position itself, so it takes no `live`."""
+    query tile's last position itself; `live` (max(q_positions) + 1, or
+    None for the whole cache) sizes its grid (plan_prefill) and never its
+    result."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k_cache, v_cache, q_positions, k_s,
                                    v_s, block_s, block_t, live=live)
     return _launch_prefill(q, k_cache, v_cache, q_positions, k_s, v_s,
-                           block_t)
+                           block_t, live)

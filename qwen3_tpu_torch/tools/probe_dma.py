@@ -11,8 +11,8 @@ never sits in the 50 MB L2 from the call before. Rows:
 
 - `q8q8 stacked matmul`: ops/cuda/q8_matmul.py::q8_q8_matmul_stacked at
   b = 1 on x = 0.01 quantized (the CLI's decode GEMV);
-- `pure-read same walk`: pure_read_stacked, the GEMV's grid and loads with
-  a checksum for a body;
+- `pure-read same walk`: pure_read_stacked, the grid and loads of the
+  GEMV's first design (a warp a weight row) with a checksum for a body;
 - `manual DMA 2/3/4-buffer`: pure_read_manual, the same bytes through an
   n_buf-slot ring of bulk async copies a block.
 

@@ -280,7 +280,7 @@ def test_flash_prefill_matches_plain_on_card(dev, dtype, h, kv, d, t,
                                              block_t):
     """Blocks that start at 0, across a tile boundary and at the end of the
     cache; (8, 2) has 4 heads per kv head, so the kernel's query tile halves
-    to 32 rows."""
+    to 16 rows."""
     from qwen3_tpu_torch.ops.cuda import flash_decode as fd
 
     b, s = 2, 512
@@ -296,6 +296,104 @@ def test_flash_prefill_matches_plain_on_card(dev, dtype, h, kv, d, t,
         assert fd.LAUNCHES == {"flash_decode": 0, "flash_prefill": 1,
                                "flash_decode_two_segment": 0}
         _flash_close(got, want)
+
+
+GEMV_L = 3
+
+
+@pytest.mark.parametrize("d", [1, 33, 1024, 4097, 16512])
+@pytest.mark.parametrize("g", [32, 64])
+@pytest.mark.parametrize("n", [768, 1024, 2560, 3072, 9728])
+def test_gemv_matches_plain_on_card(dev, n, g, d):
+    """The b = 1 GEMV bit for bit at qwen3-0.6b's and qwen3-4b's contraction
+    lengths, ragged column counts (one block short, several warps a column
+    at 1024, two columns a warp at 16512), stacked at the first and last
+    layer, and as the classifier's single tensor."""
+    xq, xs, wq, ws = _inputs(n + d + g, 1, n, d, g, GEMV_L, dev)
+    tq.reset_launches()
+    for layer in (0, GEMV_L - 1):
+        got = tq.q8_q8_matmul_stacked(xq, xs, wq, ws, layer, g)
+        want = tq.q8q8_matmul_plain(xq, xs, wq[layer], ws[layer], g)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    got = tq.q8_q8_matmul_tiled(xq[0], xs[0], wq[1], ws[1], g)
+    want = tq.q8q8_matmul_plain(xq[0], xs[0], wq[1], ws[1], g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert tq.LAUNCHES["stacked"] == 2 and tq.LAUNCHES["tiled"] == 1
+
+
+PREFILL_S = 32768
+
+
+@pytest.mark.parametrize("t", [64, 512])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_flash_prefill_split_matches_plain_on_card(dev, dtype, m, d, t):
+    """The split prefill kernel within 2e-5 in a 32768-row cache, blocks
+    of t rows starting at 0, 8192 and 32256, 2 kv heads of d with m query
+    heads each; each call the same bits twice, one launch counted."""
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    kv = 2
+    k, v, ks, vs = _flash_cache(m + d + t, 1, PREFILL_S, kv, d, dtype, dev)
+    q = torch.from_numpy(np.random.default_rng(t + m).standard_normal(
+        (1, t, kv * m, d)).astype(np.float32)).to(dev)
+    for start in (0, 8192, 32256):
+        qpos = torch.arange(start, start + t, dtype=torch.int32, device=dev)
+        want = fd.flash_prefill_plain(q, k, v, qpos, ks, vs, live=start + t)
+        fd.reset_launches()
+        got = fd.flash_prefill_gqa(q, k, v, qpos, ks, vs, live=start + t)
+        again = fd.flash_prefill_gqa(q, k, v, qpos, ks, vs, live=start + t)
+        torch.cuda.synchronize()
+        assert fd.LAUNCHES["flash_prefill"] == 2
+        assert torch.equal(got, again)
+        _flash_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_flash_prefill_unsplit_and_whole_cache_grids_on_card(dev, dtype):
+    """qwen3-0.6b's shape: a 64-row block at 0, which the planner leaves
+    unsplit (the kernel writes the output itself), and a block at 8192
+    whose grid is sized without `live` (for the whole cache)."""
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    h, kv, d, t = 16, 8, 128, 64
+    k, v, ks, vs = _flash_cache(7, 1, PREFILL_S, kv, d, dtype, dev)
+    q = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (1, t, h, d)).astype(np.float32)).to(dev)
+    tq_ = fd.prefill_tq(t, h // kv)
+    assert fd.plan_prefill(t, tq_, PREFILL_S, kv, 1, t)[1] == 1
+    assert fd.plan_prefill(t, tq_, PREFILL_S, kv, 1, None)[1] > 1
+    for start, live in ((0, t), (8192, None)):
+        qpos = torch.arange(start, start + t, dtype=torch.int32, device=dev)
+        want = fd.flash_prefill_plain(q, k, v, qpos, ks, vs)
+        got = fd.flash_prefill_gqa(q, k, v, qpos, ks, vs, live=live)
+        torch.cuda.synchronize()
+        _flash_close(got, want)
+
+
+@pytest.mark.parametrize("t", [64, 512])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_flash_prefill_live_below_positions_on_card(dev, dtype, t):
+    """qwen3-0.6b's shape: a `live` below the query positions plans a
+    smaller grid (one segment at live 1, fewer than the tiles see at
+    start // 2); `live` sizes the grid only, so the output still holds
+    2e-5 of the plain version."""
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    h, kv, d = 16, 8, 128
+    k, v, ks, vs = _flash_cache(9 + t, 1, PREFILL_S, kv, d, dtype, dev)
+    q = torch.from_numpy(np.random.default_rng(t).standard_normal(
+        (1, t, h, d)).astype(np.float32)).to(dev)
+    for start in (8192, 32256):
+        qpos = torch.arange(start, start + t, dtype=torch.int32, device=dev)
+        want = fd.flash_prefill_plain(q, k, v, qpos, ks, vs)
+        for live in (1, start // 2):
+            got = fd.flash_prefill_gqa(q, k, v, qpos, ks, vs, live=live)
+            torch.cuda.synchronize()
+            _flash_close(got, want)
 
 
 def _value_tol(want, mag, fast):
