@@ -15,8 +15,9 @@ final line:
 3. kernels: each kernel against its plain PyTorch version on the card at
    Qwen3-0.6B's main-path shapes, with device times (CUDA events, median of
    20 runs after warm-up), the bound and a library yardstick: the Q8_0 x
-   Q8_0 matmuls (b = 1, 64, 256, 512) and the pallas-fast matmuls (b = 1,
-   8, 64, 128, 512, with the fp32 FMA floor beside the bound) bit for bit,
+   Q8_0 matmuls (b = 1, 8, 64, 65, 256, 512, each row equal to the same
+   row at b = 512; the tile path also summed per prefill block beside its
+   epilogue floor) and the pallas-fast matmuls (b = 1, 8, 64, 128, 512, with the fp32 FMA floor beside the bound) bit for bit,
    the latter also across batch sizes; the pallas-fast and pallas-int8
    matmuls also summed over one forward step at b = 1, 8 and 64; the
    flash kernels, batched decode (B = 8 and 64) and two-segment flash
@@ -92,12 +93,16 @@ MATRICES = {           # name: (n = in, d = out)
     "w2": (3072, 1024),
     "classifier": (1024, 151936),
 }
-BATCHES = (1, 64, 256, 512)    # decode, and the prefill ladder's blocks
+# decode, serving's B = 8 in mode pallas, a ragged block, and the prefill
+# ladder's blocks
+BATCHES = (1, 8, 64, 65, 256, 512)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (data sheet)
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 peak outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core peak
+# the fp32 pipe: 132 SMs x 128 lanes x 1.98 GHz (H100 SXM boost clock)
+FP32_PIPE_OPS_PER_S = 132 * 128 * 1.98e9
 # flash attention at qwen3-0.6b's shape, in the CLI's default 32768-row cache
 FLASH_H, FLASH_KV, FLASH_D, FLASH_S = 16, 8, 128, 32768
 FLASH_DEPTHS = (0, 255, 256, 8191, 16384, 32767)   # decode positions
@@ -111,7 +116,17 @@ FLASH_DEPTH = 8192             # --attn auto switches to flash here
 # them (ms per token or per 28-layer block, as the kernels line counts; an
 # NVIDIA H100 80GB HBM3 at 700 W): logged beside this run's times
 BEFORE_MS = {"q8_q8_matmul_stacked": 1.349, "q8_q8_matmul_tiled": 0.138,
-             "flash_prefill_gqa": 87.16}
+             "flash_prefill_gqa": 87.16, "flash_decode_gqa": 0.926,
+             "flash_decode_gqa_two_segment": 0.934,
+             "batched_decode_partial": 1.080}
+# the Q8_0 x Q8_0 tile path's first design (b > 1), us a launch, as PERF.md
+# records it (b = 64 / 256 / 512), logged beside this run's tile times
+TILE_BEFORE_US = {
+    "wqkv": {64: 44.8, 256: 48.7, 512: 88.7},
+    "wo": {64: 87.8, 256: 81.8, 512: 80.1},
+    "w13": {64: 44.5, 256: 64.3, 512: 118.6},
+    "w2": {64: 125.9, 256: 117.2, 512: 115.5},
+    "classifier": {64: 348.6, 256: 1331.9, 512: 2640.9}}
 REPS, WARMUP = 20, 3
 SLEEP_CYCLES = 4_000_000       # a ~2 ms device spin queued before each timed run
 
@@ -201,6 +216,28 @@ def bound_ms(b, n, d):
                                        else "operations")
 
 
+def epilogue_floor_ms(b, n, d):
+    """The tile path's second floor: its ordered fp32 epilogue, 4 fp32-pipe
+    operations (the dot's conversion, two products, one sum) per (row,
+    column, group), over the card's fp32 pipe."""
+    return 1e3 * 4 * b * d * (n // G) / FP32_PIPE_OPS_PER_S
+
+
+def tile_block(rows, b):
+    """The tile path's sums over one forward pass's layer matrices at b rows
+    (a prefill block, or a serving step in mode pallas): the four stacked
+    matrices x 28 layers (the classifier runs on one row); before_ms is
+    PR 1's design as PERF.md records it, for the log only."""
+    mine = [r for r in rows if r["b"] == b and r["kernel"] == "stacked"]
+    out = {"b": b, "layer_matmuls": 4 * L}
+    for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "epilogue_floor_ms"):
+        out[key] = L * sum(r[key] for r in mine)
+    if all(r.get("before_us") for r in mine):
+        out["before_ms"] = L * sum(r["before_us"] for r in mine) / 1e3
+    return out
+
+
 def phase_kernels(torch):
     import torch.nn.functional as F
 
@@ -222,9 +259,12 @@ def phase_kernels(torch):
         w_bf = (w_q.float().reshape(*lead, d, n // G, G)
                 * w_s[..., None]).reshape(*lead, d, n).to(torch.bfloat16)
         n_layers = L if stacked else 1
-        for b in BATCHES:
-            x = torch.randn(b, n, device=dev, generator=gen)
-            xq, xs = quantize_act(x, G)
+        x_all = torch.randn(max(BATCHES), n, device=dev, generator=gen)
+        xq_all, xs_all = quantize_act(x_all, G)
+        widest = None
+        for b in sorted(BATCHES, reverse=True):
+            x = x_all[:b].contiguous()
+            xq, xs = xq_all[:b].contiguous(), xs_all[:b].contiguous()
             x_bf = x.to(torch.bfloat16)
 
             def kernel(i, xq=xq, xs=xs):
@@ -254,6 +294,15 @@ def phase_kernels(torch):
                 if not torch.equal(got, want):
                     fail(f"{name} b={b} layer={layer}: kernel != plain "
                          f"(max_abs_diff {err:.3e})")
+            # a row's bits do not depend on its batch-mates: every b's rows
+            # equal the same rows of the widest call (b = 1: the GEMV)
+            got = kernel(L - 1)
+            if widest is None:
+                widest = got
+            torch.cuda.synchronize()
+            if not torch.equal(got, widest[:b]):
+                fail(f"{name} b={b}: rows differ from the same rows at "
+                     f"b={max(BATCHES)}")
             k_ms = device_ms(torch, kernel)
             p_ms = device_ms(torch, plain)
             l_ms = device_ms(torch, library)
@@ -263,10 +312,18 @@ def phase_kernels(torch):
                        max_abs_diff=err, kernel_ms=k_ms, bound_ms=bnd,
                        bound_by=by, plain_ms=p_ms, library_ms=l_ms,
                        tb_s=matmul_bytes(b, n, d) / k_ms / 1e9)
+            if b > 1:
+                shape, splits = qm.plan_q8q8(b, n, d, G)
+                row.update(epilogue_floor_ms=epilogue_floor_ms(b, n, d),
+                           tile_rows=qm.TILE_ROWS[shape], k_splits=splits,
+                           before_us=TILE_BEFORE_US[name].get(b))
             rows.append(row)
             log("kernel " + json.dumps(row))
         del w_q, w_s, w_bf
         torch.cuda.empty_cache()
+    rows.sort(key=lambda r: (list(MATRICES).index(r["matrix"]), r["b"]))
+    for b in (8, 64, 512):
+        log("q8q8 block " + json.dumps(tile_block(rows, b)))
     log("library_ms = torch.nn.functional.linear on bf16 activations and "
         "the weights dequantized once to bf16 (no single PyTorch call "
         "computes the grouped int8 function); timed here, never called by "
@@ -363,6 +420,17 @@ def phase_flash_kernels(torch):
                                       live=depth + 1)
             diffs.append(check("flash_decode", got, want,
                                f"{dtype} depth {depth}"))
+            # one launch a call: the last block of a slot's kv head combines
+            # in tile order and resets its counter, so a second call repeats
+            # the bits and every counter is back at zero
+            again = fd.flash_decode_gqa(q, kl, vl, pos, ksl, vsl,
+                                        live=depth + 1)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"flash_decode {dtype} depth {depth}: two calls differ")
+            if fd.decode_counters(got.device, 1).any():
+                fail(f"flash_decode {dtype} depth {depth}: a completion "
+                     f"counter was left nonzero")
         for t in FLASH_BLOCKS:
             for start in FLASH_STARTS:
                 q = torch.randn(1, t, FLASH_H, FLASH_D, device="cuda",
@@ -529,11 +597,11 @@ def value_tol(want, mag, fast):
     another order, plus under `fast` 2^-8 * mag, mag = sum_s p_s * |v_s *
     vs_s| of that element (batched_decode_magnitude). Under `fast` the value
     dot's operand p * vs is rounded to bf16, by at most 2^-8 of itself; the
-    kernel's p is relative to the running max of its 64-row chunks, the
-    plain version's to that of the Pallas kernel's tiles, so the two round
-    each term independently. Their gap could reach 2^-7 * mag only if every
-    term's two roundings fell at opposite extremes; 2^-8 * mag is half
-    that. A slot of at most 64 rows has one frame in both, and no gap."""
+    kernel's p is relative to the running max of the rows its lane group
+    has read so far, the plain version's to that of the Pallas kernel's
+    tiles, so the two round each term independently. Their gap could reach
+    2^-7 * mag only if every term's two roundings fell at opposite
+    extremes; 2^-8 * mag is half that."""
     tol = 2e-5 * max(1.0, want.abs().max().item())
     return tol + 2.0 ** -8 * mag if fast else tol
 
@@ -735,9 +803,13 @@ def phase_batched_kernels(torch):
             diff = 0.0
             for layer in (0, L - 1):
                 got, want = kernel(layer), plain(layer)
+                again = kernel(layer)
                 torch.cuda.synchronize()
                 if not all(torch.isfinite(t).all() for t in got):
                     fail(f"batched_decode B={B} fast={fast}: non-finite")
+                if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                    fail(f"batched_decode B={B} fast={fast}: two calls "
+                         f"differ")
                 mag = bd.batched_decode_magnitude(q, k, v, layer, lim, ks,
                                                   vs, bucket=bucket)
                 over = partials_over(got, want, value_tol(want[0], mag, fast))
@@ -803,12 +875,15 @@ def phase_batched_kernels(torch):
                 enable_gqa=True)
 
         got, want = kernel(0), plain(0)
+        again = kernel(0)
         torch.cuda.synchronize()
         diff = (got - want).abs().max().item()
         tol = 2e-5 * max(1.0, want.abs().max().item())
         if not torch.isfinite(got).all() or diff > tol:
             fail(f"two-segment flash at base {base}: max_abs_diff "
                  f"{diff:.3e} > {tol:.3e}")
+        if not torch.equal(got, again):
+            fail(f"two-segment flash at base {base}: two calls differ")
         err["flash_decode_gqa_two_segment"] = max(
             err["flash_decode_gqa_two_segment"], diff)
         read = base + off + 1

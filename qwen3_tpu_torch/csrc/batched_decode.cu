@@ -19,12 +19,13 @@
 // The TPU kernel serves `bb` slots per grid step with one "expanded-column"
 // MXU product over every (row, kv head) pair, a layout for its matrix unit.
 // Here the work is decode_partial.cuh's, as for flash decode: a block per
-// (256-row tile, kv head, slot) writes its partial, a second kernel combines
-// a slot's tiles in tile order. The tiles start at row 0 whatever the host's
-// bucket, and a tile at or past a slot's limit is never read, so a slot's
-// result depends only on its own rows: the same bits at any batch size and
-// bucket, and on every run. Bound by bytes: the int8 K/V and scales of the
-// rows below each slot's limit, once.
+// (256-row tile, kv head, slot) writes its partial, and the last block of a
+// slot's kv head combines the slot's tiles in tile order, in the same
+// launch. The tiles start at row 0 whatever the host's bucket, a tile at
+// or past a slot's limit is never read, and every sum runs in an order
+// fixed by the slot's own rows, so a slot's result depends only on them:
+// the same bits at any batch size and bucket, and on every run. Bound by
+// bytes: the int8 K/V and scales of the rows below each slot's limit, once.
 //
 // Layout: q f32 [B, H, D]; k, v one layer [B, S, KV, D] of f32 / bf16 / int8
 // (the wrapper passes the layer's offset); ks, vs [B, S, KV] f32 or null;
@@ -36,24 +37,24 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16, 2 int8; fast: 0 or 1. part_acc
 // [B, KV, n_tiles, M, D] and part_ml [B, KV, n_tiles, M, 2] are scratch;
-// n_tiles tiles of ts rows cover the bucket. Writes acc [B, H, D], m and
-// l [B, H]. Launches on `stream` and returns cudaGetLastError() as an int.
+// n_tiles tiles of ts rows cover the bucket; counters int32 [B, KV, M]
+// hold zeros and are left so. Writes acc [B, H, D], m and l [B, H]. Launches on `stream` and returns cudaGetLastError() as an int.
 int batched_decode_partial(const void* q, const void* k, const void* v,
                            const void* ks, const void* vs,
                            const void* row_limit, void* part_acc,
                            void* part_ml, void* acc, void* m, void* l,
-                           int dtype, int fast, int B, int S, int H, int KV,
-                           int D, int ts, int n_tiles, float scale,
-                           void* stream) {
+                           void* counters, int dtype, int fast, int B, int S,
+                           int H, int KV, int D, int ts, int n_tiles,
+                           float scale, void* stream) {
   if (fast)
     return dispatch_decode<true>(dtype, q, k, v, ks, vs, S, nullptr, nullptr,
                                  nullptr, nullptr, 0, row_limit, 0, nullptr,
-                                 part_acc, part_ml, acc, m, l, B, H, KV, D,
-                                 ts, n_tiles, scale, stream);
+                                 part_acc, part_ml, acc, m, l, counters, B, H,
+                                 KV, D, ts, n_tiles, scale, stream);
   return dispatch_decode<false>(dtype, q, k, v, ks, vs, S, nullptr, nullptr,
                                 nullptr, nullptr, 0, row_limit, 0, nullptr,
-                                part_acc, part_ml, acc, m, l, B, H, KV, D, ts,
-                                n_tiles, scale, stream);
+                                part_acc, part_ml, acc, m, l, counters, B, H,
+                                KV, D, ts, n_tiles, scale, stream);
 }
 
 }  // extern "C"

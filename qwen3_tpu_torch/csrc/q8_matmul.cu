@@ -42,11 +42,29 @@
 //    700 W (chip_smoke.py, cold L2): a token's 112 layer launches 1.00 ms
 //    (the first design 1.35, F.linear on bf16 1.18, the byte bound 0.14),
 //    the classifier 0.090 ms, 1.84 TB/s (0.138, 0.115, 0.050).
-//  - b > 1 (prefill blocks): a block owns a 64-row x 64-column output tile.
-//    Per group it stages the tile's activations and weights (up to 64 bytes
-//    of k) in shared memory, and each of its 256 threads runs 4 x 4 outputs:
-//    __dp4a group dots from shared memory, then the ordered scale-and-sum in
-//    registers. Each weight byte is read from device memory once per 64 rows.
+//  - b > 1 (prefill blocks; serving steps in mode pallas): bound by the
+//    ordered epilogue more than by bytes or int8 operations. Each (row,
+//    column, group) costs 4 fp32-pipe operations (the dot's conversion,
+//    xs * ws, the product, the sum) that no MMA can take, against 2 G int8
+//    operations on the tensor cores: for wqkv at b = 512 4.0 us of epilogue
+//    over the card's fp32 pipe, 4.5 us of bytes, 1.1 us of int8 MMAs. The
+//    first design (a 64 x 64 tile, __dp4a on CUDA cores from shared memory,
+//    two barriers a group and no load in flight, 16 blocks for wo and w2)
+//    took 45-126 us a layer matrix at b = 64 and 80-119 at b = 512, where
+//    F.linear on bf16 takes 10-13. q8q8_mma_kernel runs the group dots on
+//    mma.sync s8 tensor cores and keeps the epilogue in the MMA's fragment
+//    layout, one lane's outputs in registers; a cp.async ring keeps the next
+//    stages' activations, weights and scales in flight; the tile holds 16,
+//    32 or 64 rows by b (plan_q8q8 in ops/cuda/q8_matmul.py), so small
+//    batches multiply few zero rows, and where its blocks are fewer than the
+//    card's SMs the k-tiles split over several blocks, added in tile order
+//    by a second pass. The group dots are exact, each row is computed alone
+//    in the plain version's order, so no shape, split or batch changes a
+//    bit. The kernel is bound by instruction issue more than by any pipe:
+//    so the loop does no division (G is a power of two, the k-tile a
+//    counter), each thread's copy addresses are fixed once, the fragments
+//    come by ldmatrix, a group's first MMA starts its dots at zero, and a
+//    row's two columns leave as one 8-byte store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -199,102 +217,414 @@ int launch_gemv(const int8_t* xq, const float* xs, const int8_t* wq,
   return launch_gemv_cpw<1>(xq, xs, wq, ws, out, n, d, G, gpt, wpc, per, s);
 }
 
-// b > 1 path: one block per 64 x 64 output tile, 256 threads, thread (ty, tx)
-// owns rows ty + 16 i and columns tx + 16 j (i, j < 4). k advances one group
-// at a time, in chunks of kc = min(G, 64) bytes staged in shared memory (rows
-// padded to 17 words, so the column reads of a warp hit distinct banks).
-// Requires G a power of two in [16, 512] and n % G == 0.
-constexpr int kTile = 64, kMaxChunk = 64, kPadWords = kMaxChunk / 4 + 1;
+// b > 1 path: the int32 group dots on the int8 tensor cores (mma.sync
+// m16n8k32 s8 x s8 -> s32; m16n8k16 at G = 16, so that one MMA never spans
+// two groups), the ordered fp32 scale-and-sum in the MMA's fragment layout.
+// Activation rows are the MMA's M, weight columns its N: both operands are
+// row-major [rows][k] bytes as stored, so A and B fragments are 32-bit
+// words of staged rows. A block owns BM = 16 MI WMW rows x BN = 8 NI WNW
+// columns; warp (wm, wn) owns a (16 MI) x (8 NI) piece, and each lane
+// holds 4 MI NI outputs with their int32 dot, the k-tile's running sum
+// acc_t and the output's sum o. Stages of kStageK bytes of k (the block's
+// activation and weight rows, padded to kRowWords words so that a
+// fragment's 32 words come from 32 banks, and the stage's group scales)
+// fly in a cp.async ring of kStages, so the next stages load while this
+// one's MMAs and epilogue run; one barrier a stage. Once a group's dots are
+// done, each lane adds f32(dot) * (xs * ws) to its acc_t and, at a k-tile's
+// end, acc_t to o: the plain version's order, so any tile shape, split or
+// batch gives the same bits. With `part` (a k-split: blockIdx.z walks
+// k-tiles [z tps, (z + 1) tps)), each k-tile's acc_t goes to part[t]
+// instead, and q8q8_split_sum_kernel adds them in tile order. Rows, columns
+// and k past the matrix load as zeros (their outputs are never stored).
+constexpr int kStageK = 64, kRowWords = kStageK / 4 + 4, kStages = 4;
+constexpr int kScaleSlots = kStageK / 16;   // group scales a staged row
+constexpr int kSlotsLog = kScaleSlots == 8 ? 3 : 2;
 
-__global__ void __launch_bounds__(256)
-q8q8_tile_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                 const int8_t* __restrict__ wq, const float* __restrict__ ws,
-                 float* __restrict__ out, int b, int n, int d, int G,
-                 int gpt) {
-  __shared__ int x_sm[kTile][kPadWords];
-  __shared__ int w_sm[kTile][kPadWords];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
-  const int kc = min(G, kMaxChunk);
-  const int chunks = G / kc;   // chunks per group
-  const int vec = kc / 16;     // int4 loads per row per chunk
-  const int ng = n / G;
-  float acc[4][4], o[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = o[i][j] = 0.f;
+__device__ __forceinline__ void cp_async16_s(unsigned dst, const void* src,
+                                             bool on) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(on ? 16 : 0));
+}
 
-  for (int g = 0; g < ng; ++g) {
-    int dot[4][4];
+__device__ __forceinline__ void cp_async4_s(unsigned dst, const void* src,
+                                            bool on) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(on ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 16-byte matrices of shared memory, one row address a lane
+// (lanes 8 q .. 8 q + 7: matrix q): lane (g, t) gets word t of row g of
+// each, which is the m16n8k32 s8 fragment layout of A (matrices: rows 0-7
+// and 8-15 at bytes 0-15, then both at bytes 16-31) and of two n-tiles of B
+// (each: columns 0-7 at bytes 0-15, then 16-31).
+__device__ __forceinline__ void ldsm_x4(int (&r)[4], const int* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// c = a . b + (fresh ? 0 : c): a group's first k-step starts its dots at 0
+template <int KM>
+__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
+                                       const int (&b)[2], bool fresh) {
+  const int z = 0;
+  if (KM == 32) {
+    if (fresh)
+      asm volatile(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, "
+          "%10};\n"
+          : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+            "r"(b[1]), "r"(z));
+    else
+      asm volatile(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+            "r"(b[1]));
+  } else {
+    if (fresh)
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+          "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+          : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+          : "r"(a[0]), "r"(a[1]), "r"(b[0]), "r"(z));
+    else
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+          "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+          : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+          : "r"(a[0]), "r"(a[1]), "r"(b[0]));
+  }
+}
+
+// f32(v), exactly: for |v| < 2^22 (G <= 128: |dot| <= 128 * 128 G) the
+// float 1.5 * 2^23 + v, built by one integer add, less 1.5 * 2^23 (one
+// exact fadd), where the int-to-float conversion issues at a quarter of
+// the fp32 rate
+template <bool BIG>
+__device__ __forceinline__ float dot_to_f32(int v) {
+  return BIG ? __int2float_rn(v)
+             : __fadd_rn(__int_as_float(0x4B400000 + v), -12582912.f);
+}
+
+// A lane's fragment outputs into dst [b, d]: entries (2 h + e) of n-tile j
+// of m-tile i at row r + 16 i + 8 h, column c + 8 j + e, the two columns of
+// a row as one 8-byte store where d is even (a warp's store then fills
+// whole 32-byte sectors), rows and columns past the matrix skipped.
+template <int MI, int NI>
+__device__ __forceinline__ void store_tile(const float (&v)[MI][NI][4],
+                                           float* __restrict__ dst, int b,
+                                           int d, int r, int c) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dot[i][j] = 0;
-    for (int ch = 0; ch < chunks; ++ch) {
-      const int k0 = g * G + ch * kc;
-      for (int e = tid; e < kTile * vec; e += blockDim.x) {
-        const int r = e / vec, v = e % vec;
-        int4 xv = make_int4(0, 0, 0, 0), wv = make_int4(0, 0, 0, 0);
-        if (r0 + r < b)
-          xv = __ldg(reinterpret_cast<const int4*>(xq + (size_t)(r0 + r) * n +
-                                                   k0) + v);
-        if (c0 + r < d)
-          wv = __ldg(reinterpret_cast<const int4*>(wq + (size_t)(c0 + r) * n +
-                                                   k0) + v);
-        int* xd = &x_sm[r][4 * v];
-        int* wd = &w_sm[r][4 * v];
-        xd[0] = xv.x; xd[1] = xv.y; xd[2] = xv.z; xd[3] = xv.w;
-        wd[0] = wv.x; wd[1] = wv.y; wd[2] = wv.z; wd[3] = wv.w;
-      }
-      __syncthreads();
-      for (int w = 0; w < kc / 4; ++w) {
-        int xr[4], wr[4];
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 16 * i + 8 * h;
+      if (row >= b) continue;
+      float* drow = dst + (size_t)row * d;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) xr[i] = x_sm[ty + 16 * i][w];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wr[j] = w_sm[tx + 16 * j][w];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dot[i][j] = __dp4a(xr[i], wr[j], dot[i][j]);
-      }
-      __syncthreads();
-    }
-    float sx[4], sw[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + ty + 16 * i;
-      sx[i] = r < b ? xs[(size_t)r * ng + g] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      sw[j] = c < d ? ws[(size_t)c * ng + g] : 0.f;
-    }
-    const bool tile_end = (g + 1) % gpt == 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(__int2float_rn(dot[i][j]),
-                                                   __fmul_rn(sx[i], sw[j])));
-        if (tile_end) {
-          o[i][j] = __fadd_rn(o[i][j], acc[i][j]);
-          acc[i][j] = 0.f;
+      for (int j = 0; j < NI; ++j) {
+        const int col = c + 8 * j;
+        if ((d & 1) == 0 && col + 1 < d) {
+          *reinterpret_cast<float2*>(drow + col) =
+              make_float2(v[i][j][2 * h], v[i][j][2 * h + 1]);
+        } else {
+          if (col < d) drow[col] = v[i][j][2 * h];
+          if (col + 1 < d) drow[col + 1] = v[i][j][2 * h + 1];
         }
       }
+    }
+}
+
+template <int MI, int NI, int WMW, int WNW, int KM, bool BIG>
+__global__ void __launch_bounds__(32 * WMW * WNW)
+q8q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                const int8_t* __restrict__ wq, const float* __restrict__ ws,
+                float* __restrict__ out, float* __restrict__ part, int b,
+                int n, int d, int G, int gpt, int tps) {
+  constexpr int BM = 16 * MI * WMW, BN = 8 * NI * WNW;
+  constexpr int T = 32 * WMW * WNW, ROWS = BM + BN;
+  extern __shared__ int4 mma_smem[];
+  int* data = reinterpret_cast<int*>(mma_smem);   // [kStages][ROWS][kRowWords]
+  float* scl = reinterpret_cast<float*>(data + kStages * ROWS * kRowWords);
+  const int ng = n / G, tk = gpt * G, nt = ng / gpt;
+  const int lg = 31 - __clz(G);                  // G = 2^lg
+  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
+  const int t0 = blockIdx.z * tps, t1 = min(nt, t0 + tps);
+  const int kbeg = t0 * tk, kend = min(n, t1 * tk), gend = kend >> lg;
+  const int nst = (kend - kbeg + kStageK - 1) / kStageK;
+  const int lgs = max(0, kSlotsLog - lg + 4);    // log2 of the stage's groups
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp / WNW, wn = warp % WNW;
+  const int wr = wm * 16 * MI, wc = BM + wn * 8 * NI;   // the warp's rows
+  static_assert(NI % 2 == 0, "B fragments load two n-tiles at a time");
+  // the lane's ldmatrix row: A's row (lane & 15) at byte 16 (lane >> 4);
+  // B's column 8 (lane >> 4) + (lane & 7) at byte 16 ((lane >> 3) & 1)
+  const int a_off = (lane & 15) * kRowWords + 4 * (lane >> 4);
+  const int b_off =
+      (8 * (lane >> 4) + (lane & 7)) * kRowWords + 4 * ((lane >> 3) & 1);
+
+  // each thread's copies, fixed but for k: 16-byte pieces of staged rows
+  // and group scales (rows past the matrix load zeros; a copy past the
+  // staged rows is none, since a zero-filling one would still write). Its
+  // shared addresses are taken once, its row pointers advance a stage at a
+  // time: at these sizes the kernel is bound by instruction issue
+  static_assert((kStages & (kStages - 1)) == 0, "a power-of-two ring");
+  constexpr int kPieces = kStageK / 16;
+  constexpr int CP = (ROWS * kPieces + T - 1) / T;
+  constexpr int CS = (ROWS * kScaleSlots + T - 1) / T;
+  constexpr unsigned kNone = 0xffffffffu;
+  constexpr unsigned kSlotBytes = ROWS * kRowWords * sizeof(int);
+  constexpr unsigned kScaleSlotBytes = ROWS * kScaleSlots * sizeof(float);
+  const unsigned data_s = (unsigned)__cvta_generic_to_shared(data);
+  const unsigned scl_s = (unsigned)__cvta_generic_to_shared(scl);
+  const int8_t* psrc[CP];
+  unsigned pdst[CP];
+  int pk[CP];
+  bool pon[CP];
+#pragma unroll
+  for (int c = 0; c < CP; ++c) {
+    const int e = tid + c * T, r = e / kPieces;
+    const bool isx = r < BM;
+    const int gr = isx ? r0 + r : c0 + r - BM;
+    pon[c] = isx ? gr < b : gr < d;
+    pk[c] = 16 * (e % kPieces);
+    psrc[c] = pon[c] ? (isx ? xq : wq) + (size_t)gr * n + kbeg + pk[c] : xq;
+    pdst[c] = e < ROWS * kPieces
+                  ? data_s + (r * kRowWords + pk[c] / 4) * sizeof(int)
+                  : kNone;
   }
+  const float* ssrc[CS];
+  unsigned sdst[CS];
+  int sj[CS];
+  bool son[CS];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= b) continue;
+  for (int c = 0; c < CS; ++c) {
+    const int e = tid + c * T, r = e >> lgs, j = e & ((1 << lgs) - 1);
+    const bool isx = r < BM;
+    const int gr = isx ? r0 + r : c0 + r - BM;
+    son[c] = isx ? gr < b : gr < d;
+    sj[c] = j;
+    ssrc[c] = son[c] ? (isx ? xs : ws) + (size_t)gr * ng + j : xs;
+    sdst[c] = e < (ROWS << lgs)
+                  ? scl_s + (r * kScaleSlots + j) * sizeof(float)
+                  : kNone;
+  }
+
+  auto load = [&](int st) {   // called for st = 0, 1, 2, ... in order
+    if (st < nst) {
+      const int k0 = kbeg + st * kStageK;
+      const unsigned so = (st & (kStages - 1)) * kSlotBytes;
+      const bool full = k0 + kStageK <= kend;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < d) out[(size_t)r * d + c] = o[i][j];
+      for (int c = 0; c < CP; ++c) {
+        const bool on = pon[c] && (full || k0 + pk[c] < kend);
+        if (pdst[c] != kNone)
+          cp_async16_s(pdst[c] + so, on ? psrc[c] : xq, on);
+        if (pon[c]) psrc[c] += kStageK;
+      }
+      const unsigned sso = (st & (kStages - 1)) * kScaleSlotBytes;
+      const int g0 = k0 >> lg;
+#pragma unroll
+      for (int c = 0; c < CS; ++c) {
+        const bool on = son[c] && g0 + sj[c] < gend;
+        if (sdst[c] != kNone)
+          cp_async4_s(sdst[c] + sso, on ? ssrc[c] + g0 : ssrc[c], on);
+      }
+    }
+    cp_async_commit();
+  };
+
+  int dot[MI][NI][4];
+  float acc[MI][NI][4], o[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dot[i][j][e] = 0;   // set by each group's first MMA
+        acc[i][j][e] = o[i][j][e] = 0.f;
+      }
+
+  int gt = 0, t_cur = t0;   // groups into the k-tile, and the k-tile
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) load(s);
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage st has landed; slot st - 1 is free again
+    load(st + kStages - 1);
+    const int slot = st % kStages, k0 = kbeg + st * kStageK;
+    const int* A = data + (slot * ROWS + wr) * kRowWords;
+    const int* B = data + (slot * ROWS + wc) * kRowWords;
+    const float* sx = scl + (slot * ROWS + wr) * kScaleSlots;
+    const float* sw = scl + (slot * ROWS + wc) * kScaleSlots;
+#pragma unroll
+    for (int ks = 0; ks < kStageK / KM; ++ks) {
+      const int kw = ks * KM / 4 + tig;
+      const bool fresh = ((k0 + ks * KM) & (G - 1)) == 0;
+      int a[MI][4], bf[NI][2];
+      if (KM == 32) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+          ldsm_x4(a[i], A + 16 * i * kRowWords + ks * 8 + a_off);
+#pragma unroll
+        for (int j = 0; j < NI; j += 2) {
+          int r[4];
+          ldsm_x4(r, B + 8 * j * kRowWords + ks * 8 + b_off);
+          bf[j][0] = r[0];
+          bf[j][1] = r[1];
+          bf[j + 1][0] = r[2];
+          bf[j + 1][1] = r[3];
+        }
+      } else {   // m16n8k16: words 0 of A's two row halves and of B
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const int* ar = A + (16 * i + gid) * kRowWords + kw;
+          a[i][0] = ar[0];
+          a[i][1] = ar[8 * kRowWords];
+          a[i][2] = a[i][3] = 0;
+        }
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          bf[j][0] = B[(8 * j + gid) * kRowWords + kw];
+          bf[j][1] = 0;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) mma_s8<KM>(dot[i][j], a[i], bf[j], fresh);
+      const int kn = k0 + (ks + 1) * KM;   // the k-step's end
+      if (kn & (G - 1)) continue;          // the group goes on
+      const int g = (kn >> lg) - 1;
+      if (g >= gend) continue;             // past the matrix: zeros only
+      {
+        const int js = g - (k0 >> lg);     // 0 when a group spans stages
+        float xv[MI][2], wv[NI][2];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            xv[i][h] = sx[(16 * i + gid + 8 * h) * kScaleSlots + js];
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            wv[j][e] = sw[(8 * j + 2 * tig + e) * kScaleSlots + js];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int j = 0; j < NI; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& s = acc[i][j][2 * h + e];
+                s = __fadd_rn(s, __fmul_rn(dot_to_f32<BIG>(dot[i][j][2 * h + e]),
+                                           __fmul_rn(xv[i][h], wv[j][e])));
+              }
+          }
+      }
+      if (++gt < gpt) continue;            // the k-tile goes on
+      gt = 0;
+      const int t = t_cur++;
+      if (part) {
+        store_tile<MI, NI>(acc, part + (size_t)t * b * d, b, d,
+                           r0 + wr + gid, c0 + wc - BM + 2 * tig);
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NI; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NI; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              o[i][j][e] = __fadd_rn(o[i][j][e], acc[i][j][e]);
+              acc[i][j][e] = 0.f;
+            }
+      }
     }
   }
+  cp_async_wait<0>();
+  if (!part)
+    store_tile<MI, NI>(o, out, b, d, r0 + wr + gid, c0 + wc - BM + 2 * tig);
+}
+
+// A k-split's second pass: out = the k-tiles' sums part[t] added in tile
+// order from 0, one thread a (row, column).
+__global__ void q8q8_split_sum_kernel(const float* __restrict__ part,
+                                      float* __restrict__ out, int bd,
+                                      int nt) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= bd) return;
+  float o = 0.f;
+  for (int t = 0; t < nt; ++t) o = __fadd_rn(o, part[(size_t)t * bd + i]);
+  out[i] = o;
+}
+
+template <int MI, int NI, int WMW, int WNW, int KM, bool BIG>
+int launch_mma_shape(const int8_t* xq, const float* xs, const int8_t* wq,
+                     const float* ws, float* out, float* part, int b, int n,
+                     int d, int G, int gpt, int splits, cudaStream_t s) {
+  static size_t set[16] = {};
+  constexpr int BM = 16 * MI * WMW, BN = 8 * NI * WNW;
+  const size_t smem = (size_t)kStages * (BM + BN) *
+                      (kRowWords * sizeof(int) + kScaleSlots * sizeof(float));
+  auto kernel = q8q8_mma_kernel<MI, NI, WMW, WNW, KM, BIG>;
+  const int err = allow_smem(kernel, smem, set);
+  if (err) return err;
+  const int nt = n / G / gpt;
+  const int tps = (nt + splits - 1) / splits;
+  const dim3 blocks((unsigned)((d + BN - 1) / BN), (unsigned)((b + BM - 1) / BM),
+                    (unsigned)((nt + tps - 1) / tps));
+  kernel<<<blocks, 32 * WMW * WNW, smem, s>>>(
+      xq, xs, wq, ws, out, blocks.z > 1 ? part : nullptr, b, n, d, G, gpt, tps);
+  int e = (int)cudaGetLastError();
+  if (e || blocks.z == 1) return e;
+  const int bd = b * d;
+  q8q8_split_sum_kernel<<<(bd + 255) / 256, 256, 0, s>>>(part, out, bd, nt);
+  return (int)cudaGetLastError();
+}
+
+// The tile shapes by `shape` (ops/cuda/q8_matmul.py::plan_q8q8 picks it
+// from b): 0: 16 rows, 1: 32, 2: 64, all 64 columns.
+template <int KM, bool BIG>
+int launch_mma(const int8_t* xq, const float* xs, const int8_t* wq,
+               const float* ws, float* out, float* part, int b, int n, int d,
+               int G, int gpt, int shape, int splits, cudaStream_t s) {
+  switch (shape) {
+    case 0:
+      return launch_mma_shape<1, 2, 1, 4, KM, BIG>(
+          xq, xs, wq, ws, out, part, b, n, d, G, gpt, splits, s);
+    case 1:
+      return launch_mma_shape<2, 2, 1, 4, KM, BIG>(
+          xq, xs, wq, ws, out, part, b, n, d, G, gpt, splits, s);
+    case 2:
+      return launch_mma_shape<2, 4, 2, 2, KM, BIG>(
+          xq, xs, wq, ws, out, part, b, n, d, G, gpt, splits, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------- fast ----
@@ -531,7 +861,7 @@ int launch_fast_split(const void* x, const void* wq, const void* ws,
 // dequantized weights [64][kc] as f32 in shared memory (rows padded to 65
 // words), and each thread runs 4 x 4 outputs as sequential fmaf chains,
 // rows ty + 16 i and columns tx + 16 j.
-constexpr int kFastCols = 64, kFastThreads = 256;
+constexpr int kFastCols = 64, kFastThreads = 256, kMaxChunk = 64;
 // the tile kernel takes b > 8 once it has this many blocks
 constexpr int kFastTileBlocks = 128;
 // above this many columns the split kernel gives a thread two of them
@@ -677,11 +1007,15 @@ int q8_fast_matmul_stacked(const void* x, const void* wq, const void* ws,
   return q8_fast_matmul(x, wl, sl, out, b, n, d, group_size, stream);
 }
 
-// out = q8q8(xq, xs, wq, ws); gpt = groups per k-tile. Launches on `stream`
-// and returns cudaGetLastError() as an int (0 = launched).
+// out = q8q8(xq, xs, wq, ws); gpt = groups per k-tile. At b > 1 `shape`
+// (0-2: 16, 32 or 64 rows a block) and `splits` (k-tiles split over
+// that many blocks a tile; part f32 [n / (G gpt), b, d] is their scratch,
+// unused and may be null at 1) set the tile path's grid. Launches on
+// `stream` and returns cudaGetLastError() as an int (0 = launched).
 int q8q8_matmul(const void* xq, const void* xs, const void* wq,
-                const void* ws, void* out, int b, int n, int d,
-                int group_size, int gpt, void* stream) {
+                const void* ws, void* out, void* part, int b, int n, int d,
+                int group_size, int gpt, int shape, int splits,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* xq8 = static_cast<const int8_t*>(xq);
   const float* xsf = static_cast<const float*>(xs);
@@ -690,21 +1024,28 @@ int q8q8_matmul(const void* xq, const void* xs, const void* wq,
   float* o = static_cast<float*>(out);
   if (b == 1)
     return launch_gemv(xq8, xsf, wq8, wsf, o, n, d, group_size, gpt, s);
-  const dim3 blocks((unsigned)((d + kTile - 1) / kTile),
-                    (unsigned)((b + kTile - 1) / kTile));
-  q8q8_tile_kernel<<<blocks, 256, 0, s>>>(xq8, xsf, wq8, wsf, o, b, n, d,
-                                          group_size, gpt);
-  return (int)cudaGetLastError();
+  float* pf = static_cast<float*>(part);
+  // an MMA never spans two groups; past G = 128 a dot may reach 2^22
+  if (group_size == 16)
+    return launch_mma<16, false>(xq8, xsf, wq8, wsf, o, pf, b, n, d,
+                                 group_size, gpt, shape, splits, s);
+  if (group_size >= 256)
+    return launch_mma<32, true>(xq8, xsf, wq8, wsf, o, pf, b, n, d,
+                                group_size, gpt, shape, splits, s);
+  return launch_mma<32, false>(xq8, xsf, wq8, wsf, o, pf, b, n, d, group_size,
+                               gpt, shape, splits, s);
 }
 
 // The same against layer `layer` of stacked weights [L, d, n] / [L, d, n/G].
 int q8q8_matmul_stacked(const void* xq, const void* xs, const void* wq,
-                        const void* ws, int layer, void* out, int b, int n,
-                        int d, int group_size, int gpt, void* stream) {
+                        const void* ws, int layer, void* out, void* part,
+                        int b, int n, int d, int group_size, int gpt,
+                        int shape, int splits, void* stream) {
   const size_t off = (size_t)layer * (size_t)d * (size_t)n;
   const int8_t* wl = static_cast<const int8_t*>(wq) + off;
   const float* sl = static_cast<const float*>(ws) + off / group_size;
-  return q8q8_matmul(xq, xs, wl, sl, out, b, n, d, group_size, gpt, stream);
+  return q8q8_matmul(xq, xs, wl, sl, out, part, b, n, d, group_size, gpt,
+                     shape, splits, stream);
 }
 
 }  // extern "C"

@@ -31,7 +31,7 @@ import math
 import torch
 
 from qwen3_tpu_torch.ops.cuda.flash_decode import DTYPE_CODES, MAX_HEAD_DIM
-from qwen3_tpu_torch.ops.cuda.flash_decode import pick_ts
+from qwen3_tpu_torch.ops.cuda.flash_decode import decode_counters, pick_ts
 from qwen3_tpu_torch.ops.q8 import const
 
 LAUNCHES = {"batched_decode_partial": 0}
@@ -171,9 +171,10 @@ def _launch(q, k_stk, v_stk, layer, row_limit, k_s, v_s, bucket, fast):
     err = lib.batched_decode_partial(
         q.data_ptr(), ptr(k_stk), ptr(v_stk), ptr(k_s), ptr(v_s),
         row_limit.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), DTYPE_CODES[k_stk.dtype],
-        int(fast), B, S, H, KV, D, SPLIT_ROWS, n_tiles, 1.0 / math.sqrt(D),
-        stream)
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        decode_counters(q.device, B * H).data_ptr(),
+        DTYPE_CODES[k_stk.dtype], int(fast), B, S, H, KV, D, SPLIT_ROWS,
+        n_tiles, 1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"batched_decode_partial kernel launch failed: "
                            f"CUDA error {err}")

@@ -34,17 +34,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers and the stream as c_void_p, every int as c_int,
 # every float as c_float
 SIGNATURES = {
-    "q8q8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "q8q8_matmul_stacked": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "q8q8_matmul": [_P] * 6 + [_I] * 7 + [_P],
+    "q8q8_matmul_stacked": [_P] * 4 + [_I, _P, _P] + [_I] * 7 + [_P],
     "q8_fast_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "q8_fast_matmul_stacked": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "q8i8_matmul": [_P] * 6 + [_I] * 5 + [_P],
     "q8i8_matmul_stacked": [_P] * 5 + [_I, _P] + [_I] * 5 + [_P],
     "q8_fused_matmul": [_P] * 6 + [_I] * 7 + [_P],
-    "flash_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
-    "flash_decode_two_segment": [_P] * 14 + [_I] * 9 + [_F, _P],
+    "flash_decode": [_P] * 10 + [_I] * 8 + [_F, _P],
+    "flash_decode_two_segment": [_P] * 15 + [_I] * 9 + [_F, _P],
     "flash_prefill": [_P] * 9 + [_I] * 10 + [_F, _P],
-    "batched_decode_partial": [_P] * 11 + [_I] * 9 + [_F, _P],
+    "batched_decode_partial": [_P] * 12 + [_I] * 9 + [_F, _P],
     "kv_write_rows": [_P] * 3 + [_I] * 5 + [_P],
     "q8q8_untiled": [_P] * 6 + [_I] * 5 + [_P],
     "q8_untiled": [_P] * 5 + [_I] * 7 + [_P],

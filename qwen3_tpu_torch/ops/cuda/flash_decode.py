@@ -312,6 +312,29 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+_COUNTERS: dict = {}
+
+
+def decode_counters(device, n: int) -> torch.Tensor:
+    """The decode kernel's completion counters for the current stream of
+    `device` (`cuda` means the current device): int32 zeros, at least n of
+    them, one buffer per (device, stream), allocated on that stream at first
+    use (and again only to grow). The kernel's combining blocks reset each
+    counter they use to 0, so every call on a stream finds them zero, and
+    calls on two streams at once never share a counter."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    stream = torch.cuda.current_stream(device)
+    key = (device, stream.cuda_stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        with torch.cuda.stream(stream):
+            c = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = c
+    return c
+
+
 def _launch_decode(q, k_cache, v_cache, positions, k_s, v_s, block_s, live):
     from qwen3_tpu_torch.ops.cuda.build import load_library
 
@@ -333,8 +356,10 @@ def _launch_decode(q, k_cache, v_cache, positions, k_s, v_s, block_s, live):
     err = lib.flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_s),
         _ptr(v_s), positions.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), out.data_ptr(), DTYPE_CODES[k_cache.dtype], B,
-        S, H, KV, D, ts, n_split, 1.0 / math.sqrt(D), stream)
+        part_ml.data_ptr(), out.data_ptr(),
+        decode_counters(q.device, B * H).data_ptr(),
+        DTYPE_CODES[k_cache.dtype], B, S, H, KV, D, ts, n_split,
+        1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
@@ -371,6 +396,7 @@ def _launch_two_segment(q, k_main, v_main, k_side, v_side, base_pos, offsets,
         _ptr(v_ms), k_side.data_ptr(), v_side.data_ptr(), _ptr(k_ss),
         _ptr(v_ss), base_pos.data_ptr(), offsets.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+        decode_counters(q.device, B * H).data_ptr(),
         DTYPE_CODES[k_main.dtype], B, S, C, H, KV, D, ts, n_main,
         1.0 / math.sqrt(D), stream)
     if err != 0:

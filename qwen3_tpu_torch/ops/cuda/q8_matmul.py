@@ -59,6 +59,35 @@ def groups_per_tile(n: int, group_size: int) -> int:
     return pick_tile(n, 8 * group_size, 512) // group_size
 
 
+# the Q8_0 x Q8_0 tile path (b > 1): rows a block by tile shape (0-2), its
+# columns, and the blocks below which the k-tiles split over several blocks
+TILE_ROWS = (16, 32, 64)
+TILE_COLS = 64
+SPLIT_BELOW = 132          # blocks: one H100 wave of one block an SM
+SPLIT_TARGET = 264         # blocks a split grid aims at: two an SM
+
+
+def plan_q8q8(b: int, n: int, d: int, group_size: int,
+              sms: int = 132) -> tuple[int, int]:
+    """The tile path's grid for b > 1: (shape, splits). `shape` indexes
+    TILE_ROWS: 16 rows up to b = 16, 32 up to b = 64 (two 32-row blocks
+    beat one of 64 there), 64 past it (as fast as 128-row blocks at b = 512
+    on an H100, with more blocks); `splits` is how many blocks share a
+    tile's k-tiles (1: none) when the row and column blocks alone are fewer
+    than SPLIT_BELOW (scaled to `sms`): at least as many as reach
+    SPLIT_TARGET, or one a k-tile, each split holding the same number of
+    k-tiles (the last fewer). Every choice computes each row alone in the
+    same order, so the plan changes no bit."""
+    shape = 0 if b <= 16 else 1 if b <= 64 else 2
+    blocks = -(-d // TILE_COLS) * -(-b // TILE_ROWS[shape])
+    nt = n // (groups_per_tile(n, group_size) * group_size)
+    if blocks >= SPLIT_BELOW * sms // 132:
+        return shape, 1
+    want = -(-SPLIT_TARGET * sms // 132 // blocks)
+    tps = max(1, nt // want)      # k-tiles a split: the kernel's even cut
+    return shape, -(-nt // tps)
+
+
 def q8q8_matmul_plain(x_q: torch.Tensor, x_s: torch.Tensor,
                       w_q: torch.Tensor, w_s: torch.Tensor,
                       group_size: int, block_k: int = 512) -> torch.Tensor:
@@ -127,6 +156,17 @@ def _check(x, x_s, w_q, w_s, group_size, stacked: bool,
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    """The card's SM count, read once per device."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
 def _launch(kind: str, x_q, x_s, w_q, w_s, layer, group_size):
     from qwen3_tpu_torch.ops.cuda.build import load_library
 
@@ -137,18 +177,26 @@ def _launch(kind: str, x_q, x_s, w_q, w_s, layer, group_size):
     b = x_q.numel() // n
     out = torch.empty(b, d, dtype=torch.float32, device=x_q.device)
     gpt = groups_per_tile(n, group_size)
+    shape, splits, part = 0, 1, None      # b == 1 runs the GEMV
+    if b > 1:
+        sms = _sm_count(x_q.device)
+        shape, splits = plan_q8q8(b, n, d, group_size, sms)
+        if splits > 1:
+            part = torch.empty(n // (gpt * group_size), b, d,
+                               dtype=torch.float32, device=x_q.device)
+    pp = None if part is None else part.data_ptr()
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
     if layer is None:
         err = lib.q8q8_matmul(x_q.data_ptr(), x_s.data_ptr(), w_q.data_ptr(),
-                              w_s.data_ptr(), out.data_ptr(), b, n, d,
-                              group_size, gpt, stream)
+                              w_s.data_ptr(), out.data_ptr(), pp, b, n, d,
+                              group_size, gpt, shape, splits, stream)
     else:
         if not 0 <= layer < w_q.shape[0]:
             raise IndexError(f"layer {layer} outside [0, {w_q.shape[0]})")
         err = lib.q8q8_matmul_stacked(x_q.data_ptr(), x_s.data_ptr(),
                                       w_q.data_ptr(), w_s.data_ptr(), layer,
-                                      out.data_ptr(), b, n, d, group_size,
-                                      gpt, stream)
+                                      out.data_ptr(), pp, b, n, d,
+                                      group_size, gpt, shape, splits, stream)
     if err != 0:
         raise RuntimeError(f"q8q8 {kind} kernel launch failed: CUDA error "
                            f"{err}")

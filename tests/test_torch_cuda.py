@@ -400,9 +400,9 @@ def _value_tol(want, mag, fast):
     """Per element: 2e-5 * max(1, max|want|), plus under `fast` 2^-8 * mag,
     mag = sum_s p_s * |v_s * vs_s| (batched_decode_magnitude). The value
     dot's operand p * vs is rounded to bf16, by at most 2^-8 of itself; the
-    kernel's p is relative to the running max of its own 64-row chunks, the
-    plain version's to that of the Pallas kernel's tiles, so the two round
-    each term independently (a gap of 2^-7 * mag would need every pair of
+    kernel's p is relative to the running max of the rows its lane group
+    has read so far, the plain version's to that of the Pallas kernel's
+    tiles, so the two round each term independently (a gap of 2^-7 * mag would need every pair of
     roundings at opposite extremes)."""
     tol = 2e-5 * max(1.0, want.abs().max().item())
     return tol + 2.0 ** -8 * mag if fast else tol
@@ -711,3 +711,185 @@ def test_pure_read_matches_plain_on_card(dev, shape):
             torch.cuda.synchronize()
             assert torch.equal(got, want), n_buf
         assert pd.LAUNCHES["pure_read_manual"] == len(pd.N_BUFS)
+
+
+# -- the Q8_0 x Q8_0 tile path (b > 1) on the int8 tensor cores -------------
+
+TILE_B = (2, 8, 17, 63, 64, 65, 512)
+
+
+@pytest.mark.parametrize("b", TILE_B)
+@pytest.mark.parametrize("n,g", [(1024, 16), (1024, 32), (1024, 64),
+                                 (1024, 128), (3072, 32), (3072, 64),
+                                 (3072, 128), (2048, 256), (1024, 512)])
+def test_tile_path_matches_plain_on_card(dev, b, n, g):
+    """The MMA tile path bit for bit at every tile shape the planner picks
+    (16 to 64 rows, k-split or not), every group size (G >= 256: dots past
+    2^22, converted by the slower exact instruction), a ragged d and the
+    stacked last layer; the classifier form at the same shapes."""
+    d, layers = 200, 3
+    xq, xs, wq, ws = _inputs(7 * b + n + g, b, n, d, g, layers, dev)
+    tq.reset_launches()
+    got = tq.q8_q8_matmul_stacked(xq, xs, wq, ws, layers - 1, g)
+    tiled = tq.q8_q8_matmul_tiled(xq, xs, wq[0], ws[0], g)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["stacked"] == 1 and tq.LAUNCHES["tiled"] == 1
+    assert torch.equal(got, tq.q8q8_matmul_plain(xq, xs, wq[layers - 1],
+                                                 ws[layers - 1], g))
+    assert torch.equal(tiled, tq.q8q8_matmul_plain(xq, xs, wq[0], ws[0], g))
+
+
+@pytest.mark.parametrize("n,g,d", [(96, 32, 72), (48, 16, 40), (640, 64, 8)])
+def test_tile_path_ragged_k_on_card(dev, n, g, d):
+    """k not a multiple of the 64-byte stage, and fewer columns than a tile:
+    the stages past the matrix load zeros and add no group."""
+    for b in (2, 33, 130):
+        xq, xs, wq, ws = _inputs(b + n, b, n, d, g, 1, dev)
+        got = tq.q8_q8_matmul_tiled(xq, xs, wq[0], ws[0], g)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tq.q8q8_matmul_plain(xq, xs, wq[0], ws[0],
+                                                     g))
+
+
+@pytest.mark.parametrize("n,d", [(1024, 4096), (2048, 1024), (3072, 1024)])
+def test_tile_path_rows_do_not_depend_on_the_batch(dev, n, d):
+    """Row r of a b = 512 call equals, bit for bit, the same row alone (the
+    b = 1 GEMV) and within every smaller batch: each tile shape and k-split
+    computes a row alone in the same order."""
+    xq, xs, wq, ws = _inputs(n + d, 512, n, d, 64, 1, dev)
+    wide = tq.q8_q8_matmul_tiled(xq, xs, wq[0], ws[0], 64)
+    for b in (1, 2, 8, 17, 65, 256):
+        got = tq.q8_q8_matmul_tiled(xq[:b].contiguous(), xs[:b].contiguous(),
+                                    wq[0], ws[0], 64)
+        torch.cuda.synchronize()
+        assert torch.equal(got, wide[:b])
+    for r in (0, 100, 511):
+        one = tq.q8_q8_matmul_tiled(xq[r:r + 1].contiguous(),
+                                    xs[r:r + 1].contiguous(), wq[0], ws[0],
+                                    64)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], wide[r])
+
+
+# -- the one-launch decode kernel ---------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_flash_decode_repeats_and_leaves_counters_zero_on_card(dev, dtype):
+    """Two calls equal bit for bit at positions 0, 255, 256, 8191 and 32767
+    of a 32768-row cache, with `live` covering them and below them (the
+    kernel then reads the rows below `live` only, as the plain version
+    does); two calls back to back on one stream leave every completion
+    counter at zero."""
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    s, h, kv, d = 32768, 16, 8, 128
+    k, v, ks, vs = _flash_cache(11, 1, s, kv, d, dtype, dev)
+    q = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (1, h, d)).astype(np.float32)).to(dev)
+    for p in (0, 255, 256, 8191, 32767):
+        pos = torch.tensor([p], dtype=torch.int32, device=dev)
+        for live in (p + 1, max(1, p // 2)):
+            first = fd.flash_decode_gqa(q, k, v, pos, ks, vs, live=live)
+            again = fd.flash_decode_gqa(q, k, v, pos, ks, vs, live=live)
+            want = fd.flash_decode_plain(q, k, v, pos, ks, vs, live=live)
+            torch.cuda.synchronize()
+            assert torch.equal(first, again)
+            _flash_close(first, want)
+            # the buffer the kernel used (the wrapper asks with q.device)
+            counters = fd.decode_counters(q.device, h)
+            assert fd.decode_counters(dev, 1) is counters
+            assert not counters.any()
+
+
+def test_decode_counters_stay_zero_across_kernels_on_card(dev):
+    """Flash decode, two-segment and batched decode back to back on one
+    stream, at several head groups (M = 2, 4, 8): the counters end at 0
+    and each output repeats."""
+    from qwen3_tpu_torch.ops.cuda import batched_decode as bd
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    for h, kv in ((16, 8), (16, 4), (16, 2)):
+        b, s, d = 3, 1024, 128
+        k, v, ks, vs = _flash_cache(h, b, s, kv, d, "int8", dev)
+        sk, sv, sks, svs = _flash_cache(h + 1, b, 32, kv, d, "int8", dev)
+        q = torch.from_numpy(np.random.default_rng(h).standard_normal(
+            (b, h, d)).astype(np.float32)).to(dev)
+        pos = torch.tensor([5, 700, 1023], dtype=torch.int32, device=dev)
+        off = torch.tensor([0, 31, 9], dtype=torch.int32, device=dev)
+        runs = []
+        for _ in range(2):
+            runs.append((
+                fd.flash_decode_gqa(q, k, v, pos, ks, vs),
+                fd.flash_decode_gqa_two_segment(q, k, v, sk, sv, pos, off,
+                                                ks, vs, sks, svs),
+                *bd.batched_decode_partial(q, k[None], v[None], 0, pos,
+                                           ks[None], vs[None], bucket=None,
+                                           fast=True)))
+        torch.cuda.synchronize()
+        counters = fd.decode_counters(q.device, b * h)
+        assert fd.decode_counters(dev, 1) is counters
+        assert not counters.any()
+        for a, c in zip(*runs):
+            assert torch.equal(a, c)
+        _flash_close(runs[0][0], fd.flash_decode_plain(q, k, v, pos, ks, vs))
+
+
+def test_decode_counters_are_per_stream_on_card(dev):
+    """Each stream has its own counter buffer: a call on a side stream
+    uses (and leaves at zero) a buffer that is not the default stream's,
+    and gives the default stream's bits."""
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+
+    b, s, h, kv, d = 2, 4096, 16, 8, 128
+    k, v, ks, vs = _flash_cache(31, b, s, kv, d, "int8", dev)
+    q = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        (b, h, d)).astype(np.float32)).to(dev)
+    pos = torch.tensor([100, 4095], dtype=torch.int32, device=dev)
+    want = fd.flash_decode_gqa(q, k, v, pos, ks, vs)
+    main = fd.decode_counters(dev, 1)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = fd.flash_decode_gqa(q, k, v, pos, ks, vs)
+        side_counters = fd.decode_counters(q.device, b * h)
+    torch.cuda.synchronize()
+    assert side_counters is not main
+    assert side_counters.data_ptr() != main.data_ptr()
+    assert torch.equal(got, want)
+    assert not side_counters.any() and not main.any()
+
+
+def test_batched_slot_does_not_depend_on_batch_or_bucket_on_card(dev):
+    """A slot's (acc, m, l) are the same bits alone (B = 1, the least
+    bucket) and among 7 others (B = 8, buckets 640 and 1152)."""
+    from qwen3_tpu_torch.ops.cuda import batched_decode as bd
+
+    B, s, h, kv, d = 8, 1152, 16, 8, 128
+    k, v, ks, vs = (t.reshape(1, B, *t.shape[1:])
+                    for t in _flash_cache(21, B, s, kv, d, "int8", dev))
+    q = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (B, h, d)).astype(np.float32)).to(dev)
+    lims = [0, 1, 255, 256, 257, 600, 640, 1100]
+    lim = torch.tensor(lims, dtype=torch.int32, device=dev)
+    for fast in (False, True):
+        full = {bucket: bd.batched_decode_partial(q, k, v, 0, lim, ks, vs,
+                                                  bucket=bucket, fast=fast)
+                for bucket in (1152, None)}
+        mid = bd.batched_decode_partial(q[:7], k[:, :7].contiguous(),
+                                        v[:, :7].contiguous(), 0, lim[:7],
+                                        ks[:, :7].contiguous(),
+                                        vs[:, :7].contiguous(), bucket=640,
+                                        fast=fast)
+        for i, n in enumerate(lims):
+            alone = bd.batched_decode_partial(
+                q[i:i + 1], k[:, i:i + 1].contiguous(),
+                v[:, i:i + 1].contiguous(), 0, lim[i:i + 1].clone(),
+                ks[:, i:i + 1].contiguous(), vs[:, i:i + 1].contiguous(),
+                bucket=max(n, 1), fast=fast)
+            torch.cuda.synchronize()
+            for a, f, g in zip(alone, full[1152], full[None]):
+                assert torch.equal(a[0], f[i]) and torch.equal(a[0], g[i])
+            if i < 7:
+                for a, m_ in zip(alone, mid):
+                    assert torch.equal(a[0], m_[i])

@@ -89,10 +89,13 @@ def test_tiled_plain_matches_jax(b, n, g):
     _assert_fp32_sum_close(got, want, xq, xs, wq, ws, g)
 
 
-@pytest.mark.parametrize("b", [1, 7, 64])
+@pytest.mark.parametrize("b", [1, 7, 8, 16, 17, 64, 65])
 @pytest.mark.parametrize("n,g", SHAPES)
 def test_stacked_plain_matches_jax(b, n, g):
-    """Layer kernel on a 3-layer stack, layers 0 and 2."""
+    """Layer kernel on a 3-layer stack, layers 0 and 2. The CUDA tile path
+    (b > 1) runs 16-row tiles up to b = 16, 32-row tiles up to 64 and
+    64-row tiles past it: b = 16/17 and 64/65 sit on either side of its
+    shape boundaries, b = 8 is serving's batch in mode pallas."""
     d = 384
     xq, xs, wq, ws = _inputs(b * 7 + n + g, b, n, d, g, layers=3)
     qt, st = _jax_packed(wq, ws, g)
