@@ -118,7 +118,8 @@ FLASH_DEPTH = 8192             # --attn auto switches to flash here
 BEFORE_MS = {"q8_q8_matmul_stacked": 1.349, "q8_q8_matmul_tiled": 0.138,
              "flash_prefill_gqa": 87.16, "flash_decode_gqa": 0.926,
              "flash_decode_gqa_two_segment": 0.934,
-             "batched_decode_partial": 1.080}
+             "batched_decode_partial": 1.080, "q8_matmul_fused": 7.454,
+             "q8_matmul_pallas": 3.743}
 # the Q8_0 x Q8_0 tile path's first design (b > 1), us a launch, as PERF.md
 # records it (b = 64 / 256 / 512), logged beside this run's tile times
 TILE_BEFORE_US = {
@@ -1037,9 +1038,11 @@ def phase_fused_kernels(torch):
     plain prologue's output, bit for bit (the swiglu prologue's sigmoid
     is torch.sigmoid's formula and expf). Each row also equal to the same
     row of the b = 512 call. Times: the kernel, its plain
-    version, and as the library yardstick the unfused chain (the plain
+    version, as the library yardstick the unfused chain (the plain
     prologue ops, the quantization or bf16 rounding, and the unfused
-    kernel)."""
+    kernel), and the unfused kernel alone on the chain's activations; then
+    their sums over a token's 113 launches at b = 1 and over a forward
+    pass's 112 layer launches at each b."""
     from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
     from qwen3_tpu_torch.ops.norms import rms_inv
     from qwen3_tpu_torch.ops.q8 import quantize_act
@@ -1104,6 +1107,17 @@ def phase_fused_kernels(torch):
                     fail(f"{label}: rows differ from the same rows at "
                          f"b={max(FUSED_BATCHES)}")
                 bnd, by = fused_bound_ms(b, n, d, prologue, exact)
+                h = qm.fused_prologue(x, inv, nw, prologue)
+                if exact:
+                    xq, xs = quantize_act(h, G)
+
+                    def alone(i, xq=xq, xs=xs):
+                        return qm.q8_q8_matmul_tiled(xq, xs, wl, sl, G)
+                else:
+                    hb = h.to(torch.bfloat16)
+
+                    def alone(i, hb=hb):
+                        return qm.q8_matmul_tiled_fast(hb, wl, sl, G)
                 row = dict(
                     matrix=name, prologue=prologue, exact=exact, b=b, n=n,
                     d=d, max_abs_diff=max(gaps),
@@ -1111,15 +1125,31 @@ def phase_fused_kernels(torch):
                     plain_ms=device_ms(torch, lambda i: plain(x, inv),
                                        reps=3),
                     library_ms=device_ms(torch, lambda i: unfused(x, inv)),
+                    unfused_kernel_ms=device_ms(torch, alone),
                     bound_ms=bnd, bound_by=by)
                 rows.append(row)
                 log("fused " + json.dumps(row))
         del w_q, w_s
         torch.cuda.empty_cache()
+    for exact in (True, False):
+        for b in FUSED_BATCHES:
+            mine = [r for r in rows if r["b"] == b and r["exact"] == exact]
+            step = {k: sum(r[k] * (1 if r["matrix"] == "classifier"
+                                   else L) for r in mine)
+                    for k in ("kernel_ms", "library_ms", "unfused_kernel_ms",
+                              "bound_ms")}
+            layers = {k: L * sum(r[k] for r in mine
+                                 if r["matrix"] != "classifier")
+                      for k in ("kernel_ms", "library_ms",
+                                "unfused_kernel_ms", "bound_ms")}
+            log("fused step " + json.dumps(dict(
+                exact=exact, b=b, launches=4 * L + 1, **step,
+                layer_launches=4 * L,
+                **{f"layers_{k}": v for k, v in layers.items()})))
     log("fused matmul: bit-equal to its plain version and to the unfused "
         "kernel on the plain prologue everywhere; library_ms = the unfused "
         "chain (plain prologue ops + quantize_act or the bf16 rounding + the "
-        "q8q8 or fast tile kernel)")
+        "q8q8 or fast kernel), unfused_kernel_ms = that kernel alone")
     return rows
 
 
@@ -1180,7 +1210,7 @@ def phase_kv_write(torch):
     return out
 
 
-UNTILED_BATCHES = (1, 8, 512)
+UNTILED_BATCHES = (1, 8, 512)   # b <= 8 runs the dequant kernel's GEMV
 # q8_matmul_pallas's (compute dtype, postscale) pairs
 UNTILED_MODES = (("float32", False), ("float32", True), ("bfloat16", False),
                  ("bfloat16", True))
@@ -1205,9 +1235,12 @@ def phase_untiled_kernels(torch):
     its plain version; q8_matmul_pallas in f32 and bf16, pre- and
     post-scaled, within 1e-5 * max|plain| (the kernel sums each dot as an
     fmaf chain in k order, the plain version's torch.matmul in its own
-    order; bf16 products are exact in fp32). Times: the kernel, its plain
-    version and as the library yardstick F.linear on bf16 with the weights
-    dequantized once to bf16 (bound_ms for q8q8 as phase_kernels')."""
+    order; bf16 products are exact in fp32), and each row of the GEMV's
+    calls (b = 1, 8) equal bit for bit to the same row in the tile
+    kernel's b = 512 call. Times: the kernel, its plain version and as the
+    library yardstick F.linear on bf16 with the weights dequantized once to
+    bf16 (bound_ms for q8q8 as phase_kernels'); then each variant's sum
+    over a token's 113 matrices at b = 1 and 8."""
     import torch.nn.functional as F
 
     from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
@@ -1223,8 +1256,15 @@ def phase_untiled_kernels(torch):
                                              generator=gen))
         w_bf = (w_q.float().reshape(n // G, G, d) * w_s[:, None, :]).reshape(
             n, d).T.contiguous().to(torch.bfloat16)
+        x_all = torch.randn(max(UNTILED_BATCHES), n, device="cuda",
+                            generator=gen)
+        widest = {}
+        for compute, post in UNTILED_MODES:
+            widest[compute, post] = qm.q8_matmul_pallas(
+                x_all, w_q, w_s, G, compute_dtype=getattr(torch, compute),
+                postscale=post)
         for b in UNTILED_BATCHES:
-            x = torch.randn(b, n, device="cuda", generator=gen)
+            x = x_all[:b].contiguous()
             xq, xs = quantize_act(x, G)
             x_bf = x.to(torch.bfloat16)
 
@@ -1267,6 +1307,9 @@ def phase_untiled_kernels(torch):
                 if err > 1e-5 * want.abs().max().item():
                     fail(f"{label}: kernel vs plain {err:.3e} past 1e-5 * "
                          f"max|plain|")
+                if not torch.equal(got, widest[compute, post][:b]):
+                    fail(f"{label}: rows differ from the same rows at "
+                         f"b={max(UNTILED_BATCHES)}")
                 bnd, by = untiled_bound_ms(b, n, d, compute)
                 variants.append((f"pallas_{compute}_"
                                  f"{'post' if post else 'pre'}", bnd, by, err,
@@ -1281,8 +1324,17 @@ def phase_untiled_kernels(torch):
                 log("untiled " + json.dumps(row))
         del w_q, w_s, w_bf
         torch.cuda.empty_cache()
+    for b in UNTILED_BATCHES[:2]:
+        for kind in sorted({r["kernel"] for r in rows}):
+            mine = [r for r in rows if r["b"] == b and r["kernel"] == kind]
+            log("untiled token " + json.dumps(dict(
+                kernel=kind, b=b, launches=4 * L + 1,
+                **{k: sum(r[k] * (1 if r["matrix"] == "classifier" else L)
+                          for r in mine)
+                   for k in ("kernel_ms", "library_ms", "bound_ms")})))
     log("untiled matmuls: q8q8 bit-equal to its plain version everywhere, "
-        "the dequant kernel within 1e-5 * max|plain|; library_ms = "
+        "the dequant kernel within 1e-5 * max|plain| and its rows equal at "
+        "every b; library_ms = "
         "torch.nn.functional.linear on bf16 with the weights dequantized "
         "once to bf16")
     return rows
@@ -2504,13 +2556,15 @@ def kernel_name(name: str) -> str:
     base = name.replace("(anonymous namespace)::", "")
     base = re.split(r"[<(]", base.removeprefix("void "), maxsplit=1)[0]
     short = base.split("::")[-1].strip()
-    inner = re.findall(r"\w+Functor|\w+Ops\b|cutlass_\w+", name)
+    inner = re.findall(r"\w+Functor|\w+Ops\b|cutlass_\w+|\w+Prologue\b",
+                       name)
     return f"{short}[{inner[-1]}]" if inner else short
 
 
 # the trace names of the matmul kernels (csrc/q8_matmul.cu, q8i8_matmul.cu,
-# q8_fused.cu), summed as the profiles' matmul time
-MATMUL_KERNELS = ("q8q8", "q8_fast", "q8i8", "fused_")
+# q8_fused.cu: the fused ones carry their loader, "q8q8_gemv_kernel[
+# XqPrologue]"), summed as the profiles' matmul time
+MATMUL_KERNELS = ("q8q8", "q8_fast", "q8i8")
 
 
 def trace_busy(prof, path: str):

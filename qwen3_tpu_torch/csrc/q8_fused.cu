@@ -17,288 +17,124 @@
 // floor(|r| + 0.5) clamped to 127 with r = h / s, then the Q8_0 x Q8_0 group
 // dots and the scale-and-sum of csrc/q8_matmul.cu's q8q8 kernels) or the fast
 // one (exact = 0: h rounded to bf16 against bf16(f32(wq) * ws), per-group
-// sequential fp32 sums, the groups in order, as the q8_fast kernel). Every
+// sequential fp32 sums, the groups in order, as the q8_fast kernels). Every
 // step is the port's unfused chain (rmsnorm / swiglu -> quantize_act or
 // round_bf16 -> the q8q8 or fast kernel) in the same fp32 order, with explicit
 // round-to-nearest intrinsics: fused and unfused give the same bits, and a
 // row's bits do not depend on the other rows of the call. The sigmoid is
 // PyTorch's CUDA formula, 1 / (1 + exp(-g)) with expf and a true division;
 // this file builds with nvcc's default contraction setting, as PyTorch's own
-// kernels do, and spells every other product and sum with an intrinsic.
+// kernels do, and every product and sum of the kernels is an intrinsic.
 //
 // Layout: x f32 [b, n] ([b, 2n] for swiglu), inv f32 [b], nw f32 [n],
 // wq int8 [d, n], ws f32 [d, n / G], out f32 [b, d].
 //
 // Bound: at decode (b <= 8) the weight bytes over the memory rate; at b = 512
-// the operations (int8 or bf16) over their peak. Design: a block owns BM rows
-// x 64 columns with 256 threads, as the unfused tile kernels; per chunk of
-// kc = min(G, 64) k it computes the prologue for its rows and stages h
-// (quantized to int8, or rounded to bf16) beside the weights in shared
-// memory. The exact path first takes each row's group absmax (one pass over
-// the group's h, a warp or 4 lanes a row), so h is computed twice per group;
-// both passes, like the prologue of every column block, read the raw
-// activations from L2. The prologue is O(b n) work per 64 columns, small next
-// to the weight stream.
+// the operations (int8 or bf16) over their peak, and for the exact path the
+// ordered epilogue (csrc/q8_matmul.cu's notes) plus the prologue's fp32 work.
+//
+// Design. The kernels are the unfused ones (q8_kernels.cuh): the same
+// grids, planners, dots, epilogues and sum orders, so fused equals unfused
+// bit for bit by construction. The first design (a 64-column tile per
+// block, 8 rows at b <= 8, __dp4a or fp32 FMAs from shared memory, the
+// prologue run twice a group by every column block) took 7.45 ms a token's
+// 113 launches where the unfused chain takes 4.70 (an NVIDIA H100 80GB HBM3
+// at 700 W, chip_smoke.py).
+//  - b == 1, one launch a call (decode: the launches fuse exists to cut).
+//    Exact: the unfused GEMV with the XqPrologue loader. A block asks L2
+//    for its first batch of weights, then quantizes the row once into
+//    shared memory (n int8 and n / G f32, 3.3 KB at n = 3072: the
+//    prologue once per value, the group's absmax from the same values in
+//    registers), and its warps read their 16-byte chunks from there. The
+//    grid is at most the blocks the card holds at once, each walking
+//    several column tiles, so the whole grid evaluates the prologue
+//    blocks x n times: at qwen3-0.6b 256 x 2048 (wo), 512 x 1024 (wqkv),
+//    768 or fewer x 1024 (w13), 256 x 3072 (w2) and, for the classifier's
+//    9496 16-column tiles, a few blocks an SM x 1024, far below the 155 MB
+//    its weights take to stream. Fast: the unfused split kernel with the
+//    BfPrologue loader, which stages bf16(prologue(x)) in shared memory
+//    while its weight loads are in flight.
+//  - b > 1 (prefill blocks, the perplexity eval's logits): a pass of its
+//    own makes the call's activations once, q8q8_prologue_kernel (a team
+//    a group: quantize_act's rounding of the prologue's values into xq / xs)
+//    or q8_fast_prologue_kernel (8 values a thread: bf16(prologue(x))),
+//    into scratch the caller gives; then q8_matmul.cu's own entry runs the
+//    unfused tile path (with its k-split's ordered sum pass where plan_q8q8
+//    splits) or fast kernel on them: the same binary. A second design made
+//    the rows inside the tile kernel, into panels beside its cp.async
+//    ring: every column block quantized its rows again, so a 512-row
+//    block's 112 layer launches took 14.3 ms against the unfused kernel's
+//    4.5, and the classifier 4.5 ms against 1.1 (PERF.md). The pass costs
+//    one small launch and a write and a read of the b x n activations.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "q8_kernels.cuh"
+
 namespace {
 
-enum Prologue { kNone = 0, kNorm = 1, kSwiglu = 2 };
+constexpr int kPrologueThreads = 256;
 
-constexpr int kCols = 64, kThreads = 256, kMaxChunk = 64;
-constexpr int kPadWords = kMaxChunk / 4 + 1;
-
-template <int PRO>
-__device__ __forceinline__ float prologue(const float* __restrict__ x,
-                                          const float* __restrict__ inv,
-                                          const float* __restrict__ nw, int r,
-                                          int k, int n) {
-  if (PRO == kNorm)
-    return __fmul_rn(nw[k], __fmul_rn(x[(size_t)r * n + k], inv[r]));
-  if (PRO == kSwiglu) {
-    const float g = x[(size_t)r * 2 * n + k];
-    const float u = x[(size_t)r * 2 * n + n + k];
-    const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
-    return __fmul_rn(__fmul_rn(g, sig), u);
-  }
-  return x[(size_t)r * n + k];
+// the groups a block of q8q8_prologue_kernel quantizes: one a team of
+// min(G / 4, 32) lanes
+__host__ __device__ constexpr int prologue_groups(int G) {
+  return kPrologueThreads / (G / 4 < 32 ? G / 4 : 32);
 }
 
-// quantize_act's rounding of one value against its group scale
-__device__ __forceinline__ int8_t quantize(float h, float s) {
-  const float r = __fdiv_rn(h, s);
-  const float m = fminf(floorf(__fadd_rn(fabsf(r), 0.5f)), 127.f);
-  return (int8_t)(r < 0.f ? -(int)m : (int)m);
+// xq / xs [b, n] / [b, n / G] = quantize_act(prologue(x)): block (i, r)
+// takes row r's groups from i prologue_groups(G), so that a few rows
+// still spread over many SMs
+__global__ void __launch_bounds__(kPrologueThreads)
+q8q8_prologue_kernel(XqPrologue act, int8_t* __restrict__ xq,
+                     float* __restrict__ xs, int b, int n, int G) {
+  const int r = blockIdx.y, ng = n / G, per = prologue_groups(G);
+  const int g0 = blockIdx.x * per, k0 = g0 * G;
+  const int len = (ng - g0 < per ? ng - g0 : per) * G;
+  act.build_global(xq + (size_t)r * n + k0, xs + (size_t)r * ng + g0, r, b, n,
+                   k0, len, G);
 }
 
-template <int BM, int TM, int TN, int PRO>
-__global__ void __launch_bounds__(kThreads)
-fused_exact_kernel(const float* __restrict__ x, const float* __restrict__ inv,
-                   const float* __restrict__ nw, const int8_t* __restrict__ wq,
-                   const float* __restrict__ ws, float* __restrict__ out,
-                   int b, int n, int d, int G, int gpt) {
-  constexpr int TY = BM / TM, TX = kThreads / TY, TPR = kThreads / BM;
-  static_assert(TX * TN == kCols, "a block owns 64 columns");
-  __shared__ int x_sm[BM][kPadWords];
-  __shared__ int w_sm[kCols][kPadWords];
-  __shared__ float xs_sm[BM];
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * kCols;
-  const int kc = min(G, kMaxChunk), chunks = G / kc, vec = kc / 16;
-  const int ng = n / G;
-  float acc[TM][TN], o[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = o[i][j] = 0.f;
-
-  for (int g = 0; g < ng; ++g) {
-    {  // the group's scale per row: TPR lanes of one warp per row
-      const int r = tid / TPR, lane = tid % TPR;
-      float m = 0.f;
-      if (r0 + r < b)
-        for (int k = lane; k < G; k += TPR)
-          m = fmaxf(m, fabsf(prologue<PRO>(x, inv, nw, r0 + r, g * G + k, n)));
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (lane == 0) xs_sm[r] = m == 0.f ? 1e-6f : __fdiv_rn(m, 127.f);
-    }
-    int dot[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) dot[i][j] = 0;
-    for (int ch = 0; ch < chunks; ++ch) {
-      const int k0 = g * G + ch * kc;
-      __syncthreads();  // xs_sm written; the last chunk's tiles read
-      for (int e = tid; e < BM * kc; e += kThreads) {
-        const int r = e / kc, kk = e % kc;
-        int8_t q = 0;
-        if (r0 + r < b)
-          q = quantize(prologue<PRO>(x, inv, nw, r0 + r, k0 + kk, n), xs_sm[r]);
-        reinterpret_cast<int8_t*>(&x_sm[r][0])[kk] = q;
-      }
-      for (int e = tid; e < kCols * vec; e += kThreads) {
-        const int c = e / vec, v = e % vec;
-        int4 wv = make_int4(0, 0, 0, 0);
-        if (c0 + c < d)
-          wv = __ldg(reinterpret_cast<const int4*>(wq + (size_t)(c0 + c) * n +
-                                                   k0) + v);
-        int* wd = &w_sm[c][4 * v];
-        wd[0] = wv.x; wd[1] = wv.y; wd[2] = wv.z; wd[3] = wv.w;
-      }
-      __syncthreads();
-      for (int w = 0; w < kc / 4; ++w) {
-        int xr[TM], wr[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) xr[i] = x_sm[ty + TY * i][w];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) wr[j] = w_sm[tx + TX * j][w];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) dot[i][j] = __dp4a(xr[i], wr[j], dot[i][j]);
-      }
-    }
-    float sx[TM], sw[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) sx[i] = xs_sm[ty + TY * i];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx + TX * j;
-      sw[j] = c < d ? ws[(size_t)c * ng + g] : 0.f;
-    }
-    __syncthreads();  // xs_sm read before the next group's scales
-    const bool tile_end = (g + 1) % gpt == 0;
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(__int2float_rn(dot[i][j]),
-                                                   __fmul_rn(sx[i], sw[j])));
-        if (tile_end) {
-          o[i][j] = __fadd_rn(o[i][j], acc[i][j]);
-          acc[i][j] = 0.f;
-        }
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + ty + TY * i;
-    if (r >= b) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx + TX * j;
-      if (c < d) out[(size_t)r * d + c] = o[i][j];
-    }
-  }
-}
-
-template <int BM, int TM, int TN, int PRO>
-__global__ void __launch_bounds__(kThreads)
-fused_fast_kernel(const float* __restrict__ x, const float* __restrict__ inv,
-                  const float* __restrict__ nw, const int8_t* __restrict__ wq,
-                  const float* __restrict__ ws, float* __restrict__ out,
-                  int b, int n, int d, int G) {
-  constexpr int TY = BM / TM, TX = kThreads / TY;
-  static_assert(TX * TN == kCols, "a block owns 64 columns");
-  __shared__ float x_sm[BM][kMaxChunk + 1];
-  __shared__ float w_sm[kCols][kMaxChunk + 1];
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * kCols;
-  const int kc = min(G, kMaxChunk), chunks = G / kc, wv = kc / 16;
-  const int ng = n / G;
-  float o[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) o[i][j] = 0.f;
-
-  for (int g = 0; g < ng; ++g) {
-    float s[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-    for (int ch = 0; ch < chunks; ++ch) {
-      const int k0 = g * G + ch * kc;
-      for (int e = tid; e < BM * kc; e += kThreads) {
-        const int r = e / kc, kk = e % kc;
-        float h = 0.f;
-        if (r0 + r < b)
-          h = __bfloat162float(__float2bfloat16_rn(
-              prologue<PRO>(x, inv, nw, r0 + r, k0 + kk, n)));
-        x_sm[r][kk] = h;
-      }
-      for (int e = tid; e < kCols * wv; e += kThreads) {
-        const int c = e / wv, v = e % wv;
-        int4 raw = make_int4(0, 0, 0, 0);
-        float sc = 0.f;
-        if (c0 + c < d) {
-          raw = __ldg(reinterpret_cast<const int4*>(wq + (size_t)(c0 + c) * n +
-                                                    k0) + v);
-          sc = ws[(size_t)(c0 + c) * ng + g];
-        }
-        const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          w_sm[c][16 * v + i] = __bfloat162float(
-              __float2bfloat16_rn(__fmul_rn((float)q[i], sc)));
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kc; ++kk) {
-        float xr[TM], wr[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) xr[i] = x_sm[ty + TY * i][kk];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) wr[j] = w_sm[tx + TX * j][kk];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) s[i][j] = __fmaf_rn(xr[i], wr[j], s[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) o[i][j] = __fadd_rn(o[i][j], s[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + ty + TY * i;
-    if (r >= b) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx + TX * j;
-      if (c < d) out[(size_t)r * d + c] = o[i][j];
-    }
-  }
-}
-
-template <int BM, int TM, int TN, int PRO>
-int launch(const float* x, const float* inv, const float* nw,
-           const int8_t* wq, const float* ws, float* out, int b, int n, int d,
-           int G, int gpt, int exact, cudaStream_t s) {
-  const dim3 blocks((unsigned)((d + kCols - 1) / kCols),
-                    (unsigned)((b + BM - 1) / BM));
-  if (exact)
-    fused_exact_kernel<BM, TM, TN, PRO><<<blocks, kThreads, 0, s>>>(
-        x, inv, nw, wq, ws, out, b, n, d, G, gpt);
-  else
-    fused_fast_kernel<BM, TM, TN, PRO><<<blocks, kThreads, 0, s>>>(
-        x, inv, nw, wq, ws, out, b, n, d, G);
-  return (int)cudaGetLastError();
-}
-
-template <int PRO>
-int launch_rows(const float* x, const float* inv, const float* nw,
-                const int8_t* wq, const float* ws, float* out, int b, int n,
-                int d, int G, int gpt, int exact, cudaStream_t s) {
-  if (b <= 8)
-    return launch<8, 1, 2, PRO>(x, inv, nw, wq, ws, out, b, n, d, G, gpt,
-                                exact, s);
-  return launch<64, 4, 4, PRO>(x, inv, nw, wq, ws, out, b, n, d, G, gpt,
-                               exact, s);
+// xb bf16 [b, n] = bf16(prologue(x)), 8 values a thread
+__global__ void __launch_bounds__(kPrologueThreads)
+q8_fast_prologue_kernel(BfPrologue act, unsigned short* __restrict__ xb,
+                        int b, int n) {
+  const int per = n / 8;
+  const size_t e = (size_t)blockIdx.x * kPrologueThreads + threadIdx.x;
+  if (e >= (size_t)b * per) return;
+  const int r = (int)(e / per), k = (int)(e % per) * 8;
+  *reinterpret_cast<int4*>(xb + (size_t)r * n + k) = act.raw8(r, k, n, true);
 }
 
 }  // namespace
 
 extern "C" {
 
+// the unfused entries (q8_matmul.cu), which the b > 1 path runs as they are
+int q8q8_matmul(const void* xq, const void* xs, const void* wq,
+                const void* ws, void* out, void* part, int b, int n, int d,
+                int group_size, int gpt, int shape, int splits, void* stream);
+int q8_fast_matmul(const void* x, const void* wq, const void* ws, void* out,
+                   int b, int n, int d, int group_size, void* stream);
+
 // out = fused(x, inv, nw, wq, ws): prologue 0 none, 1 norm, 2 swiglu; exact
 // 1 (Q8_0 x Q8_0, gpt groups per k-tile) or 0 (bf16). x f32 [b, n] (swiglu:
 // [b, 2n]), inv f32 [b] and nw f32 [n] (norm only; otherwise ignored), wq int8
-// [d, n], ws f32 [d, n / G], out f32 [b, d]. Launches on `stream` and returns
+// [d, n], ws f32 [d, n / G], out f32 [b, d], all 16-byte aligned. At b > 1
+// the call's activations go to act_q / act_s first: exact int8 [b, n] and
+// f32 [b, n / G], fast bf16 [b, n] (act_s unused); then in the exact path
+// `shape` (0-2) and `splits` set the tile path's grid as for q8q8_matmul,
+// with `part` f32 [n / (G gpt), b, d] the k-split's scratch (null at splits
+// 1); the fast path ignores them. Launches on `stream` and returns
 // cudaGetLastError() (0 = launched; cudaErrorInvalidValue for an unknown
-// prologue).
+// prologue or shape).
 int q8_fused_matmul(const void* x, const void* inv, const void* nw,
-                    const void* wq, const void* ws, void* out, int b, int n,
-                    int d, int group_size, int gpt, int prologue, int exact,
-                    void* stream) {
+                    const void* wq, const void* ws, void* out, void* part,
+                    void* act_q, void* act_s, int b, int n, int d,
+                    int group_size, int gpt, int shape, int splits,
+                    int prologue, int exact, void* stream) {
+  if (prologue < kNone || prologue > kSwiglu)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* invf = static_cast<const float*>(inv);
@@ -306,19 +142,31 @@ int q8_fused_matmul(const void* x, const void* inv, const void* nw,
   const int8_t* wq8 = static_cast<const int8_t*>(wq);
   const float* wsf = static_cast<const float*>(ws);
   float* o = static_cast<float*>(out);
-  switch (prologue) {
-    case kNone:
-      return launch_rows<kNone>(xf, invf, nwf, wq8, wsf, o, b, n, d,
-                                group_size, gpt, exact, s);
-    case kNorm:
-      return launch_rows<kNorm>(xf, invf, nwf, wq8, wsf, o, b, n, d,
-                                group_size, gpt, exact, s);
-    case kSwiglu:
-      return launch_rows<kSwiglu>(xf, invf, nwf, wq8, wsf, o, b, n, d,
-                                  group_size, gpt, exact, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  const int G = group_size;
+  if (exact) {
+    const XqPrologue act{xf, invf, nwf, prologue};
+    if (b == 1) return launch_gemv(act, wq8, wsf, o, n, d, G, gpt, true, s);
+    int8_t* xq = static_cast<int8_t*>(act_q);
+    float* xs = static_cast<float*>(act_s);
+    const int per = prologue_groups(G);
+    const dim3 grid((unsigned)((n / G + per - 1) / per), (unsigned)b);
+    q8q8_prologue_kernel<<<grid, kPrologueThreads, 0, s>>>(act, xq, xs, b, n,
+                                                           G);
+    const int e = (int)cudaGetLastError();
+    if (e) return e;
+    return q8q8_matmul(xq, xs, wq, ws, out, part, b, n, d, G, gpt, shape,
+                       splits, stream);
   }
+  const BfPrologue act{xf, invf, nwf, prologue};
+  if (b == 1) return launch_fast_split<1, 1>(act, wq8, wsf, o, b, n, d, G, s);
+  unsigned short* xb = static_cast<unsigned short*>(act_q);
+  const size_t vecs = (size_t)b * (n / 8);
+  q8_fast_prologue_kernel<<<(unsigned)((vecs + kPrologueThreads - 1) /
+                                       kPrologueThreads),
+                            kPrologueThreads, 0, s>>>(act, xb, b, n);
+  const int e = (int)cudaGetLastError();
+  if (e) return e;
+  return q8_fast_matmul(xb, wq, ws, out, b, n, d, G, stream);
 }
 
 }  // extern "C"

@@ -26,8 +26,9 @@ LIB = BUILD_DIR / "libqwen3_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # -fmad=false: no a*b+c contraction, so fp32 sums round as written. The fused
-# matmul spells every product and sum with an intrinsic and keeps nvcc's
-# default, PyTorch's own build setting, for the expf of its sigmoid
+# matmul keeps nvcc's default, PyTorch's own build setting, for the expf of
+# its sigmoid; the kernels it shares with q8_matmul.cu (q8_kernels.cuh) spell
+# every product and sum with an intrinsic, so both builds round alike
 NO_CONTRACT_EXCEPT = {"q8_fused.cu"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -40,14 +41,14 @@ SIGNATURES = {
     "q8_fast_matmul_stacked": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "q8i8_matmul": [_P] * 6 + [_I] * 5 + [_P],
     "q8i8_matmul_stacked": [_P] * 5 + [_I, _P] + [_I] * 5 + [_P],
-    "q8_fused_matmul": [_P] * 6 + [_I] * 7 + [_P],
+    "q8_fused_matmul": [_P] * 9 + [_I] * 9 + [_P],
     "flash_decode": [_P] * 10 + [_I] * 8 + [_F, _P],
     "flash_decode_two_segment": [_P] * 15 + [_I] * 9 + [_F, _P],
     "flash_prefill": [_P] * 9 + [_I] * 10 + [_F, _P],
     "batched_decode_partial": [_P] * 12 + [_I] * 9 + [_F, _P],
     "kv_write_rows": [_P] * 3 + [_I] * 5 + [_P],
     "q8q8_untiled": [_P] * 6 + [_I] * 5 + [_P],
-    "q8_untiled": [_P] * 5 + [_I] * 7 + [_P],
+    "q8_untiled": [_P] * 5 + [_I] * 8 + [_P],
     "pure_read_stacked": [_P, _I, _P] + [_I] * 5 + [_P],
     "pure_read_manual": [_P, _I, _P] + [_I] * 6 + [_P],
 }

@@ -479,6 +479,8 @@ def q8_matmul_fused(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     if prologue == "norm":
         invf = inv.reshape(-1).float().contiguous()
         nwf = nw.float().contiguous()
+        if nwf.data_ptr() % 16:      # the kernel reads nw 16 bytes at a time
+            nwf = nwf.clone()
         if invf.shape != (b,) or nwf.shape != (n,):
             raise ValueError(f"inv {tuple(inv.shape)} / nw {tuple(nw.shape)} "
                              f"do not match x {tuple(x.shape)}")
@@ -489,10 +491,28 @@ def q8_matmul_fused(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     lib = load_library()
     d = w_q.shape[-2]
     out = torch.empty(b, d, dtype=torch.float32, device=x.device)
+    gpt = groups_per_tile(n, group_size)
+    # b > 1: the kernel makes the activations once into act (int8 and
+    # scales, or bf16), then runs the unfused kernel on them
+    shape, splits, part, act = 0, 1, None, [None, None]
+    if b > 1:
+        if exact:
+            act = [torch.empty(b, n, dtype=torch.int8, device=x.device),
+                   torch.empty(b, n // group_size, dtype=torch.float32,
+                               device=x.device)]
+            shape, splits = plan_q8q8(b, n, d, group_size,
+                                      _sm_count(x.device))
+            if splits > 1:
+                part = torch.empty(n // (gpt * group_size), b, d,
+                                   dtype=torch.float32, device=x.device)
+        else:
+            act = [torch.empty(b, n, dtype=torch.bfloat16, device=x.device),
+                   None]
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = [None if t is None else t.data_ptr() for t in (part, *act)]
     err = lib.q8_fused_matmul(xf.data_ptr(), *args, w_q.data_ptr(),
-                              w_s.data_ptr(), out.data_ptr(), b, n, d,
-                              group_size, groups_per_tile(n, group_size),
+                              w_s.data_ptr(), out.data_ptr(), *ptrs, b, n, d,
+                              group_size, gpt, shape, splits,
                               PROLOGUES[prologue], int(exact), stream)
     if err != 0:
         raise RuntimeError(f"q8 fused kernel launch failed: CUDA error {err}")
@@ -587,20 +607,38 @@ def _check_untiled(x, x_s, w_q, w_s, group_size, x_dtype):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _untiled_launch(kind, fn, x, b, n, d, group_size, block_k, args):
-    """Launch an untiled kernel: the k-tiles split across blocks (with the
-    ordered sum after) when the row and column blocks alone would leave
-    SMs idle."""
+UNTILED_GEMV_ROWS = 8      # q8_matmul_pallas runs its GEMV up to this b
+
+
+def plan_untiled(b: int, n: int, d: int, group_size: int, block_k: int = 512,
+                 sms: int = 132, gemv: bool = True) -> tuple[bool, bool]:
+    """The untiled kernels' route: (gemv, split). With `gemv`
+    (q8_matmul_pallas) a call of at most UNTILED_GEMV_ROWS rows runs the
+    GEMV, one launch whose warps take the k-tiles; otherwise (and always
+    for q8_q8_matmul_pallas) the tile kernel, of 8-row blocks up to b = 8
+    and 64-row blocks above, whose k-tiles split across blocks, with an
+    ordered second pass, when there is more than one and its row and
+    column blocks alone are fewer than 2 sms."""
+    if gemv and b <= UNTILED_GEMV_ROWS:
+        return True, False
+    nt = n // pick_tile(n, 8 * group_size, block_k)
+    blocks = -(-d // 64) * -(-b // (8 if b <= 8 else 64))
+    return False, nt > 1 and blocks < 2 * sms
+
+
+def _untiled_launch(kind, fn, x, b, n, d, group_size, block_k, gemv):
+    """Launch an untiled kernel on plan_untiled's route: fn(out, part, gpt,
+    gemv) with part the k-split's scratch or None."""
     gpt = pick_tile(n, 8 * group_size, block_k) // group_size
     nt = n // group_size // gpt
     out = torch.empty(b, d, dtype=torch.float32, device=x.device)
-    blocks = -(-d // 64) * -(-b // (8 if b <= 8 else 64))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    gemv, split = plan_untiled(b, n, d, group_size, block_k,
+                               _sm_count(x.device), gemv)
     part = None
-    if nt > 1 and blocks < 2 * sms:
+    if split:
         part = torch.empty(nt, b, d, dtype=torch.float32, device=x.device)
-    err = fn(*args, out.data_ptr(), None if part is None else part.data_ptr(),
-             b, n, d, group_size, gpt)
+    err = fn(out.data_ptr(), None if part is None else part.data_ptr(), gpt,
+             gemv)
     if err != 0:
         raise RuntimeError(f"{kind} kernel launch failed: CUDA error {err}")
     LAUNCHES[kind] += 1
@@ -629,12 +667,13 @@ def q8_q8_matmul_pallas(x_q: torch.Tensor, x_s: torch.Tensor,
     lib = load_library()
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
 
-    def launch(*a):
-        return lib.q8q8_untiled(*a, stream)
+    def launch(out, part, gpt, _gemv):
+        return lib.q8q8_untiled(x_q.data_ptr(), x_s.data_ptr(),
+                                w_q.data_ptr(), w_s.data_ptr(), out, part, b,
+                                n, d, group_size, gpt, stream)
 
     out = _untiled_launch("q8q8_pallas", launch, x_q, b, n, d, group_size,
-                          block_k, (x_q.data_ptr(), x_s.data_ptr(),
-                                    w_q.data_ptr(), w_s.data_ptr()))
+                          block_k, gemv=False)
     return out.reshape(*lead, d)
 
 
@@ -665,10 +704,12 @@ def q8_matmul_pallas(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
 
-    def launch(*a):
-        return lib.q8_untiled(*a, int(compute_dtype == torch.bfloat16),
-                              int(postscale), stream)
+    def launch(out, part, gpt, gemv):
+        return lib.q8_untiled(xf.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+                              out, part, b, n, d, group_size, gpt,
+                              int(compute_dtype == torch.bfloat16),
+                              int(postscale), int(gemv), stream)
 
     out = _untiled_launch("pallas", launch, xf, b, n, d, group_size, block_k,
-                          (xf.data_ptr(), w_q.data_ptr(), w_s.data_ptr()))
+                          gemv=True)
     return out.reshape(*lead, d)

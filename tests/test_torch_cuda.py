@@ -187,39 +187,68 @@ def test_int8_kernel_matches_plain_on_card(dev, b, n, g):
     assert torch.equal(got[b - 1:], alone)
 
 
+# the fused kernel's batches (the GEMV and the fast split kernel with the
+# prologue loader at 1; past it the prologue pass, then the MMA tile's 16-,
+# 32- and 64-row shapes, with and without a k-split, or the fast split and
+# tile kernels) and its (n, G, d): G 16-128, d not a multiple of the GEMV's
+# (8 or 16) or the tiles' (64) columns, and k-tiles of 512, 256 (n = 768,
+# G = 32) and the whole axis (n = 640, G = 64)
+FUSED_B = (1, 2, 7, 8, 9, 16, 17, 64, 65, 512)
+FUSED_SHAPES = [(128, 32, 200), (1024, 64, 203), (640, 64, 203),
+                (768, 32, 203), (512, 16, 72), (1024, 128, 203)]
+
+
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("prologue", ["norm", "none", "swiglu"])
-@pytest.mark.parametrize("b", [1, 8, 9, 64])
-@pytest.mark.parametrize("n,g", [(128, 32), (1024, 64)])
-def test_fused_kernel_matches_plain_on_card(dev, b, n, g, prologue, exact):
-    """The prologue-fused kernel against its plain version (the port's
-    unfused chain in plain ops) and against the unfused kernel on the plain
-    prologue's output, bit for bit (the swiglu prologue's sigmoid is
-    torch.sigmoid's formula and expf)."""
-    rng = np.random.default_rng(b * 3 + n + exact)
+@pytest.mark.parametrize("n,g,d", FUSED_SHAPES)
+def test_fused_kernel_matches_plain_on_card(dev, n, g, d, prologue, exact):
+    """The prologue-fused kernel at every b of FUSED_B against its plain
+    version (the port's unfused chain in plain ops) and against the unfused
+    kernel on the plain prologue's output, bit for bit (the swiglu
+    prologue's sigmoid is torch.sigmoid's formula and expf), one launch
+    counted per call; each row equal to the same row of the b = 512 call
+    and to the same row run alone."""
+    rng = np.random.default_rng(n * 3 + g + d + exact)
     width = 2 * n if prologue == "swiglu" else n
-    x = torch.from_numpy(rng.standard_normal((b, width)).astype(
+    x_all = torch.from_numpy(rng.standard_normal((512, width)).astype(
         np.float32)).to(dev)
     nw = torch.from_numpy((1 + 0.1 * rng.standard_normal(n)).astype(
         np.float32)).to(dev)
-    inv = tq_norms.rms_inv(x) if prologue == "norm" else None
-    wq, ws = _weights(rng, 1, 200, n, g, dev)
-    tq.reset_launches()
-    got = tq.q8_matmul_fused(x, wq[0], ws[0], g, inv, nw, prologue=prologue,
-                             exact=exact)
-    torch.cuda.synchronize()
-    assert tq.LAUNCHES["fused"] == 1
-    want = tq.q8_fused_matmul_plain(x, wq[0], ws[0], g, inv, nw,
-                                    prologue=prologue, exact=exact)
-    h = tq.fused_prologue(x, inv, nw, prologue)
-    if exact:
-        unfused = tq.q8_q8_matmul_tiled(*quantize_act(h, g), wq[0], ws[0], g)
-    else:
-        unfused = tq.q8_matmul_tiled_fast(h.to(torch.bfloat16), wq[0], ws[0],
-                                          g)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert torch.equal(got, unfused)
+    # the row factors of the widest call, sliced: torch.mean's reduction
+    # order on the card may follow the number of rows
+    inv_all = tq_norms.rms_inv(x_all) if prologue == "norm" else None
+    wq, ws = _weights(rng, 1, d, n, g, dev)
+
+    def fused(rows):
+        inv = None if inv_all is None else inv_all[rows].contiguous()
+        return tq.q8_matmul_fused(x_all[rows].contiguous(), wq[0], ws[0], g,
+                                  inv, nw, prologue=prologue, exact=exact)
+
+    widest = fused(slice(0, 512))
+    alone = {r: fused(slice(r, r + 1)) for r in (0, 6, 511)}
+    for b in FUSED_B:
+        x = x_all[:b].contiguous()
+        inv = None if inv_all is None else inv_all[:b].contiguous()
+        tq.reset_launches()
+        got = fused(slice(0, b))
+        torch.cuda.synchronize()
+        assert tq.LAUNCHES["fused"] == 1, b
+        want = tq.q8_fused_matmul_plain(x, wq[0], ws[0], g, inv, nw,
+                                        prologue=prologue, exact=exact)
+        h = tq.fused_prologue(x, inv, nw, prologue)
+        if exact:
+            unfused = tq.q8_q8_matmul_tiled(*quantize_act(h, g), wq[0], ws[0],
+                                            g)
+        else:
+            unfused = tq.q8_matmul_tiled_fast(h.to(torch.bfloat16), wq[0],
+                                              ws[0], g)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), b
+        assert torch.equal(got, unfused), b
+        assert torch.equal(got, widest[:b]), b
+        for r, one in alone.items():
+            if r < b:
+                assert torch.equal(got[r], one[0]), (b, r)
 
 
 def _flash_cache(seed, b, s, kv, d, dtype, dev):
@@ -666,6 +695,34 @@ def test_q8_untiled_matches_plain_on_card(dev, lead, n, g, cdt, postscale):
         assert tq.LAUNCHES["pallas"] == 1
         assert got.shape == lead + (196,)
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("d", [196, 256])
+@pytest.mark.parametrize("postscale", [False, True])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,g", UNTILED + [(1024, 128), (512, 16)])
+def test_untiled_gemv_rows_on_card(dev, n, g, cdt, postscale, d):
+    """q8_matmul_pallas's GEMV (b <= 8) at b = 1, 2, 5 and 8, within 1e-5 *
+    max|plain|, one launch a call; each row equal, bit for bit, to the same
+    row run alone and to the same row in a 9-row call (the tile kernel):
+    both sum each k-tile as one fmaf chain in k order and the tiles in
+    order. d = 196 takes 4-byte weight copies, 256 16-byte ones."""
+    x, wq, ws = _untiled_inputs(n + g + d, (9,), n, d, g, dev)
+    kw = dict(compute_dtype=cdt, postscale=postscale)
+    tile = tq.q8_matmul_pallas(x, wq, ws, g, **kw)
+    alone = [tq.q8_matmul_pallas(x[r:r + 1].contiguous(), wq, ws, g, **kw)
+             for r in range(8)]
+    for b in (1, 2, 5, 8):
+        xb = x[:b].contiguous()
+        tq.reset_launches()
+        got = tq.q8_matmul_pallas(xb, wq, ws, g, **kw)
+        want = tq.q8_matmul_pallas_plain(xb, wq, ws, g, **kw)
+        torch.cuda.synchronize()
+        assert tq.LAUNCHES["pallas"] == 1
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max(), b
+        assert torch.equal(got, tile[:b]), b
+        for r in range(b):
+            assert torch.equal(got[r], alone[r][0]), (b, r)
 
 
 def test_untiled_refuse_on_card(dev):

@@ -50,21 +50,23 @@ def _case(seed, b, prologue, n=N, g=G):
 
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("prologue", ["norm", "swiglu", "none"])
-@pytest.mark.parametrize("b", [1, 8])
-def test_fused_plain_matches_jax(b, prologue, exact):
-    x, nw, wq, ws = _case(b + len(prologue), b, prologue)
+@pytest.mark.parametrize("b,g", [(1, G), (8, G), (3, G), (1, 32), (3, 32),
+                                 (1, 128), (3, 128)])
+def test_fused_plain_matches_jax(b, g, prologue, exact):
+    """b = 1 (the kernel's GEMV) and b = 3, 8 (its tile paths), G 32-128."""
+    x, nw, wq, ws = _case(b + len(prologue) + g, b, prologue, g=g)
     qt, st = repack_tiles(np.ascontiguousarray(wq.T),
-                          np.ascontiguousarray(ws.T), G)
+                          np.ascontiguousarray(ws.T), g)
     kw = {}
     if prologue == "norm":
         kw = dict(inv=jax_rms_inv(jnp.asarray(x)), nw=jnp.asarray(nw))
     want = np.asarray(jax_fused(jnp.asarray(x), jnp.asarray(qt),
-                                jnp.asarray(st), G, prologue=prologue,
+                                jnp.asarray(st), g, prologue=prologue,
                                 exact=exact, interpret=True, **kw))
     xt = torch.from_numpy(x)
     inv = rms_inv(xt) if prologue == "norm" else None
     got = tq.q8_matmul_fused(xt, torch.from_numpy(wq), torch.from_numpy(ws),
-                             G, inv, torch.from_numpy(nw), prologue=prologue,
+                             g, inv, torch.from_numpy(nw), prologue=prologue,
                              exact=exact).numpy()
     tol = dict(rtol=1e-4, atol=1e-6) if exact else dict(rtol=2e-2, atol=2e-2)
     np.testing.assert_allclose(got, want, **tol)

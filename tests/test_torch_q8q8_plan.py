@@ -1,9 +1,10 @@
-"""The Q8_0 x Q8_0 tile path's grid planner (ops/cuda/q8_matmul.py::
-plan_q8q8), a pure function of the shapes, and the k-split's order on the
-CPU: the kernel's split grid writes each k-tile's sum and a second pass adds
-them in tile order, which must be the plain version's arithmetic bit for
-bit. The kernel itself is held to the plain version on the card
-(test_torch_cuda.py)."""
+"""The grid planners of the Q8_0 matmul kernels (ops/cuda/q8_matmul.py::
+plan_q8q8 for the Q8_0 x Q8_0 tile path, unfused and fused at b > 1, and
+::plan_untiled for the untiled kernels' route), pure functions of the
+shapes, and the k-split's order on the CPU: the kernel's split grid writes
+each k-tile's sum and a second pass adds them in tile order, which must be
+the plain version's arithmetic bit for bit. The kernel itself is held to
+the plain version on the card (test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -61,6 +62,34 @@ def test_plan_scales_with_the_sm_count():
     """A card with fewer SMs splits later: the thresholds scale with it."""
     assert tq.plan_q8q8(64, 2048, 1024, 64, sms=132)[1] == 4
     assert tq.plan_q8q8(64, 2048, 1024, 64, sms=16)[1] == 1
+
+
+@pytest.mark.parametrize("b", [1, 2, 5, 8, 9, 64, 512])
+@pytest.mark.parametrize("n,d", MATRICES)
+def test_untiled_plan_routes_decode_to_the_gemv(b, n, d):
+    """q8_matmul_pallas takes its GEMV at b <= 8 (one launch, no split);
+    q8_q8_matmul_pallas, and the dequant kernel above 8 rows, the tile
+    kernel, which splits its k-tiles when there are several and its row
+    and column blocks fall short of two an SM."""
+    gemv, split = tq.plan_untiled(b, n, d, 64)
+    assert gemv == (b <= tq.UNTILED_GEMV_ROWS)
+    if gemv:
+        assert not split
+    gemv8, split8 = tq.plan_untiled(b, n, d, 64, gemv=False)
+    assert not gemv8
+    nt = n // tq.pick_tile(n, 8 * 64, 512)
+    blocks = -(-d // 64) * -(-b // (8 if b <= 8 else 64))
+    assert split8 == (nt > 1 and blocks < 2 * 132)
+    if not gemv:
+        assert (gemv, split) == (gemv8, split8)
+
+
+def test_untiled_plan_scales_with_the_sm_count():
+    """The tile kernel's k-split follows the card's SM count; the GEMV's
+    route does not depend on it."""
+    assert tq.plan_untiled(512, 3072, 1024, 64, sms=132) == (False, True)
+    assert tq.plan_untiled(512, 3072, 1024, 64, sms=16) == (False, False)
+    assert tq.plan_untiled(1, 3072, 1024, 64, sms=16) == (True, False)
 
 
 @pytest.mark.parametrize("b", [2, 8, 65])

@@ -67,10 +67,15 @@ def test_q8q8_untiled_plain_matches_jax(lead, n, d, g):
 @pytest.mark.parametrize("cdt", sorted(DTYPES))
 @pytest.mark.parametrize("lead,n,d,g", [((4,), 128, 256, 32),
                                         ((2, 3), 64, 128, 32),
-                                        ((3,), 1024, 128, 64)])
+                                        ((3,), 1024, 128, 64),
+                                        ((1,), 256, 128, 32),
+                                        ((3,), 512, 96, 32),
+                                        ((1,), 1024, 64, 128),
+                                        ((3,), 256, 128, 128)])
 def test_q8_untiled_plain_matches_jax(lead, n, d, g, cdt, postscale):
     """x in f32 (and, at the first shape, bf16) through each compute dtype,
-    the scales before or after the dot; 2-D and 3-D batches."""
+    the scales before or after the dot; 2-D and 3-D batches; b = 1 and 3
+    (the card's GEMV) at G = 32 and 128."""
     jdt, tdt = DTYPES[cdt]
     rng = np.random.default_rng(n * 7 + d)
     wq, ws = _weights(rng, n, d, g)
