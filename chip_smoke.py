@@ -25,11 +25,15 @@ final line:
    bit for bit and across batch sizes; the fused-prologue matmul for each
    (prologue, exact/fast) pair of the main path (b = 1, 8, 64, 512) against
    its plain version and the unfused kernel; the KV row write at the B = 64
-   serving cache (f32, bf16) and the untiled matmuls on [n, d] weights
-   (b = 1, 8, 512; the exact one bit for bit, the dequant one in f32 and
-   bf16, pre- and post-scaled, within 1e-5 * max|plain|), which only the
-   tests call; then the sampler on the card against its CPU run at the
-   vocabulary of qwen3-0.6b (see check_sampler);
+   serving cache (f32, bf16; int32 and int64 positions; one kernel a call)
+   and the untiled matmuls on [n, d] weights (b = 1, 8, 512; the exact one
+   bit for bit, each row equal to the same row at b = 512 and to row 1's
+   kernel on the transposed weights, its GEMV against its MMA tile path at
+   b = 1-8 and the tile path's two fragment transposes at b = 64 and 512;
+   the dequant one in f32 and bf16, pre- and post-scaled, within 1e-5 *
+   max|plain|), which only the tests call; then the sampler on the card
+   against its CPU run at the vocabulary of qwen3-0.6b (see
+   check_sampler);
 4. end to end: a synthetic qwen3-0.6b checkpoint (full width and depth,
    random weights from a seed) through the port's CLI main() with its
    defaults (--qmode pallas --kv-dtype int8 --attn auto --device cuda):
@@ -119,7 +123,8 @@ BEFORE_MS = {"q8_q8_matmul_stacked": 1.349, "q8_q8_matmul_tiled": 0.138,
              "flash_prefill_gqa": 87.16, "flash_decode_gqa": 0.926,
              "flash_decode_gqa_two_segment": 0.934,
              "batched_decode_partial": 1.080, "q8_matmul_fused": 7.454,
-             "q8_matmul_pallas": 3.743}
+             "q8_matmul_pallas": 3.743, "q8_q8_matmul_pallas": 2.163,
+             "kv_write_rows": 0.0099}
 # the Q8_0 x Q8_0 tile path's first design (b > 1), us a launch, as PERF.md
 # records it (b = 64 / 256 / 512), logged beside this run's tile times
 TILE_BEFORE_US = {
@@ -1156,15 +1161,45 @@ def phase_fused_kernels(torch):
 KV_CACHE = (28, 64, 512, 8, 128)   # qwen3-0.6b's cache at serve --batch 64 -c 512
 
 
+def kernel_events(torch, fn, name="kernels"):
+    """The kernels fn() launches on the card, by name, from torch.profiler's
+    Chrome trace (its "kernel" events; copies are not kernels). The host
+    sleeps a little on both sides of fn inside the window: the profiler
+    drops device events it places outside its window, which a window of one
+    short kernel can miss. Fails when the trace holds no kernel at all:
+    then the count is not shown."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    trace = HERE / "build" / f"{name}.trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    if not names:
+        fail(f"{name}: the profiler's trace holds no kernel event")
+    return names
+
+
 def phase_kv_write(torch):
     """kv_write_rows (the JAX package's in-place per-slot row write, which
     no path runs) at qwen3-0.6b's B = 64 serving cache [28, 64, 512, 8,
-    128], f32 and bf16, layers 0 and 27, positions with both edges and a
-    duplicate: bit-equal to its plain version, and every row it did not
-    write unchanged. Times: the kernel, its plain version, and as the
-    library yardstick the same indexed assignment as one index_put_. The
-    bound: the f32 rows read once and written once in the cache's type,
-    over the memory rate."""
+    128], f32 and bf16, layers 0 and 27, int64 positions (as torch.randint
+    makes them) and the same as int32, with both edges and a duplicate:
+    bit-equal to its plain version, every row it did not write unchanged,
+    and one kernel a call by torch.profiler's kernel events (the wrapper
+    makes no device op of its own). Times, with int64 positions (int32
+    beside): the kernel, its plain version, and as the library yardstick
+    the same indexed assignment as one index_put_. The bound: the f32 rows
+    read once and written once in the cache's type, over the memory
+    rate."""
     from qwen3_tpu_torch.ops.cuda import kv_write as kw
 
     n_layers, B, S, KV, D = KV_CACHE
@@ -1173,35 +1208,48 @@ def phase_kv_write(torch):
     rows_in = torch.randn(B, KV, D, device="cuda", generator=gen)
     pos = torch.randint(0, S, (B,), device="cuda", generator=gen)
     pos[:4] = torch.tensor([0, S - 1, 7, 7], device="cuda")
+    positions = {"int64": pos, "int32": pos.to(torch.int32)}
     slots = torch.arange(B, device="cuda")
     out = []
     for dtype in (torch.float32, torch.bfloat16):
         cache = torch.randn(KV_CACHE, device="cuda", generator=gen).to(dtype)
-        for layer in (0, n_layers - 1):
-            got = kw.kv_write_rows(cache.clone(), rows_in, layer, pos)
-            want = kw.kv_write_rows_plain(cache.clone(), rows_in, layer, pos)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"kv_write {dtype} layer={layer}: kernel != plain")
-            got[layer, slots, pos] = cache[layer, slots, pos]
-            if not torch.equal(got, cache):
-                fail(f"kv_write {dtype} layer={layer}: a row it did not "
-                     f"write changed")
-            del got, want
+        for pname, p in positions.items():
+            for layer in (0, n_layers - 1):
+                label = f"kv_write {dtype} {pname} layer={layer}"
+                got = cache.clone()
+                names = kernel_events(torch, lambda: kw.kv_write_rows(
+                    got, rows_in, layer, p), "kv_write")
+                if len(names) != 1:
+                    fail(f"{label}: {len(names)} kernels a call ({names}), "
+                         f"want 1")
+                want = kw.kv_write_rows_plain(cache.clone(), rows_in, layer,
+                                              p)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"{label}: kernel != plain")
+                got[layer, slots, pos] = cache[layer, slots, pos]
+                if not torch.equal(got, cache):
+                    fail(f"{label}: a row it did not write changed")
+                del got, want
         cast = rows_in.to(dtype)
 
         def library(i):
             cache[i % n_layers].index_put_((slots, pos), cast)
 
+        def kernel(p):
+            return lambda i: kw.kv_write_rows(cache, rows_in, i % n_layers, p)
+
         es = cache.element_size()
         row = dict(kernel="kv_write_rows", dtype=str(dtype).split(".")[-1],
                    cache=list(KV_CACHE), max_abs_diff=0.0,
-                   kernel_ms=device_ms(torch, lambda i: kw.kv_write_rows(
-                       cache, rows_in, i % n_layers, pos)),
+                   kernels_a_call=1,
+                   kernel_ms=device_ms(torch, kernel(positions["int64"])),
+                   kernel_ms_int32=device_ms(torch,
+                                             kernel(positions["int32"])),
                    plain_ms=device_ms(torch, lambda i: kw.kv_write_rows_plain(
                        cache, rows_in, i % n_layers, pos)),
                    library_ms=device_ms(torch, library),
-                   bound_ms=1e3 * (B * KV * D * (4 + es) + 4 * B)
+                   bound_ms=1e3 * (B * KV * D * (4 + es) + 8 * B)
                    / HBM_BYTES_PER_S, bound_by="bytes")
         out.append(row)
         log("kv_write " + json.dumps(row))
@@ -1214,6 +1262,14 @@ UNTILED_BATCHES = (1, 8, 512)   # b <= 8 runs the dequant kernel's GEMV
 # q8_matmul_pallas's (compute dtype, postscale) pairs
 UNTILED_MODES = (("float32", False), ("float32", True), ("bfloat16", False),
                  ("bfloat16", True))
+# q8_q8_matmul_pallas: the GEMV against the MMA tile path at these b (the
+# crossover: the GEMV is built up to UNTILED_Q8Q8_GEMV_ROWS)
+QG_CROSS_BATCHES = (1, 2, 4)
+# both routes at b = 1 on each side of the planner's column threshold
+# (plan_untiled_q8q8: the GEMV below UNTILED_Q8Q8_TILE_BLOCKS tile blocks,
+# 16896 columns): qwen3-4b's four layer matrices in [n, d]
+QG_RULE_SHAPES = {"qwen3-4b wqkv": (2560, 6144), "qwen3-4b wo": (4096, 2560),
+                  "qwen3-4b w13": (2560, 19456), "qwen3-4b w2": (9728, 2560)}
 
 
 def untiled_bound_ms(b, n, d, compute):
@@ -1228,11 +1284,22 @@ def untiled_bound_ms(b, n, d, compute):
                                        else "operations")
 
 
+def per_pass(rows, b, keys, classifier=True):
+    """A forward pass's sums of `keys` over `rows` at b rows: the four layer
+    matrices x 28 layers and, with `classifier`, the classifier once."""
+    mine = [r for r in rows if r["b"] == b
+            and (classifier or r["matrix"] != "classifier")]
+    return {k: sum(r[k] * (1 if r["matrix"] == "classifier" else L)
+                   for r in mine) for k in keys}
+
+
 def phase_untiled_kernels(torch):
     """The untiled matmuls on contraction-leading weights (which only the
     JAX package's tests call) at qwen3-0.6b's five matrices in [n, d]
     layout, b in UNTILED_BATCHES: q8_q8_matmul_pallas bit for bit against
-    its plain version; q8_matmul_pallas in f32 and bf16, pre- and
+    its plain version, each row equal to the same row at b = 512, and the
+    b = 512 call equal to q8_q8_matmul_tiled (row 1's kernel) on the
+    transposed weights; q8_matmul_pallas in f32 and bf16, pre- and
     post-scaled, within 1e-5 * max|plain| (the kernel sums each dot as an
     fmaf chain in k order, the plain version's torch.matmul in its own
     order; bf16 products are exact in fp32), and each row of the GEMV's
@@ -1240,7 +1307,12 @@ def phase_untiled_kernels(torch):
     kernel's b = 512 call. Times: the kernel, its plain version and as the
     library yardstick F.linear on bf16 with the weights dequantized once to
     bf16 (bound_ms for q8q8 as phase_kernels'); then each variant's sum
-    over a token's 113 matrices at b = 1 and 8."""
+    over a token's 113 matrices at b = 1 and 8 and over a 512-row block's
+    112 layer matrices. For q8_q8_matmul_pallas also, each route bit-equal
+    to the b = 512 rows: the GEMV against the MMA tile path at
+    QG_CROSS_BATCHES (the crossover the planner's UNTILED_Q8Q8_GEMV_ROWS
+    should follow), and both routes at b = 1 on QG_RULE_SHAPES (the
+    planner's column threshold)."""
     import torch.nn.functional as F
 
     from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
@@ -1248,7 +1320,7 @@ def phase_untiled_kernels(torch):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    rows = []
+    rows, routes = [], []
     for name, (n, d) in MATRICES.items():
         w_q = torch.randint(-127, 128, (n, d), dtype=torch.int8,
                             device="cuda", generator=gen)
@@ -1263,6 +1335,15 @@ def phase_untiled_kernels(torch):
             widest[compute, post] = qm.q8_matmul_pallas(
                 x_all, w_q, w_s, G, compute_dtype=getattr(torch, compute),
                 postscale=post)
+        xq_all, xs_all = quantize_act(x_all, G)
+        wide_q8q8 = qm.q8_q8_matmul_pallas(xq_all, xs_all, w_q, w_s, G)
+        row1 = qm.q8_q8_matmul_tiled(xq_all, xs_all, w_q.T.contiguous(),
+                                     w_s.T.contiguous(), G)
+        torch.cuda.synchronize()
+        if not torch.equal(wide_q8q8, row1):
+            fail(f"untiled q8q8 {name} b={max(UNTILED_BATCHES)}: != "
+                 f"q8_q8_matmul_tiled on the transposed weights")
+        del row1
         for b in UNTILED_BATCHES:
             x = x_all[:b].contiguous()
             xq, xs = quantize_act(x, G)
@@ -1279,6 +1360,9 @@ def phase_untiled_kernels(torch):
             if not torch.isfinite(got).all() or not torch.equal(got, want):
                 fail(f"untiled q8q8 {name} b={b}: kernel != plain "
                      f"(max_abs_diff {err:.3e})")
+            if not torch.equal(got, wide_q8q8[:b]):
+                fail(f"untiled q8q8 {name} b={b}: rows differ from the same "
+                     f"rows at b={max(UNTILED_BATCHES)}")
             bnd, by = bound_ms(b, n, d)
             variants = [("q8q8_pallas", bnd, by, err,
                          lambda i, xq=xq, xs=xs: qm.q8_q8_matmul_pallas(
@@ -1322,19 +1406,77 @@ def phase_untiled_kernels(torch):
                            library_ms=l_ms, bound_ms=bnd, bound_by=by)
                 rows.append(row)
                 log("untiled " + json.dumps(row))
+        # q8_q8_matmul_pallas's routes, forced, each against the b = 512
+        # rows
+        for b in QG_CROSS_BATCHES:
+            xq, xs = xq_all[:b].contiguous(), xs_all[:b].contiguous()
+            shape, splits = qm.plan_q8q8(b, n, d, G)
+            pair = (("gemv_ms", (True, 0, 1)),
+                    ("tile_ms", (False, shape, splits)))
+            row = dict(matrix=name, b=b, n=n, d=d, tile_rows=qm.TILE_ROWS[
+                shape], k_splits=splits,
+                planned="gemv" if qm.plan_untiled_q8q8(b, n, d, G)[0]
+                else "tile")
+            for key, route in pair:
+                def call(i, xq=xq, xs=xs, route=route):
+                    return qm.q8_q8_untiled_launch(xq, xs, w_q, w_s, G, 512,
+                                                   *route)
+
+                got = call(0)
+                torch.cuda.synchronize()
+                if not torch.equal(got, wide_q8q8[:b]):
+                    fail(f"untiled q8q8 {name} b={b} route {route}: rows "
+                         f"differ from the same rows at "
+                         f"b={max(UNTILED_BATCHES)}")
+                row[key] = device_ms(torch, call)
+            routes.append(row)
+            log("untiled q8q8 route " + json.dumps(row))
         del w_q, w_s, w_bf
         torch.cuda.empty_cache()
+    for name, (n, d) in QG_RULE_SHAPES.items():
+        w_q = torch.randint(-127, 128, (n, d), dtype=torch.int8,
+                            device="cuda", generator=gen)
+        w_s = 0.02 / 127 * (0.5 + torch.rand(n // G, d, device="cuda",
+                                             generator=gen))
+        xq, xs = quantize_act(torch.randn(1, n, device="cuda", generator=gen),
+                              G)
+        want = qm.q8_q8_matmul_pallas_plain(xq, xs, w_q, w_s, G)
+        row = dict(matrix=name, b=1, n=n, d=d, planned="gemv" if
+                   qm.plan_untiled_q8q8(1, n, d, G)[0] else "tile")
+        for key, route in (("gemv_ms", (True, 0, 1)),
+                           ("tile_ms", (False, *qm.plan_q8q8(1, n, d, G)))):
+            def call(i, route=route):
+                return qm.q8_q8_untiled_launch(xq, xs, w_q, w_s, G, 512,
+                                               *route)
+
+            got = call(0)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"untiled q8q8 {name} b=1 route {route}: kernel != "
+                     f"plain")
+            row[key] = device_ms(torch, call)
+        log("untiled q8q8 rule " + json.dumps(row))
+        del w_q, w_s
     for b in UNTILED_BATCHES[:2]:
         for kind in sorted({r["kernel"] for r in rows}):
-            mine = [r for r in rows if r["b"] == b and r["kernel"] == kind]
+            mine = [r for r in rows if r["kernel"] == kind]
             log("untiled token " + json.dumps(dict(
-                kernel=kind, b=b, launches=4 * L + 1,
-                **{k: sum(r[k] * (1 if r["matrix"] == "classifier" else L)
-                          for r in mine)
-                   for k in ("kernel_ms", "library_ms", "bound_ms")})))
-    log("untiled matmuls: q8q8 bit-equal to its plain version everywhere, "
-        "the dequant kernel within 1e-5 * max|plain| and its rows equal at "
-        "every b; library_ms = "
+                kernel=kind, b=b, launches=4 * L + 1, **per_pass(
+                    mine, b, ("kernel_ms", "library_ms", "bound_ms")))))
+    for kind in sorted({r["kernel"] for r in rows}):
+        mine = [r for r in rows if r["kernel"] == kind]
+        log("untiled block " + json.dumps(dict(
+            kernel=kind, b=max(UNTILED_BATCHES), layer_matmuls=4 * L,
+            **per_pass(mine, max(UNTILED_BATCHES),
+                       ("kernel_ms", "plain_ms", "library_ms", "bound_ms"),
+                       classifier=False))))
+    for b in QG_CROSS_BATCHES:
+        log("untiled q8q8 routes " + json.dumps(dict(
+            b=b, **per_pass(routes, b, ("gemv_ms", "tile_ms"))))
+            + " (a token's 113 matrices)")
+    log("untiled matmuls: q8q8 bit-equal to its plain version and to row 1 "
+        "on w_q.T, on every route, the dequant kernel within 1e-5 * "
+        "max|plain| and its rows equal at every b; library_ms = "
         "torch.nn.functional.linear on bf16 with the weights dequantized "
         "once to bf16")
     return rows

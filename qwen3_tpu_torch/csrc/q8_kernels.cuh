@@ -533,9 +533,60 @@ int launch_gemv(Act act, const int8_t* wq, const float* ws, float* out, int n,
 // k-tiles [z tps, (z + 1) tps)), each k-tile's acc_t goes to part[t]
 // instead, and q8q8_split_sum_kernel adds them in tile order. Rows, columns
 // and k past the matrix load as zeros (their outputs are never stored).
+//
+// The weights come in one of two layouts (template parameter WL), with the
+// same dots, epilogue and sum order, so both give the plain version's bits:
+//  - kWRows: wq int8 [d, n], ws f32 [d, n/G], the checkpoint's rows
+//    (q8_matmul.cu, q8_fused.cu), staged as the activations are;
+//  - kWCols / kWCols4: wq int8 [n, d], ws f32 [n/G, d], the
+//    contraction leading (q8_untiled.cu). A stage holds [kStageK k-rows][BN
+//    columns] bytes, copied along d in 16-byte pieces (kWCols4: 4-byte
+//    ones, for d % 16 != 0), the 16-byte chunks of k-row k at chunk ^ ((k
+//    >> 2) & 3) so that the fragment loads below hit 8 distinct bank
+//    groups; the scales [kScaleSlots][BN] f32. An s8 B fragment is a word
+//    of 4 consecutive k of one column (mma.sync has only .row.col for s8),
+//    which no load of these bytes gives. kWCols makes it in registers:
+//    ldmatrix .trans of an 8 x 8 b16 matrix whose rows are k-rows gives a
+//    lane a 2 k x 2 column byte block, so two such matrices (k-rows 4t,
+//    4t + 1 and 4t + 2, 4t + 3) and two __byte_perm give the words of two
+//    columns, 2 g and 2 g + 1 of the 16-byte chunk: n-tile 2 p of a warp
+//    takes the chunk's even columns and n-tile 2 p + 1 its odd ones, so a
+//    lane's outputs of a row are 4 consecutive columns (one 16-byte
+//    store). Transposing the landed stage into the rows layout in a second
+//    shared pass instead (4 x 4 byte blocks, __byte_perm, one more barrier)
+//    was 10-21% slower over qwen3-0.6b's layer matrices at b = 64 and 512
+//    on an H100, and is not built.
 constexpr int kStageK = 64, kRowWords = kStageK / 4 + 4, kStages = 4;
 constexpr int kScaleSlots = kStageK / 16;   // group scales a staged row
 constexpr int kSlotsLog = kScaleSlots == 8 ? 3 : 2;
+enum WeightLayout { kWRows = 0, kWCols = 1, kWCols4 = 2 };
+
+// rows a[i] hold columns 0..3 of k-row i; word j of the result holds k-rows
+// 0..3 of column j
+__device__ __forceinline__ void transpose4x4(const int a[4], int c[4]) {
+  const int t0 = __byte_perm(a[0], a[1], 0x5140);
+  const int t1 = __byte_perm(a[0], a[1], 0x7362);
+  const int t2 = __byte_perm(a[2], a[3], 0x5140);
+  const int t3 = __byte_perm(a[2], a[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// The shared memory of one tile kernel instance: the kStages slots (data,
+// then the scales)
+template <int BM, int BN, int WL>
+__host__ __device__ constexpr int mma_slot_words() {
+  return WL == kWRows ? (BM + BN) * kRowWords
+                      : BM * kRowWords + kStageK * BN / 4;
+}
+
+template <int BM, int BN, int WL>
+__host__ __device__ constexpr size_t mma_smem_bytes() {
+  return (size_t)kStages * (mma_slot_words<BM, BN, WL>() * sizeof(int) +
+                            (BM + BN) * kScaleSlots * sizeof(float));
+}
 
 __device__ __forceinline__ void cp_async16_s(unsigned dst, const void* src,
                                              bool on) {
@@ -568,6 +619,26 @@ __device__ __forceinline__ void ldsm_x4(int (&r)[4], const int* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// The same, transposed: lane (g, t) gets elements [2 t][g] and [2 t + 1][g]
+// of each matrix (16 bits each), i.e. bytes 2 g, 2 g + 1 of rows 2 t and
+// 2 t + 1. x2: matrices 0 and 1, row addresses from lanes 0-15.
+__device__ __forceinline__ void ldsm_x4_trans(int (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(int (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(s));
 }
 
@@ -647,7 +718,31 @@ __device__ __forceinline__ void store_tile(const float (&v)[MI][NI][4],
     }
 }
 
-template <int MI, int NI, int WMW, int WNW, int KM, bool BIG>
+// The same for kWCols: n-tiles 2 p and 2 p + 1 hold the even and odd
+// columns of 16, so a lane's entries of a row are columns c + 16 p .. + 3
+// (c = the warp's first column + 4 tig), one 16-byte store (d % 4 == 0).
+template <int MI, int NI>
+__device__ __forceinline__ void store_tile4(const float (&v)[MI][NI][4],
+                                            float* __restrict__ dst, int b,
+                                            int d, int r, int c) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 16 * i + 8 * h;
+      if (row >= b) continue;
+#pragma unroll
+      for (int p = 0; p < NI / 2; ++p) {
+        const int col = c + 16 * p;
+        if (col < d)
+          *reinterpret_cast<float4*>(dst + (size_t)row * d + col) =
+              make_float4(v[i][2 * p][2 * h], v[i][2 * p + 1][2 * h],
+                          v[i][2 * p][2 * h + 1], v[i][2 * p + 1][2 * h + 1]);
+      }
+    }
+}
+
+template <int MI, int NI, int WMW, int WNW, int KM, bool BIG, int WL>
 __global__ void __launch_bounds__(32 * WMW * WNW)
 q8q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
                 const int8_t* __restrict__ wq, const float* __restrict__ ws,
@@ -655,9 +750,12 @@ q8q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
                 int n, int d, int G, int gpt, int tps) {
   constexpr int BM = 16 * MI * WMW, BN = 8 * NI * WNW;
   constexpr int T = 32 * WMW * WNW, ROWS = BM + BN;
+  constexpr bool KN = WL != kWRows;           // wq [n, d]
+  constexpr int PB = WL == kWCols4 ? 4 : 16;  // bytes a weight copy ([n, d])
+  constexpr int SW = mma_slot_words<BM, BN, WL>();
   extern __shared__ int4 mma_smem[];
-  int* data = reinterpret_cast<int*>(mma_smem);   // [kStages][ROWS][kRowWords]
-  float* scl = reinterpret_cast<float*>(data + kStages * ROWS * kRowWords);
+  int* data = reinterpret_cast<int*>(mma_smem);   // [kStages][SW]
+  float* scl = reinterpret_cast<float*>(data + kStages * SW);
   const int ng = n / G, tk = gpt * G, nt = ng / gpt;
   const int lg = 31 - __clz(G);                  // G = 2^lg
   const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
@@ -670,55 +768,92 @@ q8q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   const int wm = warp / WNW, wn = warp % WNW;
   const int wr = wm * 16 * MI, wc = BM + wn * 8 * NI;   // the warp's rows
   static_assert(NI % 2 == 0, "B fragments load two n-tiles at a time");
+  static_assert(!KN || BN == kStageK, "an [n, d] stage is square");
   // the lane's ldmatrix row: A's row (lane & 15) at byte 16 (lane >> 4);
   // B's column 8 (lane >> 4) + (lane & 7) at byte 16 ((lane >> 3) & 1)
   const int a_off = (lane & 15) * kRowWords + 4 * (lane >> 4);
   const int b_off =
       (8 * (lane >> 4) + (lane & 7)) * kRowWords + 4 * ((lane >> 3) & 1);
+  // kWCols: the lane's row of matrix q = lane >> 3 is k-row kb of the
+  // k-step (q odd: 4 t + 2, 4 t + 3; q >= 2: the step's second 16 k), and
+  // chunk wn NI / 2 + p of the warp's columns sits at that ^ (i >> 1)
+  const int li = lane & 7, lq = lane >> 3;
+  const int kb = 16 * (lq >> 1) + 4 * (li >> 1) + (li & 1) + 2 * (lq & 1);
 
   // each thread's copies, fixed but for k: 16-byte pieces of staged rows
-  // and group scales (rows past the matrix load zeros; a copy past the
-  // staged rows is none, since a zero-filling one would still write). Its
-  // shared addresses are taken once, its row pointers advance a stage at a
-  // time: at these sizes the kernel is bound by instruction issue
+  // (or PB-byte pieces of [n, d] k-rows) and group scales (rows past the
+  // matrix load zeros; a copy past the staged rows is none, since a
+  // zero-filling one would still write). Its shared addresses are taken
+  // once, its sources advance a stage at a time: at these sizes the kernel
+  // is bound by instruction issue
   static_assert((kStages & (kStages - 1)) == 0, "a power-of-two ring");
   constexpr int kPieces = kStageK / 16;
-  constexpr int CP = (ROWS * kPieces + T - 1) / T;
-  constexpr int CS = (ROWS * kScaleSlots + T - 1) / T;
+  constexpr int NA = (KN ? BM : ROWS) * kPieces;       // [rows][k] pieces
+  constexpr int NB = KN ? kStageK * (BN / PB) : 0;     // [k][cols] pieces
+  constexpr int CP = (NA + NB + T - 1) / T;
+  constexpr int SA = (KN ? BM : ROWS) * kScaleSlots;   // 4-byte [rows][g]
+  constexpr int SB = KN ? kScaleSlots * (BN / 4) : 0;  // 16-byte [g][cols]
+  constexpr int CS = (SA + SB + T - 1) / T;
   constexpr unsigned kNoCopy = 0xffffffffu;
-  constexpr unsigned kSlotBytes = ROWS * kRowWords * sizeof(int);
+  constexpr unsigned kSlotBytes = SW * sizeof(int);
   constexpr unsigned kScaleSlotBytes = ROWS * kScaleSlots * sizeof(float);
   const unsigned data_s = (unsigned)__cvta_generic_to_shared(data);
   const unsigned scl_s = (unsigned)__cvta_generic_to_shared(scl);
+  const size_t kstep = KN ? (size_t)kStageK * d : 0;   // an [n, d] stage
   const int8_t* psrc[CP];
   unsigned pdst[CP];
   int pk[CP];
-  bool pon[CP];
+  bool pon[CP], pkn[CP];
 #pragma unroll
   for (int c = 0; c < CP; ++c) {
-    const int e = tid + c * T, r = e / kPieces;
+    const int e = tid + c * T;
+    pkn[c] = KN && e >= NA;
+    if (pkn[c]) {   // [n, d]: k-row kr, bytes PB w .. of the block's columns
+      const int f = e - NA, kr = f / (BN / PB), w = f % (BN / PB);
+      const int col = c0 + PB * w, ch = PB * w / 16;
+      pon[c] = f < NB && col < d;
+      pk[c] = kr;
+      psrc[c] = pon[c] ? wq + (size_t)(kbeg + kr) * d + col : xq;
+      pdst[c] = f < NB ? data_s + BM * kRowWords * sizeof(int) + kr * BN +
+                             16 * (ch ^ ((kr >> 2) & 3)) + PB * w % 16
+                       : kNoCopy;
+      continue;
+    }
+    const int r = e / kPieces;
     const bool isx = r < BM;
     const int gr = isx ? r0 + r : c0 + r - BM;
     pon[c] = isx ? gr < b : gr < d;
     pk[c] = 16 * (e % kPieces);
     psrc[c] = pon[c] ? (isx ? xq : wq) + (size_t)gr * n + kbeg + pk[c] : xq;
-    pdst[c] = e < ROWS * kPieces
-                  ? data_s + (r * kRowWords + pk[c] / 4) * sizeof(int)
-                  : kNoCopy;
+    pdst[c] = e < NA ? data_s + (r * kRowWords + pk[c] / 4) * sizeof(int)
+                     : kNoCopy;
   }
   const float* ssrc[CS];
   unsigned sdst[CS];
   int sj[CS];
-  bool son[CS];
+  bool son[CS], skn[CS];
 #pragma unroll
   for (int c = 0; c < CS; ++c) {
-    const int e = tid + c * T, r = e >> lgs, j = e & ((1 << lgs) - 1);
+    const int e = tid + c * T;
+    skn[c] = KN && e >= SA;
+    if (skn[c]) {   // [n/G, d]: slot j's scales of columns c0 + 4 q ..
+      const int f = e - SA, j = f / (BN / 4), q = f % (BN / 4);
+      son[c] = f < SB && c0 + 4 * q < d;
+      sj[c] = j;
+      ssrc[c] = son[c] ? ws + (size_t)j * d + c0 + 4 * q : xs;
+      sdst[c] = f < SB && j < (1 << lgs)
+                    ? scl_s + (BM * kScaleSlots + j * BN + 4 * q) *
+                                  sizeof(float)
+                    : kNoCopy;
+      continue;
+    }
+    const int r = e >> lgs, j = e & ((1 << lgs) - 1);
     const bool isx = r < BM;
     const int gr = isx ? r0 + r : c0 + r - BM;
     son[c] = isx ? gr < b : gr < d;
     sj[c] = j;
     ssrc[c] = son[c] ? (isx ? xs : ws) + (size_t)gr * ng + j : xs;
-    sdst[c] = e < (ROWS << lgs)
+    sdst[c] = e < ((KN ? BM : ROWS) << lgs)
                   ? scl_s + (r * kScaleSlots + j) * sizeof(float)
                   : kNoCopy;
   }
@@ -731,17 +866,31 @@ q8q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
 #pragma unroll
       for (int c = 0; c < CP; ++c) {
         const bool on = pon[c] && (full || k0 + pk[c] < kend);
-        if (pdst[c] != kNoCopy)
-          cp_async16_s(pdst[c] + so, on ? psrc[c] : xq, on);
-        if (pon[c]) psrc[c] += kStageK;
+        if (pdst[c] != kNoCopy) {
+          if (PB == 4 && pkn[c])
+            cp_async4_s(pdst[c] + so, on ? psrc[c] : xq, on);
+          else
+            cp_async16_s(pdst[c] + so, on ? psrc[c] : xq, on);
+        }
+        if (pon[c]) {
+          if (pkn[c])
+            psrc[c] += kstep;
+          else
+            psrc[c] += kStageK;
+        }
       }
       const unsigned sso = (st & (kStages - 1)) * kScaleSlotBytes;
       const int g0 = k0 >> lg;
 #pragma unroll
       for (int c = 0; c < CS; ++c) {
         const bool on = son[c] && g0 + sj[c] < gend;
-        if (sdst[c] != kNoCopy)
-          cp_async4_s(sdst[c] + sso, on ? ssrc[c] + g0 : ssrc[c], on);
+        if (sdst[c] != kNoCopy) {
+          if (skn[c])
+            cp_async16_s(sdst[c] + sso, on ? ssrc[c] + (size_t)g0 * d : xs,
+                         on);
+          else
+            cp_async4_s(sdst[c] + sso, on ? ssrc[c] + g0 : ssrc[c], on);
+        }
       }
     }
     cp_async_commit();
@@ -767,10 +916,15 @@ q8q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
     __syncthreads();   // stage st has landed; slot st - 1 is free again
     load(st + kStages - 1);
     const int slot = st % kStages, k0 = kbeg + st * kStageK;
-    const int* A = data + (slot * ROWS + wr) * kRowWords;
-    const int* B = data + (slot * ROWS + wc) * kRowWords;
+    const int* A = data + (KN ? slot * SW + wr * kRowWords
+                              : (slot * ROWS + wr) * kRowWords);
+    const int* B = data + (slot * ROWS + wc) * kRowWords;   // kWRows
+    // [n, d]: the landed [k][BN] bytes, and the [cols] scales of a slot
+    const char* Bk = reinterpret_cast<const char*>(data + slot * SW +
+                                                   BM * kRowWords);
     const float* sx = scl + (slot * ROWS + wr) * kScaleSlots;
     const float* sw = scl + (slot * ROWS + wc) * kScaleSlots;
+    const float* swc = scl + (slot * ROWS + BM) * kScaleSlots + (wc - BM);
 #pragma unroll
     for (int ks = 0; ks < kStageK / KM; ++ks) {
       const int kw = ks * KM / 4 + tig;
@@ -780,6 +934,35 @@ q8q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
 #pragma unroll
         for (int i = 0; i < MI; ++i)
           ldsm_x4(a[i], A + 16 * i * kRowWords + ks * 8 + a_off);
+      } else {   // m16n8k16: words 0 of A's two row halves
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const int* ar = A + (16 * i + gid) * kRowWords + kw;
+          a[i][0] = ar[0];
+          a[i][1] = ar[8 * kRowWords];
+          a[i][2] = a[i][3] = 0;
+        }
+      }
+      if constexpr (WL == kWCols || WL == kWCols4) {
+        // chunk (wc - BM) / 16 + p of the k-step's rows; its even columns
+        // are n-tile 2 p, its odd ones 2 p + 1
+#pragma unroll
+        for (int p = 0; p < NI / 2; ++p) {
+          const int ch = (wc - BM) / 16 + p;
+          int r[4];
+          if (KM == 32) {
+            ldsm_x4_trans(r, Bk + (ks * 32 + kb) * BN + 16 * (ch ^ (li >> 1)));
+          } else {   // matrices 0, 1: k-rows 4 t .. 4 t + 3 of 16
+            const int k = ks * 16 + 4 * (li >> 1) + (li & 1) + 2 * (lq & 1);
+            ldsm_x2_trans(r, Bk + k * BN + 16 * (ch ^ ((k >> 2) & 3)));
+            r[2] = r[3] = 0;
+          }
+          bf[2 * p][0] = __byte_perm(r[0], r[1], 0x6420);
+          bf[2 * p + 1][0] = __byte_perm(r[0], r[1], 0x7531);
+          bf[2 * p][1] = __byte_perm(r[2], r[3], 0x6420);
+          bf[2 * p + 1][1] = __byte_perm(r[2], r[3], 0x7531);
+        }
+      } else if (KM == 32) {
 #pragma unroll
         for (int j = 0; j < NI; j += 2) {
           int r[4];
@@ -789,14 +972,7 @@ q8q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
           bf[j + 1][0] = r[2];
           bf[j + 1][1] = r[3];
         }
-      } else {   // m16n8k16: words 0 of A's two row halves and of B
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          const int* ar = A + (16 * i + gid) * kRowWords + kw;
-          a[i][0] = ar[0];
-          a[i][1] = ar[8 * kRowWords];
-          a[i][2] = a[i][3] = 0;
-        }
+      } else {   // m16n8k16: word 0 of B
 #pragma unroll
         for (int j = 0; j < NI; ++j) {
           bf[j][0] = B[(8 * j + gid) * kRowWords + kw];
@@ -819,11 +995,24 @@ q8q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
 #pragma unroll
           for (int h = 0; h < 2; ++h)
             xv[i][h] = sx[(16 * i + gid + 8 * h) * kScaleSlots + js];
+        if constexpr (WL == kWCols || WL == kWCols4) {
 #pragma unroll
-        for (int j = 0; j < NI; ++j)
+          for (int p = 0; p < NI / 2; ++p) {
+            const float4 s4 = *reinterpret_cast<const float4*>(
+                swc + js * BN + 16 * p + 4 * tig);
+            wv[2 * p][0] = s4.x;
+            wv[2 * p + 1][0] = s4.y;
+            wv[2 * p][1] = s4.z;
+            wv[2 * p + 1][1] = s4.w;
+          }
+        } else {
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            wv[j][e] = sw[(8 * j + 2 * tig + e) * kScaleSlots + js];
+          for (int j = 0; j < NI; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              wv[j][e] = KN ? swc[js * BN + 8 * j + 2 * tig + e]
+                            : sw[(8 * j + 2 * tig + e) * kScaleSlots + js];
+        }
 #pragma unroll
         for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -842,8 +1031,12 @@ q8q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
       gt = 0;
       const int t = t_cur++;
       if (part) {
-        store_tile<MI, NI>(acc, part + (size_t)t * b * d, b, d,
-                           r0 + wr + gid, c0 + wc - BM + 2 * tig);
+        if constexpr (WL == kWCols || WL == kWCols4)
+          store_tile4<MI, NI>(acc, part + (size_t)t * b * d, b, d,
+                              r0 + wr + gid, c0 + wc - BM + 4 * tig);
+        else
+          store_tile<MI, NI>(acc, part + (size_t)t * b * d, b, d,
+                             r0 + wr + gid, c0 + wc - BM + 2 * tig);
 #pragma unroll
         for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -864,8 +1057,13 @@ q8q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
     }
   }
   cp_async_wait<0>();
-  if (!part)
-    store_tile<MI, NI>(o, out, b, d, r0 + wr + gid, c0 + wc - BM + 2 * tig);
+  if constexpr (WL == kWCols || WL == kWCols4) {
+    if (!part)
+      store_tile4<MI, NI>(o, out, b, d, r0 + wr + gid, c0 + wc - BM + 4 * tig);
+  } else {
+    if (!part)
+      store_tile<MI, NI>(o, out, b, d, r0 + wr + gid, c0 + wc - BM + 2 * tig);
+  }
 }
 
 // A k-split's second pass: out = the k-tiles' sums part[t] added in tile
@@ -880,15 +1078,14 @@ __global__ void q8q8_split_sum_kernel(const float* __restrict__ part,
   out[i] = o;
 }
 
-template <int MI, int NI, int WMW, int WNW, int KM, bool BIG>
+template <int MI, int NI, int WMW, int WNW, int KM, bool BIG, int WL>
 int launch_mma_shape(const int8_t* xq, const float* xs, const int8_t* wq,
                      const float* ws, float* out, float* part, int b, int n,
                      int d, int G, int gpt, int splits, cudaStream_t s) {
   static size_t set[16] = {};
   constexpr int BM = 16 * MI * WMW, BN = 8 * NI * WNW;
-  const size_t smem = (size_t)kStages * (BM + BN) *
-                      (kRowWords * sizeof(int) + kScaleSlots * sizeof(float));
-  auto kernel = q8q8_mma_kernel<MI, NI, WMW, WNW, KM, BIG>;
+  const size_t smem = mma_smem_bytes<BM, BN, WL>();
+  auto kernel = q8q8_mma_kernel<MI, NI, WMW, WNW, KM, BIG, WL>;
   const int err = allow_smem(kernel, smem, set);
   if (err) return err;
   const int nt = n / G / gpt;
@@ -906,19 +1103,19 @@ int launch_mma_shape(const int8_t* xq, const float* xs, const int8_t* wq,
 
 // The tile shapes by `shape` (ops/cuda/q8_matmul.py::plan_q8q8 picks it
 // from b): 0: 16 rows, 1: 32, 2: 64, all 64 columns.
-template <int KM, bool BIG>
+template <int KM, bool BIG, int WL = kWRows>
 int launch_mma(const int8_t* xq, const float* xs, const int8_t* wq,
                const float* ws, float* out, float* part, int b, int n, int d,
                int G, int gpt, int shape, int splits, cudaStream_t s) {
   switch (shape) {
     case 0:
-      return launch_mma_shape<1, 2, 1, 4, KM, BIG>(
+      return launch_mma_shape<1, 2, 1, 4, KM, BIG, WL>(
           xq, xs, wq, ws, out, part, b, n, d, G, gpt, splits, s);
     case 1:
-      return launch_mma_shape<2, 2, 1, 4, KM, BIG>(
+      return launch_mma_shape<2, 2, 1, 4, KM, BIG, WL>(
           xq, xs, wq, ws, out, part, b, n, d, G, gpt, splits, s);
     case 2:
-      return launch_mma_shape<2, 4, 2, 2, KM, BIG>(
+      return launch_mma_shape<2, 4, 2, 2, KM, BIG, WL>(
           xq, xs, wq, ws, out, part, b, n, d, G, gpt, splits, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -13,7 +13,8 @@
 //    acc_t and out start at 0. The group dots are exact integers, so lanes
 //    may split them in any order; the scale-and-sum rounds every product and
 //    every sum as written (intrinsics, -fmad=false), so the kernel is
-//    bit-equal to ops/cuda/q8_matmul.py::q8_q8_matmul_pallas_plain.
+//    bit-equal to ops/cuda/q8_matmul.py::q8_q8_matmul_pallas_plain. It is
+//    row 1's function (csrc/q8_matmul.cu) on the weights' transpose.
 //  - q8_matmul_pallas (body _kernel): activations x [b, n] (f32; bf16 values
 //    arrive widened to f32) times the dequantized weights in compute type
 //    f32 (true fp32, no TF32) or bf16, summed in fp32:
@@ -31,185 +32,82 @@
 // so the TPU's column tile (block_d) changes no number and has no role here.
 //
 // Bound: weight bytes at small b (each weight costs 1 + 4/G bytes and is used
-// b times), operations at large b. Two designs:
-//  - b > 8 (and q8_q8_matmul_pallas at every b): a tile kernel. A block owns
-//    BM rows x 64 columns with 256 threads, BM = 8 for b <= 8 (thread (ty,
-//    tx) owns row ty and columns tx, tx + 32) and 64 above (rows ty + 16 i,
-//    columns tx + 16 j, i, j < 4), and walks k in chunks of kc = min(G, 64)
-//    staged in shared memory. The weight chunk [kc, 64] is read along d (a
-//    warp reads 128 contiguous bytes of a weight row); the int8 kernel
-//    transposes each 4 x 4 byte block with __byte_perm so that one word
-//    holds 4 consecutive k of one column for __dp4a. Each row's arithmetic
-//    is the same at any BM, so a row's bits do not depend on its
-//    batch-mates. When the row and column blocks alone would not fill the
-//    card (small b, narrow d), the k-tiles also split across blocks: block
-//    z computes acc_z into part[z], and a second kernel sums the tiles in
-//    order (out = ((0 + acc_0) + acc_1) + ...), the same sums as one block
-//    walking every tile.
-//  - q8_matmul_pallas at b <= 8 (decode): q8_untiled_gemv_kernel. The tile
-//    kernel's first design here (8 rows a block, 7 of them zeros at b = 1,
-//    one 4-byte weight load a thread a k-row, two barriers a chunk and no
-//    load in flight) took 3.74 ms a token's 113 matrices where F.linear
-//    takes 1.14 and the bytes 0.19 (qwen3-0.6b in f32 prescale, an NVIDIA
-//    H100 80GB HBM3 at 700 W, chip_smoke.py). The function fixes each (row,
-//    column)'s sum over a k-tile as one fmaf chain in k order, so the
-//    parallelism is d x (k-tiles) chains, each 512 long: a lane owns one
-//    column (32 columns a warp, a k-row's 32 contiguous bytes) and its R =
-//    b (rounded up to 1, 2, 4 or 8) rows' chains, and the warps of a block
-//    take the k-tiles of its 32 columns (warp w: tiles w, w + warps, ...),
-//    so wo and w2 run 4-6 warps on each of 32 blocks and the classifier 2
-//    on each of 4748. Each warp streams its tiles through its own cp.async
-//    ring of kUgRing stages of 128 k-rows (64 at b > 2; the weights, the
-//    rows' activations and the stage's group scales, 16-byte copies) with
-//    kUgRing - 1 stages in flight before any FMA, waits on its own copies
-//    and a __syncwarp, so no barrier couples the warps; an int8 weight
-//    becomes f32 by one integer add and one exact fadd. The tiles' sums
-//    land in shared memory and are added in tile order after one barrier:
-//    the tile kernel's arithmetic, the same bits at any b.
+// b times), operations at large b.
+//
+// q8_q8_matmul_pallas. Its first design, an 8-row (b <= 8) or 64-row __dp4a
+// tile on CUDA cores (one 4-byte weight load a thread a k-row, two
+// barriers a chunk, no load in flight), took 2.16 ms a token's 113
+// matrices at b = 1 where F.linear takes 1.11 (qwen3-0.6b, an NVIDIA H100
+// 80GB HBM3 at 700 W, chip_smoke.py). Now, on the route
+// ops/cuda/q8_matmul.py::plan_untiled_q8q8 gives:
+//  - up to UNTILED_Q8Q8_GEMV_ROWS rows, q8q8_untiled_gemv_kernel, one
+//    launch. A block owns 32 columns and all of k; its warps (up to 16)
+//    split k in units of whole stages and whole groups (128 k-rows, 64 at b
+//    > 2, or G), each through its own cp.async ring (the weights, the rows'
+//    int8 activations and both group scales), so that a layer matrix's
+//    warps hold about one stage each, all in flight at once, and no barrier
+//    couples the warps until the end. A column's k is strided by d in this
+//    layout, so a lane reads the words of 4 k-rows x 4 columns (k-rows
+//    swizzled in the stage so that a warp's 32 reads hit 32 banks),
+//    transposes them with __byte_perm into words of 4 k a column and runs
+//    __dp4a against the activation word: lane (q, w) holds the partial dots
+//    of columns 4 w .. + 3 over k-quad q of every 16 k. At a group's end two
+//    shuffle rounds leave lane (q, w) the whole dot of column 4 w + q (a
+//    reduce-scatter of exact integers), and it parks the group's term
+//    f32(dot) * (xs * ws) in shared memory; after one barrier a thread a
+//    (row, column) adds the terms in group order within each k-tile and the
+//    tiles in order. Its first design gave a warp whole k-tiles, acc_t in
+//    registers: 4 stages in a row a warp, about 11 us a layer matrix
+//    whatever its size.
+//  - above, q8q8_mma_kernel of q8_kernels.cuh (row 1's tile path: mma.sync
+//    s8, the ordered epilogue in the fragments, plan_q8q8's tiles and
+//    k-split) with the weights staged as [k][cols] bytes (kWCols): its B
+//    fragments come from ldmatrix .trans and __byte_perm (see there), its
+//    epilogue and sum order are row 1's, so its bits are those of row 1 on
+//    w_q.T by construction.
+// Every route computes each row alone in the same order, so no route, b or
+// split changes a bit.
+//
+// q8_matmul_pallas:
+//  - b > 8: a tile kernel. A block owns 64 rows x 64 columns with 256
+//    threads (thread (ty, tx) owns rows ty + 16 i, columns tx + 16 j, i, j
+//    < 4) and walks k in chunks of kc = min(G, 64) staged in shared memory,
+//    the weight chunk [kc, 64] read along d. Each row's arithmetic is the
+//    same at any b, so a row's bits do not depend on its batch-mates. When
+//    the row and column blocks alone would not fill the card, the k-tiles
+//    also split across blocks: block z computes acc_z into part[z], and a
+//    second kernel sums the tiles in order (out = ((0 + acc_0) + acc_1) +
+//    ...), the same sums as one block walking every tile.
+//  - b <= 8 (decode): q8_untiled_gemv_kernel. The tile kernel's first design
+//    here (8 rows a block, 7 of them zeros at b = 1, one 4-byte weight load
+//    a thread a k-row, two barriers a chunk and no load in flight) took
+//    3.74 ms a token's 113 matrices where F.linear takes 1.14 and the bytes
+//    0.19 (qwen3-0.6b in f32 prescale, an NVIDIA H100 80GB HBM3 at 700 W,
+//    chip_smoke.py). The function fixes each (row, column)'s sum over a
+//    k-tile as one fmaf chain in k order, so the parallelism is d x
+//    (k-tiles) chains, each 512 long: a lane owns one column (32 columns a
+//    warp, a k-row's 32 contiguous bytes) and its R = b (rounded up to 1,
+//    2, 4 or 8) rows' chains, and the warps of a block take the k-tiles of
+//    its 32 columns (warp w: tiles w, w + warps, ...), so wo and w2 run 4-6
+//    warps on each of 32 blocks and the classifier 2 on each of 4748. Each
+//    warp streams its tiles through its own cp.async ring of kUgRing stages
+//    of 128 k-rows (64 at b > 2; the weights, the rows' activations and the
+//    stage's group scales, 16-byte copies) with kUgRing - 1 stages in
+//    flight before any FMA, waits on its own copies and a __syncwarp, so no
+//    barrier couples the warps; an int8 weight becomes f32 by one integer
+//    add and one exact fadd. The tiles' sums land in shared memory and are
+//    added in tile order after one barrier: the tile kernel's arithmetic,
+//    the same bits at any b.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "smem_attr.cuh"
+#include "q8_kernels.cuh"
 
 namespace {
 
-constexpr int kCols = 64, kThreads = 256, kMaxChunk = 64;
-constexpr int kPadWords = kMaxChunk / 4 + 1;
-
-// rows a[i] hold columns 0..3 of k-row i; word j of the result holds k-rows
-// 0..3 of column j
-__device__ __forceinline__ void transpose4x4(const int a[4], int c[4]) {
-  const int t0 = __byte_perm(a[0], a[1], 0x5140);
-  const int t1 = __byte_perm(a[0], a[1], 0x7362);
-  const int t2 = __byte_perm(a[2], a[3], 0x5140);
-  const int t3 = __byte_perm(a[2], a[3], 0x7362);
-  c[0] = __byte_perm(t0, t2, 0x5410);
-  c[1] = __byte_perm(t0, t2, 0x7632);
-  c[2] = __byte_perm(t1, t3, 0x5410);
-  c[3] = __byte_perm(t1, t3, 0x7632);
-}
-
-// Requires G a power of two in [16, 512], n % G == 0, d % 4 == 0.
-template <int BM, int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
-q8q8_untiled_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                    const int8_t* __restrict__ wq,
-                    const float* __restrict__ ws, float* __restrict__ out,
-                    int b, int n, int d, int G, int gpt, int split) {
-  constexpr int TY = BM / TM, TX = kThreads / TY;
-  static_assert(TX * TN == kCols, "a block owns 64 columns");
-  __shared__ int x_sm[BM][kPadWords];
-  __shared__ int w_sm[kCols][kPadWords];
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * kCols;
-  const int kc = min(G, kMaxChunk);
-  const int chunks = G / kc;   // chunks per group
-  const int xv = kc / 16;      // int4 loads per activation row per chunk
-  const int ng = n / G;
-  const int t_begin = split ? (int)blockIdx.z : 0;
-  const int t_end = split ? t_begin + 1 : ng / gpt;
-  float o[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) o[i][j] = 0.f;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    for (int gi = 0; gi < gpt; ++gi) {
-      const int g = t * gpt + gi;
-      int dot[TM][TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) dot[i][j] = 0;
-      for (int ch = 0; ch < chunks; ++ch) {
-        const int k0 = g * G + ch * kc;
-        for (int e = tid; e < BM * xv; e += kThreads) {
-          const int r = e / xv, v = e % xv;
-          int4 xw = make_int4(0, 0, 0, 0);
-          if (r0 + r < b)
-            xw = __ldg(reinterpret_cast<const int4*>(xq + (size_t)(r0 + r) * n +
-                                                     k0) + v);
-          int* xd = &x_sm[r][4 * v];
-          xd[0] = xw.x; xd[1] = xw.y; xd[2] = xw.z; xd[3] = xw.w;
-        }
-        // item (kq, cq): k-rows k0 + 4 kq .. + 3 of columns c0 + 4 cq .. + 3
-        for (int e = tid; e < (kc / 4) * (kCols / 4); e += kThreads) {
-          const int kq = e / (kCols / 4), cq = e % (kCols / 4);
-          const int c = c0 + 4 * cq;
-          int a[4] = {0, 0, 0, 0}, cw[4];
-          if (c < d) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              a[i] = __ldg(reinterpret_cast<const int*>(
-                  wq + (size_t)(k0 + 4 * kq + i) * d + c));
-          }
-          transpose4x4(a, cw);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) w_sm[4 * cq + j][kq] = cw[j];
-        }
-        __syncthreads();
-        for (int w = 0; w < kc / 4; ++w) {
-          int xr[TM], wr[TN];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) xr[i] = x_sm[ty + TY * i][w];
-#pragma unroll
-          for (int j = 0; j < TN; ++j) wr[j] = w_sm[tx + TX * j][w];
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j)
-              dot[i][j] = __dp4a(xr[i], wr[j], dot[i][j]);
-        }
-        __syncthreads();
-      }
-      float sx[TM], sw[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int r = r0 + ty + TY * i;
-        sx[i] = r < b ? xs[(size_t)r * ng + g] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = c0 + tx + TX * j;
-        sw[j] = c < d ? ws[(size_t)g * d + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          acc[i][j] = __fadd_rn(acc[i][j],
-                                __fmul_rn(__int2float_rn(dot[i][j]),
-                                          __fmul_rn(sx[i], sw[j])));
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) o[i][j] = __fadd_rn(o[i][j], acc[i][j]);
-  }
-  float* dst = out + (split ? (size_t)t_begin * b * d : 0);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + ty + TY * i;
-    if (r >= b) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx + TX * j;
-      if (c < d) dst[(size_t)r * d + c] = o[i][j];
-    }
-  }
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+constexpr int kCols = 64, kThreads = 256;
 
 // Requires G a power of two in [16, 512], n % G == 0, d % 4 == 0.
 template <int BM, int TM, int TN>
@@ -368,27 +266,6 @@ int sum_tiles(const float* part, float* out, int nt, size_t count,
 
 // ------------------------------------------------- the GEMV, b <= 8 ----
 
-__device__ __forceinline__ void ug_copy16(unsigned dst, const void* src,
-                                          bool on) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(on ? 16 : 0));
-}
-
-__device__ __forceinline__ void ug_copy4(unsigned dst, const void* src,
-                                         bool on) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(on ? 4 : 0));
-}
-
-__device__ __forceinline__ void ug_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void ug_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // A stage: K = ug_k(R) k-rows of the warp's 32 columns (32 bytes a row),
 // the R rows' activations over those k ([R][K] f32), and the scales of the
 // stage's groups (up to K / 16 rows of 32 f32); kUgRing = 4 stages a warp.
@@ -478,7 +355,7 @@ q8_untiled_gemv_kernel(const float* __restrict__ x,
         for (int i = 0; i < WB / 16 / 32; ++i) {
           const int e = lane + 32 * i, r = e >> 1, h = e & 1;
           const bool on = r < rows && c0 + 16 * h < d;
-          ug_copy16(base + 16 * e,
+          cp_async16_s(base + 16 * e,
                     on ? (const void*)(wq + (size_t)(k0 + r) * d + c0 + 16 * h)
                        : (const void*)wq,
                     on);
@@ -488,7 +365,7 @@ q8_untiled_gemv_kernel(const float* __restrict__ x,
         for (int i = 0; i < WB / 4 / 32; ++i) {
           const int e = lane + 32 * i, r = e >> 3, wd = e & 7;
           const bool on = r < rows && c0 + 4 * wd < d;
-          ug_copy4(base + 4 * e,
+          cp_async4_s(base + 4 * e,
                    on ? (const void*)(wq + (size_t)(k0 + r) * d + c0 + 4 * wd)
                       : (const void*)wq,
                    on);
@@ -499,7 +376,7 @@ q8_untiled_gemv_kernel(const float* __restrict__ x,
         const int e = lane + 32 * i, r = e / (K / 4), p = e % (K / 4);
         if (e < R * K / 4) {
           const bool on = r < b && 4 * p < rows;
-          ug_copy16(base + WB + 16 * e,
+          cp_async16_s(base + WB + 16 * e,
                     on ? (const void*)(x + (size_t)r * n + k0 + 4 * p)
                        : (const void*)x,
                     on);
@@ -509,13 +386,13 @@ q8_untiled_gemv_kernel(const float* __restrict__ x,
       for (int e = lane; e < 8 * nsl; e += 32) {
         const int j = e >> 3, p = e & 7, g = (k0 >> lg) + j;
         const bool on = (j << lg) < rows && g < ng && c0 + 4 * p < d;
-        ug_copy16(base + WB + XB + 16 * e,
+        cp_async16_s(base + WB + XB + 16 * e,
                   on ? (const void*)(ws + (size_t)g * d + c0 + 4 * p)
                      : (const void*)ws,
                   on);
       }
     }
-    ug_commit();
+    cp_async_commit();
   };
 
   float acc[R], sg[R];
@@ -525,7 +402,7 @@ q8_untiled_gemv_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) load(s);
   for (int q = 0; q < total; ++q) {
-    ug_wait<S - 2>();   // this lane's copies of stage q have landed
+    cp_async_wait<S - 2>();   // this lane's copies of stage q have landed
     char* st = ring + (q % S) * SB;
     float* xst = reinterpret_cast<float*>(st + WB);
     if (BF16) {   // round the activations this lane copied, in place
@@ -565,7 +442,7 @@ q8_untiled_gemv_kernel(const float* __restrict__ x,
       }
     }
   }
-  ug_wait<0>();
+  cp_async_wait<0>();
   __syncthreads();
   // out = ((0 + tile 0) + tile 1) + ..., in tile order
   for (int e = threadIdx.x; e < R * 32; e += blockDim.x) {
@@ -612,41 +489,304 @@ int untiled_gemv_rows(const float* x, const int8_t* wq, const float* ws,
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------- the Q8_0 x Q8_0 GEMV, b <= 4 rows ----
+
+// A stage: K = qg_k(R) k-rows of the warp's 32 columns (32 bytes a row,
+// k-row 4 u + i of each 16 stored as row 4 u + (i ^ (u & 3))), the R rows'
+// int8 activations over those k ([R][K]), their group scales ([R][K / 16]
+// f32 at most) and the weights' ([K / 16][32] f32 at most); kQgRing = 4
+// stages a warp at most.
+constexpr int kQgRing = 4, kQgSmemBudget = 200 * 1024;
+
+__host__ __device__ constexpr int qg_k(int R) { return R <= 2 ? 128 : 64; }
+__host__ __device__ constexpr int qg_xoff(int R) { return qg_k(R) * 32; }
+__host__ __device__ constexpr int qg_xsoff(int R) {
+  return qg_xoff(R) + R * qg_k(R);
+}
+__host__ __device__ constexpr int qg_wsoff(int R) {
+  return qg_xsoff(R) + 4 * R * (qg_k(R) / 16);
+}
+__host__ __device__ constexpr int qg_stage_bytes(int R) {
+  return qg_wsoff(R) + 4 * 32 * (qg_k(R) / 16);
+}
+
+__device__ __forceinline__ int qg_row(int kr) {
+  return (kr & ~3) | ((kr & 3) ^ ((kr >> 2) & 3));
+}
+
+// Lanes l, l ^ 8, l ^ 16, l ^ 24 (q = l >> 3) each hold partial sums v of
+// four columns; returns the total of column q (exact integer adds).
+__device__ __forceinline__ int reduce_scatter4(const int (&v)[4], int q) {
+  const bool hi = q & 2, lo = q & 1;
+  int k0 = hi ? v[2] : v[0], k1 = hi ? v[3] : v[1];
+  k0 += __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 16);
+  k1 += __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 16);
+  return (lo ? k1 : k0) + __shfl_xor_sync(0xffffffffu, lo ? k0 : k1, 8);
+}
+
+// Block: nw warps over columns 32 blockIdx.x .. (kQgMaxWarps at most) and
+// the whole of k, in units of U = max(K, G) k-rows (whole stages, whole
+// groups): warp w takes units w, w + nw, ..., each a stage or (G > K) G / K
+// stages in a row, through its ring of `slots` stages (min(kQgRing, its
+// stages)). Each group's term goes to shared memory, [ng][R][32], and after
+// one barrier thread (r, column) adds them up in the plain version's order.
+// Requires b <= R, G a power of two in [16, 512], n % G == 0, d % 4 == 0,
+// tk a multiple of G, R * n / G <= kQgMaxTerms.
+constexpr int kQgMaxWarps = 16, kQgMaxTerms = 1024;
+
+template <int R>
+__global__ void __launch_bounds__(32 * kQgMaxWarps, 1)
+q8q8_untiled_gemv_kernel(const int8_t* __restrict__ xq,
+                         const float* __restrict__ xs,
+                         const int8_t* __restrict__ wq,
+                         const float* __restrict__ ws, float* __restrict__ out,
+                         int b, int n, int d, int G, int tk, int slots) {
+  constexpr int S = kQgRing, K = qg_k(R), SB = qg_stage_bytes(R);
+  constexpr int XO = qg_xoff(R), XSO = qg_xsoff(R), WSO = qg_wsoff(R);
+  constexpr int NSL = K / 16;   // group-scale slots a stage
+  extern __shared__ int4 qg_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  char* ring = reinterpret_cast<char*>(qg_smem) + (size_t)warp * slots * SB;
+  float* terms = reinterpret_cast<float*>(reinterpret_cast<char*>(qg_smem) +
+                                          (size_t)nw * slots * SB);
+  const unsigned ring_s = (unsigned)__cvta_generic_to_shared(ring);
+  const int c0 = blockIdx.x * 32;
+  const bool vec16 = (d & 15) == 0;   // a k-row's 32 bytes in 16-byte copies
+  const int lg = 31 - __clz(G), ng = n / G;
+  const int nsl = G < K ? K / G : 1;   // groups a stage
+  const int U = max(K, G), spu = U / K, nu = n / U + (n % U != 0);
+  const int total = warp < nu ? (nu - warp + nw - 1) / nw * spu : 0;
+  // the lane's k-quad of each 16 k and its 4 columns; after a group's
+  // reduce-scatter, its column
+  const int q = lane >> 3, w = lane & 7, col = 4 * w + q;
+  auto stage_k0 = [&](int qs) {   // this warp's stage qs: its first k
+    return (warp + nw * (qs / spu)) * U + (qs % spu) * K;
+  };
+
+  auto load = [&](int qs) {   // called for qs = 0, 1, 2, ... in order
+    if (qs < total) {
+      const int k0 = stage_k0(qs), rows = min(K, n - k0);
+      const int g0 = k0 >> lg;
+      const unsigned base = ring_s + (qs % S) * SB;
+      if (vec16) {
+#pragma unroll
+        for (int i = 0; i < K * 2 / 32; ++i) {
+          const int e = lane + 32 * i, kr = e >> 1, h = e & 1;
+          const bool on = kr < rows && c0 + 16 * h < d;
+          cp_async16_s(base + 32 * qg_row(kr) + 16 * h,
+                       on ? (const void*)(wq + (size_t)(k0 + kr) * d + c0 +
+                                          16 * h)
+                          : (const void*)wq,
+                       on);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < K * 8 / 32; ++i) {
+          const int e = lane + 32 * i, kr = e >> 3, wd = e & 7;
+          const bool on = kr < rows && c0 + 4 * wd < d;
+          cp_async4_s(base + 32 * qg_row(kr) + 4 * wd,
+                      on ? (const void*)(wq + (size_t)(k0 + kr) * d + c0 +
+                                         4 * wd)
+                         : (const void*)wq,
+                      on);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < (R * K / 16 + 31) / 32; ++i) {
+        const int e = lane + 32 * i, r = e / (K / 16), p = e % (K / 16);
+        if (e < R * K / 16) {
+          const bool on = r < b && 16 * p < rows;
+          cp_async16_s(base + XO + 16 * e,
+                       on ? (const void*)(xq + (size_t)r * n + k0 + 16 * p)
+                          : (const void*)xq,
+                       on);
+        }
+      }
+      for (int e = lane; e < R * NSL; e += 32) {
+        const int r = e / NSL, j = e % NSL;
+        const bool on = r < b && j < nsl && (j << lg) < rows && g0 + j < ng;
+        cp_async4_s(base + XSO + 4 * e,
+                    on ? (const void*)(xs + (size_t)r * ng + g0 + j)
+                       : (const void*)xs,
+                    on);
+      }
+      for (int e = lane; e < 8 * nsl; e += 32) {
+        const int j = e >> 3, p = e & 7;
+        const bool on = (j << lg) < rows && g0 + j < ng && c0 + 4 * p < d;
+        cp_async16_s(base + WSO + 16 * e,
+                     on ? (const void*)(ws + (size_t)(g0 + j) * d + c0 + 4 * p)
+                        : (const void*)ws,
+                     on);
+      }
+    }
+    cp_async_commit();
+  };
+
+  int dot[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dot[r][j] = 0;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) load(s);
+  for (int qs = 0; qs < total; ++qs) {
+    cp_async_wait<S - 2>();   // this lane's copies of stage qs have landed
+    __syncwarp();   // every lane's copies visible; slot qs - 1 is free again
+    load(qs + S - 1);
+    const int k0 = stage_k0(qs), rows = min(K, n - k0);
+    const char* st = ring + (qs % S) * SB;
+    const float* sxs = reinterpret_cast<const float*>(st + XSO);
+    const float* sws = reinterpret_cast<const float*>(st + WSO);
+    // 16 k of the stage from kk: 4 k-rows x 4 columns a lane, transposed
+    // into words of 4 k a column, then __dp4a against the activations; at a
+    // group's end the reduce-scatter and the group's term
+    auto step16 = [&](int kk) {
+      int a[4], c[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const int*>(st + 32 * (kk + 4 * q + (i ^ q)) +
+                                             4 * w);
+      transpose4x4(a, c);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int xw =
+            *reinterpret_cast<const int*>(st + XO + r * K + kk + 4 * q);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dot[r][j] = __dp4a(c[j], xw, dot[r][j]);
+      }
+      if ((k0 + kk + 16) & (G - 1)) return;   // the group goes on
+      const int g = (k0 + kk) >> lg, js = g - (k0 >> lg);
+      const float sw = sws[32 * js + col];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int v = reduce_scatter4(dot[r], q);
+        terms[((size_t)g * R + r) * 32 + col] =
+            __fmul_rn(__int2float_rn(v), __fmul_rn(sxs[r * NSL + js], sw));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dot[r][j] = 0;
+      }
+    };
+    if (rows == K) {
+      // 4 steps at a time: 512 threads leave a lane 128 registers, and the
+      // whole stage unrolled spilled at R = 1 and 2 and was no faster on
+      // any layer matrix of qwen3-0.6b or qwen3-4b (an H100)
+#pragma unroll 4
+      for (int kk = 0; kk < K; kk += 16) step16(kk);
+    } else {
+      for (int kk = 0; kk < rows; kk += 16) step16(kk);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // out = sum over k-tiles t, in order, of (sum over t's groups, in order,
+  // of the terms), each from 0
+  const int gpt = tk / G, nt = ng / gpt;
+  for (int e = threadIdx.x; e < R * 32; e += blockDim.x) {
+    const int r = e >> 5, l = e & 31;
+    float o = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      float acc = 0.f;
+      for (int i = 0; i < gpt; ++i)
+        acc = __fadd_rn(acc, terms[((size_t)(t * gpt + i) * R + r) * 32 + l]);
+      o = __fadd_rn(o, acc);
+    }
+    if (r < b && c0 + l < d) out[(size_t)r * d + c0 + l] = o;
+  }
+}
+
+// The GEMV's block: as many warps as its units, up to kQgMaxWarps, fewer
+// while the rings and the terms would pass the shared memory budget
+template <int R>
+int launch_q8q8_untiled_gemv(const int8_t* xq, const float* xs,
+                             const int8_t* wq, const float* ws, float* out,
+                             int b, int n, int d, int G, int gpt,
+                             cudaStream_t s) {
+  static size_t set[16] = {};
+  constexpr int K = qg_k(R);
+  const int ng = n / G, U = max(K, G), spu = U / K;
+  const int nu = n / U + (n % U != 0);
+  if (R * ng > kQgMaxTerms) return (int)cudaErrorInvalidValue;
+  const size_t terms = sizeof(float) * (size_t)ng * R * 32;
+  int nw = min(nu, kQgMaxWarps), slots = 0;
+  size_t smem = 0;
+  for (;; --nw) {
+    slots = min(kQgRing, (nu + nw - 1) / nw * spu);
+    smem = (size_t)nw * slots * qg_stage_bytes(R) + terms;
+    if (smem <= kQgSmemBudget || nw == 1) break;
+  }
+  auto kernel = q8q8_untiled_gemv_kernel<R>;
+  const int err = allow_smem(kernel, smem, set);
+  if (err) return err;
+  kernel<<<(unsigned)((d + 31) / 32), 32 * nw, smem, s>>>(
+      xq, xs, wq, ws, out, b, n, d, G, gpt * G, slots);
+  return (int)cudaGetLastError();
+}
+
+// The tile path on [n, d] weights: q8_kernels.cuh's tile kernel with
+// plan_q8q8's grid (`shape`, `splits`, `part`); kWCols4 where d's rows are
+// not 16-byte aligned.
+inline int q8q8_untiled_tiles(const int8_t* xq, const float* xs,
+                              const int8_t* wq, const float* ws, float* out,
+                              float* part, int b, int n, int d, int G,
+                              int gpt, int shape, int splits,
+                              cudaStream_t s) {
+  const bool v16 = (d & 15) == 0;
+  // an MMA never spans two groups; past G = 128 a dot may reach 2^22
+  if (G == 16)
+    return v16 ? launch_mma<16, false, kWCols>(xq, xs, wq, ws, out, part, b,
+                                               n, d, G, gpt, shape, splits, s)
+               : launch_mma<16, false, kWCols4>(xq, xs, wq, ws, out, part, b,
+                                                n, d, G, gpt, shape, splits, s);
+  if (G >= 256)
+    return v16 ? launch_mma<32, true, kWCols>(xq, xs, wq, ws, out, part, b, n,
+                                              d, G, gpt, shape, splits, s)
+               : launch_mma<32, true, kWCols4>(xq, xs, wq, ws, out, part, b,
+                                               n, d, G, gpt, shape, splits, s);
+  return v16 ? launch_mma<32, false, kWCols>(xq, xs, wq, ws, out, part, b, n,
+                                             d, G, gpt, shape, splits, s)
+             : launch_mma<32, false, kWCols4>(xq, xs, wq, ws, out, part, b, n,
+                                              d, G, gpt, shape, splits, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // out = q8_q8_matmul_pallas(xq, xs, wq, ws): xq int8 [b, n], xs f32 [b, n/G],
 // wq int8 [n, d], ws f32 [n/G, d], out f32 [b, d]; gpt groups a k-tile.
-// part: null, or f32 [n / (gpt G), b, d] scratch to split the k-tiles over
-// blocks. Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// gemv != 0 (b <= 4) runs the GEMV, one launch; else the tile path with
+// plan_q8q8's `shape` and `splits` (part: f32 [n / (gpt G), b, d] scratch
+// when splits > 1, else unused). Launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
 int q8q8_untiled(const void* xq, const void* xs, const void* wq,
                  const void* ws, void* out, void* part, int b, int n, int d,
-                 int group_size, int gpt, void* stream) {
+                 int group_size, int gpt, int gemv, int shape, int splits,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nt = n / group_size / gpt;
-  const bool split = part != nullptr;
-  float* dst = static_cast<float*>(split ? part : out);
   const int8_t* x8 = static_cast<const int8_t*>(xq);
   const float* xsf = static_cast<const float*>(xs);
   const int8_t* w8 = static_cast<const int8_t*>(wq);
   const float* wsf = static_cast<const float*>(ws);
-  if (b <= 8)
-    q8q8_untiled_kernel<8, 1, 2><<<grid_of(b, d, 8, nt, split), kThreads, 0, s>>>(
-        x8, xsf, w8, wsf, dst, b, n, d, group_size, gpt, (int)split);
-  else
-    q8q8_untiled_kernel<64, 4, 4><<<grid_of(b, d, 64, nt, split), kThreads, 0,
-                                    s>>>(x8, xsf, w8, wsf, dst, b, n, d,
-                                         group_size, gpt, (int)split);
-  if (!split) return (int)cudaGetLastError();
-  return sum_tiles(dst, static_cast<float*>(out), nt, (size_t)b * d, s);
+  float* o = static_cast<float*>(out);
+  const int G = group_size;
+  if (!gemv)
+    return q8q8_untiled_tiles(x8, xsf, w8, wsf, o, static_cast<float*>(part),
+                              b, n, d, G, gpt, shape, splits, s);
+  if (b <= 1)
+    return launch_q8q8_untiled_gemv<1>(x8, xsf, w8, wsf, o, b, n, d, G, gpt, s);
+  if (b <= 2)
+    return launch_q8q8_untiled_gemv<2>(x8, xsf, w8, wsf, o, b, n, d, G, gpt, s);
+  if (b <= 4)
+    return launch_q8q8_untiled_gemv<4>(x8, xsf, w8, wsf, o, b, n, d, G, gpt, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // out = q8_matmul_pallas(x, wq, ws): x f32 [b, n], wq int8 [n, d], ws f32
 // [n/G, d], out f32 [b, d]; bf16 != 0 computes in bf16, postscale != 0
 // scales each group's dot after it. gemv != 0 (b <= 8) runs the GEMV, one
-// launch, and ignores part; else the tile kernel, with gpt and part as for
-// q8q8_untiled.
+// launch, and ignores part; else the 64-row tile kernel, its k-tiles split
+// over blocks into part (f32 [n / (gpt G), b, d]) when part is not null.
 int q8_untiled(const void* x, const void* wq, const void* ws, void* out,
                void* part, int b, int n, int d, int group_size, int gpt,
                int bf16, int postscale, int gemv, void* stream) {
@@ -669,14 +809,9 @@ int q8_untiled(const void* x, const void* wq, const void* ws, void* out,
   const int nt = n / group_size / gpt;
   const bool split = part != nullptr;
   float* dst = static_cast<float*>(split ? part : out);
-  if (b <= 8)
-    q8_untiled_kernel<8, 1, 2><<<grid_of(b, d, 8, nt, split), kThreads, 0, s>>>(
-        xf, w8, wsf, dst, b, n, d, group_size, gpt, bf16, postscale,
-        (int)split);
-  else
-    q8_untiled_kernel<64, 4, 4><<<grid_of(b, d, 64, nt, split), kThreads, 0,
-                                  s>>>(xf, w8, wsf, dst, b, n, d, group_size,
-                                       gpt, bf16, postscale, (int)split);
+  q8_untiled_kernel<64, 4, 4><<<grid_of(b, d, 64, nt, split), kThreads, 0,
+                                s>>>(xf, w8, wsf, dst, b, n, d, group_size,
+                                     gpt, bf16, postscale, (int)split);
   if (!split) return (int)cudaGetLastError();
   return sum_tiles(dst, static_cast<float*>(out), nt, (size_t)b * d, s);
 }

@@ -46,8 +46,8 @@ SIGNATURES = {
     "flash_decode_two_segment": [_P] * 15 + [_I] * 9 + [_F, _P],
     "flash_prefill": [_P] * 9 + [_I] * 10 + [_F, _P],
     "batched_decode_partial": [_P] * 12 + [_I] * 9 + [_F, _P],
-    "kv_write_rows": [_P] * 3 + [_I] * 5 + [_P],
-    "q8q8_untiled": [_P] * 6 + [_I] * 5 + [_P],
+    "kv_write_rows": [_P] * 3 + [_I] * 6 + [_P],
+    "q8q8_untiled": [_P] * 6 + [_I] * 8 + [_P],
     "q8_untiled": [_P] * 5 + [_I] * 8 + [_P],
     "pure_read_stacked": [_P, _I, _P] + [_I] * 5 + [_P],
     "pure_read_manual": [_P, _I, _P] + [_I] * 6 + [_P],

@@ -11,8 +11,10 @@ caveat is about XLA's scan carries; here it is the same function either way).
   rows      [B, KV, D] float (cast to the cache's dtype, bf16 round to
             nearest even)
   layer     int
-  positions [B] int (the caller clamps them into [0, S); both versions clamp
-            again, so a stray index stays inside the cache)
+  positions [B] int, clamped into [0, S) so that a stray index stays
+            inside the cache: by the plain version on the CPU, by the
+            kernel alone on the card, which reads int32 or int64 as
+            stored, with no cast
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `LAUNCHES` counts kernel launches.
@@ -66,10 +68,28 @@ def kv_write_rows_plain(cache: torch.Tensor, rows: torch.Tensor, layer: int,
     return cache
 
 
+def _device_positions(positions, B: int, device) -> torch.Tensor:
+    """The positions as the kernel reads them: int32 or int64 [B] on the
+    cache's device, with no device op for a CUDA tensor of either dtype (a
+    Python list or a CPU tensor takes its host-to-device copy; a CUDA tensor
+    of another integer dtype is converted once). The kernel clamps them."""
+    pos = torch.as_tensor(positions)
+    if pos.device != device:
+        pos = pos.to(device)
+    if pos.dtype not in (torch.int32, torch.int64):
+        if pos.is_floating_point() or pos.is_complex():
+            raise TypeError(f"positions must be integers, got {pos.dtype}")
+        pos = pos.to(torch.int32)
+    if pos.shape != (B,):
+        raise ValueError(f"positions must be [{B}], got {tuple(pos.shape)}")
+    return pos.contiguous()
+
+
 def kv_write_rows(cache: torch.Tensor, rows: torch.Tensor, layer: int,
                   positions) -> torch.Tensor:
     """Write rows[b] into cache[layer, b, positions[b]] for all b at once;
-    returns `cache` (updated in place)."""
+    returns `cache` (updated in place). On the card one kernel a call: the
+    kernel reads int32 or int64 positions as stored and clamps them."""
     if cache.device.type == "cpu":
         return kv_write_rows_plain(cache, rows, layer, positions)
     from qwen3_tpu_torch.ops.cuda.build import load_library
@@ -80,10 +100,11 @@ def kv_write_rows(cache: torch.Tensor, rows: torch.Tensor, layer: int,
     src = rows.float().contiguous()
     if not cache.is_contiguous():
         raise ValueError("cache must be contiguous")
-    pos = _positions(positions, B, S, cache.device)
+    pos = _device_positions(positions, B, cache.device)
     err = load_library().kv_write_rows(
         cache.data_ptr(), src.data_ptr(), pos.data_ptr(), layer, B, S,
         KV * D, int(cache.dtype == torch.bfloat16),
+        int(pos.dtype == torch.int64),
         torch.cuda.current_stream(cache.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kv_write_rows kernel launch failed: CUDA error "

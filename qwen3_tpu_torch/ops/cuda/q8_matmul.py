@@ -68,7 +68,7 @@ SPLIT_TARGET = 264         # blocks a split grid aims at: two an SM
 
 
 def plan_q8q8(b: int, n: int, d: int, group_size: int,
-              sms: int = 132) -> tuple[int, int]:
+              sms: int = 132, block_k: int = 512) -> tuple[int, int]:
     """The tile path's grid for b > 1: (shape, splits). `shape` indexes
     TILE_ROWS: 16 rows up to b = 16, 32 up to b = 64 (two 32-row blocks
     beat one of 64 there), 64 past it (as fast as 128-row blocks at b = 512
@@ -76,11 +76,12 @@ def plan_q8q8(b: int, n: int, d: int, group_size: int,
     tile's k-tiles (1: none) when the row and column blocks alone are fewer
     than SPLIT_BELOW (scaled to `sms`): at least as many as reach
     SPLIT_TARGET, or one a k-tile, each split holding the same number of
-    k-tiles (the last fewer). Every choice computes each row alone in the
-    same order, so the plan changes no bit."""
+    k-tiles (the last fewer); the k-tiles are _pick_tile(n, 8 G, block_k)
+    wide. Every choice computes each row alone in the same order, so the
+    plan changes no bit."""
     shape = 0 if b <= 16 else 1 if b <= 64 else 2
     blocks = -(-d // TILE_COLS) * -(-b // TILE_ROWS[shape])
-    nt = n // (groups_per_tile(n, group_size) * group_size)
+    nt = n // pick_tile(n, 8 * group_size, block_k)
     if blocks >= SPLIT_BELOW * sms // 132:
         return shape, 1
     want = -(-SPLIT_TARGET * sms // 132 // blocks)
@@ -608,41 +609,101 @@ def _check_untiled(x, x_s, w_q, w_s, group_size, x_dtype):
 
 
 UNTILED_GEMV_ROWS = 8      # q8_matmul_pallas runs its GEMV up to this b
+# q8_q8_matmul_pallas runs its GEMV up to this b (the crossover with the
+# MMA tile path measured by chip_smoke.py on an H100: the GEMV faster on
+# every qwen3-0.6b layer matrix at b <= 4, even with it summed over a token
+# at b = 8), while its group terms, R x n / G with R = b rounded up to 1, 2
+# or 4, are at most UNTILED_GEMV_MAX_TERMS (they sit in shared memory)
+UNTILED_Q8Q8_GEMV_ROWS = 4
+UNTILED_GEMV_MAX_TERMS = 1024
+# ... unless the MMA tile path's 16-row blocks number at least this many on
+# 132 SMs (scaled to the card's count): then the tile path fills the card
+# unsplit, in one launch, and streams the weights faster than the GEMV,
+# whose 32-column blocks run in waves. It is at least SPLIT_TARGET, so that
+# plan_q8q8 gives the tile path no k-split (a second launch) here. Measured
+# by chip_smoke.py at b = 1 on an H100 (GEMV / tile path, us): below it
+# qwen3-0.6b's four layer matrices (1024-6144 columns) 8.1-10.5 / 12.6-13.3
+# and qwen3-4b's wo (2560 columns) 11.9 / 13.7; above it qwen3-4b's w13
+# (19456 columns, 304 blocks) 38.0 / 33.5 and qwen3-0.6b's classifier
+# (151936) 84.4 / 75.1. Below it the GEMV keeps b = 1 at one launch where
+# the tile path, split, is faster: qwen3-4b's wqkv (6144 columns, 96
+# blocks) 15.9 / 14.9 and w2 (2560 columns, 9728 k) 22.9 / 20.5.
+UNTILED_Q8Q8_TILE_BLOCKS = 264
+
+
+def untiled_gemv_fits(b: int, n: int, group_size: int) -> bool:
+    """Whether q8_q8_matmul_pallas's GEMV takes b rows of n."""
+    rows = 1 << max(0, (b - 1).bit_length())
+    return (b <= UNTILED_Q8Q8_GEMV_ROWS
+            and rows * (n // group_size) <= UNTILED_GEMV_MAX_TERMS)
 
 
 def plan_untiled(b: int, n: int, d: int, group_size: int, block_k: int = 512,
-                 sms: int = 132, gemv: bool = True) -> tuple[bool, bool]:
-    """The untiled kernels' route: (gemv, split). With `gemv`
-    (q8_matmul_pallas) a call of at most UNTILED_GEMV_ROWS rows runs the
-    GEMV, one launch whose warps take the k-tiles; otherwise (and always
-    for q8_q8_matmul_pallas) the tile kernel, of 8-row blocks up to b = 8
-    and 64-row blocks above, whose k-tiles split across blocks, with an
-    ordered second pass, when there is more than one and its row and
-    column blocks alone are fewer than 2 sms."""
-    if gemv and b <= UNTILED_GEMV_ROWS:
+                 sms: int = 132) -> tuple[bool, bool]:
+    """q8_matmul_pallas's route: (gemv, split). A call of at most
+    UNTILED_GEMV_ROWS rows runs the GEMV, one launch whose warps take the
+    k-tiles; a larger one the 64-row tile kernel, whose k-tiles split
+    across blocks, with an ordered second pass, when there is more than one
+    and its row and column blocks alone are fewer than 2 sms."""
+    if b <= UNTILED_GEMV_ROWS:
         return True, False
     nt = n // pick_tile(n, 8 * group_size, block_k)
-    blocks = -(-d // 64) * -(-b // (8 if b <= 8 else 64))
+    blocks = -(-d // 64) * -(-b // 64)
     return False, nt > 1 and blocks < 2 * sms
 
 
-def _untiled_launch(kind, fn, x, b, n, d, group_size, block_k, gemv):
-    """Launch an untiled kernel on plan_untiled's route: fn(out, part, gpt,
-    gemv) with part the k-split's scratch or None."""
+def plan_untiled_q8q8(b: int, n: int, d: int, group_size: int,
+                      block_k: int = 512,
+                      sms: int = 132) -> tuple[bool, int, int]:
+    """q8_q8_matmul_pallas's route: (gemv, shape, splits). Up to
+    UNTILED_Q8Q8_GEMV_ROWS rows (where untiled_gemv_fits) the GEMV, one
+    launch whose lanes run over columns (shape 0, splits 1), unless the
+    tile path's blocks reach UNTILED_Q8Q8_TILE_BLOCKS (scaled to `sms`):
+    then the tile path, one launch, unsplit. Above, the MMA tile path on
+    plan_q8q8's grid for these k-tiles. Every route gives the same bits."""
+    tile_blocks = -(-d // TILE_COLS) * -(-b // TILE_ROWS[0])
+    if (untiled_gemv_fits(b, n, group_size)
+            and tile_blocks < UNTILED_Q8Q8_TILE_BLOCKS * sms // 132):
+        return True, 0, 1
+    shape, splits = plan_q8q8(b, n, d, group_size, sms, block_k)
+    return False, shape, splits
+
+
+def q8_q8_untiled_launch(x_q: torch.Tensor, x_s: torch.Tensor,
+                         w_q: torch.Tensor, w_s: torch.Tensor,
+                         group_size: int, block_k: int, gemv: bool,
+                         shape: int = 0, splits: int = 1) -> torch.Tensor:
+    """The untiled exact kernel on CUDA tensors, on a given route: the GEMV
+    (where untiled_gemv_fits), or the tile path with plan_q8q8's `shape` and
+    `splits`. q8_q8_matmul_pallas takes plan_untiled_q8q8's route;
+    chip_smoke.py and the card tests force the others to hold and time
+    them. Raises on a refused launch."""
+    from qwen3_tpu_torch.ops.cuda.build import load_library
+
+    _check_untiled(x_q, x_s, w_q, w_s, group_size, torch.int8)
+    *lead, n = x_q.shape
+    d = w_q.shape[1]
+    b = x_q.numel() // n
     gpt = pick_tile(n, 8 * group_size, block_k) // group_size
     nt = n // group_size // gpt
-    out = torch.empty(b, d, dtype=torch.float32, device=x.device)
-    gemv, split = plan_untiled(b, n, d, group_size, block_k,
-                               _sm_count(x.device), gemv)
+    if gemv and not untiled_gemv_fits(b, n, group_size):
+        raise ValueError(f"the GEMV takes at most {UNTILED_Q8Q8_GEMV_ROWS} "
+                         f"rows and {UNTILED_GEMV_MAX_TERMS} group terms, "
+                         f"got b={b}, n={n}, G={group_size}")
+    out = torch.empty(b, d, dtype=torch.float32, device=x_q.device)
     part = None
-    if split:
-        part = torch.empty(nt, b, d, dtype=torch.float32, device=x.device)
-    err = fn(out.data_ptr(), None if part is None else part.data_ptr(), gpt,
-             gemv)
+    if not gemv and splits > 1:
+        part = torch.empty(nt, b, d, dtype=torch.float32, device=x_q.device)
+    err = load_library().q8q8_untiled(
+        x_q.data_ptr(), x_s.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(), b, n, d,
+        group_size, gpt, int(gemv), shape, splits,
+        torch.cuda.current_stream(x_q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{kind} kernel launch failed: CUDA error {err}")
-    LAUNCHES[kind] += 1
-    return out
+        raise RuntimeError(f"q8q8_pallas kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["q8q8_pallas"] += 1
+    return out.reshape(*lead, d)
 
 
 def q8_q8_matmul_pallas(x_q: torch.Tensor, x_s: torch.Tensor,
@@ -658,23 +719,12 @@ def q8_q8_matmul_pallas(x_q: torch.Tensor, x_s: torch.Tensor,
     if x_q.device.type == "cpu":
         return q8_q8_matmul_pallas_plain(x_q, x_s, w_q, w_s, group_size,
                                          block_k)
-    from qwen3_tpu_torch.ops.cuda.build import load_library
-
-    _check_untiled(x_q, x_s, w_q, w_s, group_size, torch.int8)
-    *lead, n = x_q.shape
-    d = w_q.shape[1]
-    b = x_q.numel() // n
-    lib = load_library()
-    stream = torch.cuda.current_stream(x_q.device).cuda_stream
-
-    def launch(out, part, gpt, _gemv):
-        return lib.q8q8_untiled(x_q.data_ptr(), x_s.data_ptr(),
-                                w_q.data_ptr(), w_s.data_ptr(), out, part, b,
-                                n, d, group_size, gpt, stream)
-
-    out = _untiled_launch("q8q8_pallas", launch, x_q, b, n, d, group_size,
-                          block_k, gemv=False)
-    return out.reshape(*lead, d)
+    n = x_q.shape[-1]
+    gemv, shape, splits = plan_untiled_q8q8(
+        x_q.numel() // max(n, 1), n, w_q.shape[-1], group_size, block_k,
+        _sm_count(x_q.device))
+    return q8_q8_untiled_launch(x_q, x_s, w_q, w_s, group_size, block_k,
+                                gemv, shape, splits)
 
 
 def q8_matmul_pallas(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
@@ -701,15 +751,20 @@ def q8_matmul_pallas(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     *lead, n = x.shape
     d = w_q.shape[1]
     b = xf.numel() // n
-    lib = load_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-
-    def launch(out, part, gpt, gemv):
-        return lib.q8_untiled(xf.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
-                              out, part, b, n, d, group_size, gpt,
-                              int(compute_dtype == torch.bfloat16),
-                              int(postscale), int(gemv), stream)
-
-    out = _untiled_launch("pallas", launch, xf, b, n, d, group_size, block_k,
-                          gemv=True)
+    gpt = pick_tile(n, 8 * group_size, block_k) // group_size
+    gemv, split = plan_untiled(b, n, d, group_size, block_k,
+                               _sm_count(x.device))
+    out = torch.empty(b, d, dtype=torch.float32, device=x.device)
+    part = None
+    if split:
+        part = torch.empty(n // group_size // gpt, b, d, dtype=torch.float32,
+                           device=x.device)
+    err = load_library().q8_untiled(
+        xf.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), b, n, d, group_size, gpt,
+        int(compute_dtype == torch.bfloat16), int(postscale), int(gemv),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pallas kernel launch failed: CUDA error {err}")
+    LAUNCHES["pallas"] += 1
     return out.reshape(*lead, d)

@@ -624,6 +624,69 @@ def test_kv_write_rows_matches_plain_on_card(dev, dtype):
         assert torch.equal(got[keep], cache[keep])
 
 
+def _kernel_launches(fn, tmp_path):
+    """The kernels fn() puts on the card, by torch.profiler's kernel events
+    (its Chrome trace's "kernel" category; copies are not kernels). The
+    host sleeps a little on both sides of fn inside the window: the
+    profiler drops device events it places outside its window, which a
+    window of one short kernel can miss."""
+    import json
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+@pytest.mark.parametrize("pos_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_write_rows_position_dtypes_on_card(dev, tmp_path, dtype,
+                                               pos_dtype):
+    """int32 and int64 positions on the card (edge, duplicate and stray
+    ones, which both versions clamp), read as stored: bit-equal to the plain
+    version, every row it did not write unchanged, and one kernel a call
+    (the wrapper makes no cast or clamp of its own), at qwen3-0.6b's row of
+    8 x 128 values and at a row of 6 values (the scalar path)."""
+    from qwen3_tpu_torch.ops.cuda import kv_write as kw
+
+    for (L, B, S, KV, D) in ((2, 64, 32, 8, 128), (2, 5, 8, 3, 2)):
+        rng = np.random.default_rng(B)
+        cache = torch.from_numpy(rng.standard_normal(
+            (L, B, S, KV, D)).astype(np.float32)).to(dev).to(dtype)
+        rows = torch.from_numpy(rng.standard_normal((B, KV, D)).astype(
+            np.float32)).to(dev)
+        pos = rng.integers(0, S, B)
+        pos[:4] = [0, S - 1, 3, 3]
+        pos[-1] = S + 5
+        positions = torch.tensor(pos, dtype=pos_dtype, device=dev)
+        clamped = positions.long().clamp(0, S - 1)
+        for layer in (0, L - 1):
+            got = cache.clone()
+            kw.reset_launches()
+            names = _kernel_launches(
+                lambda: kw.kv_write_rows(got, rows, layer, positions),
+                tmp_path)
+            assert kw.LAUNCHES["kv_write"] == 1
+            assert len(names) == 1 and "kv_write_rows_kernel" in names[0], \
+                names
+            want = kw.kv_write_rows_plain(cache.clone(), rows, layer,
+                                          positions)
+            assert torch.equal(got, want)
+            keep = torch.ones(L, B, S, dtype=torch.bool, device=dev)
+            keep[layer, torch.arange(B, device=dev), clamped] = False
+            assert torch.equal(got[keep], cache[keep])
+
+
 def test_kv_write_rows_refuses_on_card(dev):
     """Other cache dtypes raise, and so do rows on another device than the
     cache (a CUDA tensor meeting a CPU one, either way round)."""
@@ -673,6 +736,47 @@ def test_q8q8_untiled_matches_plain_on_card(dev, lead, n, g):
     assert tq.LAUNCHES["q8q8_pallas"] == 1
     assert got.shape == lead + (200,)
     assert torch.equal(got, want)
+
+
+# (n, G) of the route tests: G 16 to 128, several k-tiles each
+Q8Q8_ROUTES = [(512, 16), (768, 32), (1024, 64), (3072, 64), (1024, 128)]
+
+
+@pytest.mark.parametrize("d", [196, 200, 256])
+@pytest.mark.parametrize("n,g", Q8Q8_ROUTES)
+def test_q8q8_untiled_routes_on_card(dev, n, g, d):
+    """q8_q8_matmul_pallas at b = 1, 2, 3, 8, 9, 64 and 512, one launch a
+    call, bit-equal to its plain version; each row equal to the same row at
+    b = 512, and the b = 512 call equal to q8_q8_matmul_tiled on the
+    transposed weights (row 1's kernel). Every route gives those bits: the
+    GEMV (b <= 4), the MMA tile path unsplit, split as planned and split a
+    k-tile a block. d = 196 and 200 take 4-byte weight copies, 256 16-byte
+    ones."""
+    x, wq, ws = _untiled_inputs(n + g + d, (512,), n, d, g, dev)
+    xq, xs = quantize_act(x, g)
+    wide = tq.q8_q8_matmul_pallas(xq, xs, wq, ws, g)
+    torch.cuda.synchronize()
+    assert torch.equal(wide, tq.q8_q8_matmul_pallas_plain(xq, xs, wq, ws, g))
+    assert torch.equal(wide, tq.q8_q8_matmul_tiled(
+        xq, xs, wq.T.contiguous(), ws.T.contiguous(), g))
+    nt = n // tq.pick_tile(n, 8 * g, 512)
+    for b in (1, 2, 3, 8, 9, 64, 512):
+        xb, sb = xq[:b].contiguous(), xs[:b].contiguous()
+        tq.reset_launches()
+        got = tq.q8_q8_matmul_pallas(xb, sb, wq, ws, g)
+        torch.cuda.synchronize()
+        assert tq.LAUNCHES["q8q8_pallas"] == 1
+        assert torch.equal(got, tq.q8_q8_matmul_pallas_plain(xb, sb, wq, ws,
+                                                             g)), b
+        assert torch.equal(got, wide[:b]), b
+        shape, splits = tq.plan_q8q8(b, n, d, g)
+        routes = [(False, shape, s) for s in {1, splits, nt}]
+        if tq.untiled_gemv_fits(b, n, g):
+            routes.append((True, 0, 1))
+        for gemv, sh, sp in routes:
+            got = tq.q8_q8_untiled_launch(xb, sb, wq, ws, g, 512, gemv, sh, sp)
+            torch.cuda.synchronize()
+            assert torch.equal(got, wide[:b]), (b, gemv, sh, sp)
 
 
 @pytest.mark.parametrize("postscale", [False, True])

@@ -65,3 +65,45 @@ def test_kv_write_rows_positions_and_refusals():
         kw.kv_write_rows(cache, rows, 2, [0, 0])
     with pytest.raises(ValueError):
         kw.kv_write_rows(cache, rows, 0, [0, 0, 0])
+
+
+@pytest.mark.parametrize("pos_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_kv_write_rows_position_dtypes_match_jax(dtype, pos_dtype):
+    """Positions as an int32 or int64 tensor (the kernel reads either as
+    stored), edge and duplicate ones included, at both layers: the same
+    cache as the JAX kernel's."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(1)
+    cache = rng.standard_normal((L, B, S, KV, D)).astype(np.float32)
+    rows = rng.standard_normal((B, KV, D)).astype(np.float32)
+    for layer in (0, L - 1):
+        want = _as_f32(jax_write(jnp.asarray(cache, jdt), jnp.asarray(rows),
+                                 jnp.int32(layer),
+                                 jnp.asarray(POSITIONS, jnp.int32),
+                                 interpret=True))
+        got = kw.kv_write_rows(torch.from_numpy(cache).to(tdt),
+                               torch.from_numpy(rows), layer,
+                               torch.tensor(POSITIONS, dtype=pos_dtype))
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_kv_write_rows_device_positions():
+    """The kernel's positions: int32 and int64 tensors pass through as they
+    are (no cast, no clamp: the kernel clamps), a list becomes a tensor on
+    the device, another integer dtype is converted once to int32; floats
+    and a wrong length raise."""
+    cpu = torch.device("cpu")
+    for dt in (torch.int32, torch.int64):
+        pos = torch.tensor([-3, 9], dtype=dt)
+        got = kw._device_positions(pos, 2, cpu)
+        assert got is pos and got.dtype == dt
+    got = kw._device_positions([0, 5], 2, cpu)
+    assert got.dtype == torch.int64 and got.tolist() == [0, 5]
+    got = kw._device_positions(torch.tensor([1, 2], dtype=torch.int16), 2,
+                               cpu)
+    assert got.dtype == torch.int32 and got.tolist() == [1, 2]
+    with pytest.raises(TypeError):
+        kw._device_positions(torch.tensor([0.0, 1.0]), 2, cpu)
+    with pytest.raises(ValueError):
+        kw._device_positions([0, 1, 2], 2, cpu)

@@ -1,6 +1,7 @@
 """The grid planners of the Q8_0 matmul kernels (ops/cuda/q8_matmul.py::
-plan_q8q8 for the Q8_0 x Q8_0 tile path, unfused and fused at b > 1, and
-::plan_untiled for the untiled kernels' route), pure functions of the
+plan_q8q8 for the Q8_0 x Q8_0 tile path, unfused, fused and untiled at b >
+1, ::plan_untiled for the untiled dequant kernel's route and
+::plan_untiled_q8q8 for the untiled exact one's), pure functions of the
 shapes, and the k-split's order on the CPU: the kernel's split grid writes
 each k-tile's sum and a second pass adds them in tile order, which must be
 the plain version's arithmetic bit for bit. The kernel itself is held to
@@ -22,6 +23,16 @@ BATCHES = [2, 8, 16, 17, 32, 33, 64, 65, 128, 129, 256, 512]
 
 def _tiles(n, g):
     return n // (tq.groups_per_tile(n, g) * g)
+
+
+def _q8q8_gemv(b, n, d, g=64, sms=132):
+    """The untiled exact matmul's GEMV route: up to the crossover, while its
+    terms fit, and while the 16-row tile path's blocks would not reach
+    UNTILED_Q8Q8_TILE_BLOCKS (where they do, the tile path streams faster
+    in one launch)."""
+    return (b <= tq.UNTILED_Q8Q8_GEMV_ROWS and tq.untiled_gemv_fits(b, n, g)
+            and -(-d // tq.TILE_COLS)
+            < tq.UNTILED_Q8Q8_TILE_BLOCKS * sms // 132)
 
 
 @pytest.mark.parametrize("b", BATCHES)
@@ -67,29 +78,122 @@ def test_plan_scales_with_the_sm_count():
 @pytest.mark.parametrize("b", [1, 2, 5, 8, 9, 64, 512])
 @pytest.mark.parametrize("n,d", MATRICES)
 def test_untiled_plan_routes_decode_to_the_gemv(b, n, d):
-    """q8_matmul_pallas takes its GEMV at b <= 8 (one launch, no split);
-    q8_q8_matmul_pallas, and the dequant kernel above 8 rows, the tile
-    kernel, which splits its k-tiles when there are several and its row
-    and column blocks fall short of two an SM."""
+    """q8_matmul_pallas takes its GEMV at b <= 8 (one launch, no split),
+    above it the 64-row tile kernel, which splits its k-tiles when there are
+    several and its row and column blocks fall short of two an SM;
+    q8_q8_matmul_pallas takes its own GEMV up to UNTILED_Q8Q8_GEMV_ROWS
+    (not for the classifier, whose tile blocks fill the card) and else
+    plan_q8q8's MMA grid (the [d, n] tile path's)."""
     gemv, split = tq.plan_untiled(b, n, d, 64)
     assert gemv == (b <= tq.UNTILED_GEMV_ROWS)
+    nt = n // tq.pick_tile(n, 8 * 64, 512)
     if gemv:
         assert not split
-    gemv8, split8 = tq.plan_untiled(b, n, d, 64, gemv=False)
-    assert not gemv8
-    nt = n // tq.pick_tile(n, 8 * 64, 512)
-    blocks = -(-d // 64) * -(-b // (8 if b <= 8 else 64))
-    assert split8 == (nt > 1 and blocks < 2 * 132)
-    if not gemv:
-        assert (gemv, split) == (gemv8, split8)
+    else:
+        assert split == (nt > 1 and -(-d // 64) * -(-b // 64) < 2 * 132)
+    qgemv, shape, splits = tq.plan_untiled_q8q8(b, n, d, 64)
+    assert qgemv == _q8q8_gemv(b, n, d)
+    assert qgemv == (b <= tq.UNTILED_Q8Q8_GEMV_ROWS and d < 16896)
+    if qgemv:
+        assert (shape, splits) == (0, 1)
+    else:
+        assert (shape, splits) == tq.plan_q8q8(b, n, d, 64)
 
 
 def test_untiled_plan_scales_with_the_sm_count():
-    """The tile kernel's k-split follows the card's SM count; the GEMV's
-    route does not depend on it."""
+    """The tile kernels' k-splits follow the card's SM count; the GEMVs'
+    routes do not depend on it."""
     assert tq.plan_untiled(512, 3072, 1024, 64, sms=132) == (False, True)
     assert tq.plan_untiled(512, 3072, 1024, 64, sms=16) == (False, False)
     assert tq.plan_untiled(1, 3072, 1024, 64, sms=16) == (True, False)
+    assert tq.plan_untiled_q8q8(512, 3072, 1024, 64, sms=132) == (False, 2, 3)
+    assert tq.plan_untiled_q8q8(512, 3072, 1024, 64, sms=16) == (False, 2, 1)
+    assert tq.plan_untiled_q8q8(1, 3072, 1024, 64, sms=16) == (True, 0, 1)
+    assert tq.plan_untiled_q8q8(1, 1024, 6144, 64, sms=132) == (True, 0, 1)
+    assert tq.plan_untiled_q8q8(1, 1024, 6144, 64, sms=16) == (False, 0, 1)
+
+
+def _model_matrices(name):
+    """A preset's five matrices in the untiled [n, d] layout: (n, d)."""
+    from qwen3_tpu_torch.config import PRESETS
+
+    c = PRESETS[name]
+    q = c.n_heads * c.head_dim
+    kv = c.n_kv_heads * c.head_dim
+    return [(c.dim, q + 2 * kv), (q, c.dim), (c.dim, 2 * c.hidden_dim),
+            (c.hidden_dim, c.dim), (c.dim, c.vocab_size)]
+
+
+UNTILED_B = [1, 2, 3, 4, 8, 9, 16, 17, 64, 65, 128, 512]
+
+
+@pytest.mark.parametrize("b", UNTILED_B)
+@pytest.mark.parametrize("model", ["qwen3-0.6b", "qwen3-4b"])
+def test_untiled_q8q8_plan_at_model_shapes(model, b):
+    """At every matrix of qwen3-0.6b and qwen3-4b: the GEMV up to the
+    crossover on the matrices whose tile blocks would not fill the card,
+    else the tile path with the [d, n] path's row tile, a split that
+    divides the k-tiles evenly, and no split where the blocks alone fill
+    the card (so the classifier at b = 1 is one launch too)."""
+    assert 1 <= tq.UNTILED_Q8Q8_GEMV_ROWS <= tq.UNTILED_GEMV_ROWS
+    assert tq.UNTILED_Q8Q8_TILE_BLOCKS >= tq.SPLIT_TARGET
+    for n, d in _model_matrices(model):
+        gemv, shape, splits = tq.plan_untiled_q8q8(b, n, d, 64)
+        assert gemv == _q8q8_gemv(b, n, d)
+        if gemv:
+            continue
+        if b <= tq.UNTILED_Q8Q8_GEMV_ROWS:
+            assert splits == 1
+        assert tq.TILE_ROWS[shape] == (16 if b <= 16 else 32 if b <= 64
+                                       else 64)
+        nt = _tiles(n, 64)
+        assert 1 <= splits <= nt
+        tps = -(-nt // splits)
+        assert -(-nt // tps) == splits
+        blocks = -(-d // tq.TILE_COLS) * -(-b // tq.TILE_ROWS[shape])
+        if blocks >= tq.SPLIT_BELOW:
+            assert splits == 1
+
+
+@pytest.mark.parametrize("sms", [16, 66, 114, 132])
+@pytest.mark.parametrize("model", ["qwen3-0.6b", "qwen3-4b"])
+def test_untiled_q8q8_plan_at_other_sm_counts(model, sms):
+    """A card with fewer SMs splits no more than one with more, and takes
+    the GEMV on no matrix that the full card gives the tile path (its
+    column threshold scales with the SMs)."""
+    for n, d in _model_matrices(model):
+        for b in UNTILED_B:
+            gemv, shape, splits = tq.plan_untiled_q8q8(b, n, d, 64, sms=sms)
+            full = tq.plan_untiled_q8q8(b, n, d, 64)
+            assert gemv == _q8q8_gemv(b, n, d, sms=sms)
+            assert full[0] or not gemv
+            if not gemv and not full[0]:
+                assert shape == full[1]
+                assert splits <= full[2]
+            assert (shape, splits) == ((0, 1) if gemv else tq.plan_q8q8(
+                b, n, d, 64, sms=sms))
+
+
+@pytest.mark.parametrize("block_k", [128, 256, 512, 1024])
+def test_untiled_q8q8_plan_follows_block_k(block_k):
+    """The k-tiles are _pick_tile(n, 8 G, block_k) wide, so the split counts
+    those tiles; a call whose group terms (R x n / G) exceed
+    UNTILED_GEMV_MAX_TERMS takes the tile path even at b = 1."""
+    for n, d in _model_matrices("qwen3-0.6b"):
+        nt = n // tq.pick_tile(n, 8 * 64, block_k)
+        for b in UNTILED_B:
+            gemv, _shape, splits = tq.plan_untiled_q8q8(b, n, d, 64, block_k)
+            assert 1 <= splits <= nt
+            if gemv:
+                assert b <= tq.UNTILED_Q8Q8_GEMV_ROWS
+    g = 16
+    n = g * (tq.UNTILED_GEMV_MAX_TERMS + 16)
+    assert not tq.untiled_gemv_fits(1, n, g)
+    assert not tq.plan_untiled_q8q8(1, n, 64, g, block_k=block_k)[0]
+    assert tq.untiled_gemv_fits(1, g * tq.UNTILED_GEMV_MAX_TERMS, g)
+    assert not tq.untiled_gemv_fits(2, g * tq.UNTILED_GEMV_MAX_TERMS, g)
+    assert tq.untiled_gemv_fits(tq.UNTILED_Q8Q8_GEMV_ROWS, 1024, 64)
+    assert not tq.untiled_gemv_fits(tq.UNTILED_Q8Q8_GEMV_ROWS + 1, 1024, 64)
 
 
 @pytest.mark.parametrize("b", [2, 8, 65])
