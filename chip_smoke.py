@@ -24,16 +24,19 @@ final line:
    within their tolerances; the pallas-int8 matmuls (b = 1, 8, 64, 256, 512)
    bit for bit and across batch sizes; the fused-prologue matmul for each
    (prologue, exact/fast) pair of the main path (b = 1, 8, 64, 512) against
-   its plain version and the unfused kernel; the KV row write at the B = 64
-   serving cache (f32, bf16; int32 and int64 positions; one kernel a call)
-   and the untiled matmuls on [n, d] weights (b = 1, 8, 512; the exact one
-   bit for bit, each row equal to the same row at b = 512 and to row 1's
-   kernel on the transposed weights, its GEMV against its MMA tile path at
-   b = 1-8 and the tile path's two fragment transposes at b = 64 and 512;
+   its plain version and the unfused kernel; the fixed-order norm kernel
+   at qwen3-0.6b's norms (b = 1, 8, 512; bit-equal to its plain version in
+   its order, a row's bits the same at every b, see phase_norm_kernel);
+   the KV row write at the B = 64 serving cache (f32, bf16; int32 and
+   int64 positions; one kernel a call) and the untiled matmuls on [n, d]
+   weights (b = 1, 8, 512; the exact one bit for bit, each row equal to
+   the same row at b = 512 and to row 1's kernel on the transposed weights,
+   its GEMV against its MMA tile path at b = 1-8 and the tile path's two
+   fragment transposes at b = 64 and 512;
    the dequant one in f32 and bf16, pre- and post-scaled, within 1e-5 *
-   max|plain|), which only the tests call; then the sampler on the card
-   against its CPU run at the vocabulary of qwen3-0.6b (see
-   check_sampler);
+   max|plain|, its rows equal on every tile route), which only the tests
+   call; then the sampler on the card against its CPU run at the
+   vocabulary of qwen3-0.6b (see check_sampler);
 4. end to end: a synthetic qwen3-0.6b checkpoint (full width and depth,
    random weights from a seed) through the port's CLI main() with its
    defaults (--qmode pallas --kv-dtype int8 --attn auto --device cuda):
@@ -1042,7 +1045,9 @@ def phase_fused_kernels(torch):
     against the unfused kernel (the q8q8 or the fast tile kernel) on the
     plain prologue's output, bit for bit (the swiglu prologue's sigmoid
     is torch.sigmoid's formula and expf). Each row also equal to the same
-    row of the b = 512 call. Times: the kernel, its plain
+    row of the b = 512 call, each call with its own rows' rms_inv (equal to
+    the same rows' in the b = 512 call, or the phase fails). Times: the
+    kernel, its plain
     version, as the library yardstick the unfused chain (the plain
     prologue ops, the quantization or bf16 rounding, and the unfused
     kernel), and the unfused kernel alone on the chain's activations; then
@@ -1089,13 +1094,12 @@ def phase_fused_kernels(torch):
             widest = kernel(x_all, inv_all)
             for b in FUSED_BATCHES:
                 x = x_all[:b].contiguous()
-                # the widest call's row factors: torch.mean's reduction order
-                # on the card may follow the number of rows, and the kernel's
-                # batch invariance is checked on the same inputs
-                inv = None if inv_all is None else inv_all[:b].contiguous()
-                if inv is not None and not torch.equal(inv, row_inv(x)):
-                    log(f"fused {name}: rms_inv of {b} rows differs from the "
-                        f"same rows' in a {max(FUSED_BATCHES)}-row call")
+                # each call's own row factors: the norm kernel's order is a
+                # row's own, so they equal the same rows' in the widest call
+                inv = row_inv(x)
+                if inv is not None and not torch.equal(inv, inv_all[:b]):
+                    fail(f"fused {name}: rms_inv of {b} rows differs from the "
+                         f"same rows' in a {max(FUSED_BATCHES)}-row call")
                 got = kernel(x, inv)
                 label = f"fused {name} {prologue} exact={exact} b={b}"
                 gaps = []
@@ -1156,6 +1160,113 @@ def phase_fused_kernels(torch):
         "chain (plain prologue ops + quantize_act or the bf16 rounding + the "
         "q8q8 or fast kernel), unfused_kernel_ms = that kernel alone")
     return rows
+
+
+NORM_BATCHES = (1, 8, 512)   # decode, serving's B = 8, a prefill block
+# qwen3-0.6b's norms a layer: (label, heads, width) of the rows a token gives
+# (the attention and ffn norms one row of dim, the QK-norms one row a head
+# of the qkv output, as its views), and how many of each a token's forward
+# pass runs unfused (4 x 28 + 1 in all)
+NORM_SHAPES = (("dim", 1, 1024), ("q_heads", 16, 128), ("k_heads", 8, 128))
+NORM_PER_TOKEN = {"dim": 2 * L + 1, "q_heads": L, "k_heads": L}
+
+
+def norm_bound_ms(rows, n):
+    """The least time for rmsnorm: x read once, w read once and out written
+    once (f32), over the memory rate."""
+    return 1e3 * 4 * (2 * rows * n + n) / HBM_BYTES_PER_S
+
+
+def phase_norm_kernel(torch):
+    """The fixed-order norm kernel (the port's own: the JAX package's norms
+    are XLA) at qwen3-0.6b's norms, b in NORM_BATCHES tokens: the rows of
+    dim 1024, and the q and k heads of 128 as views of a qkv output. For
+    each: rms_inv and rmsnorm one launch a call; rms_inv bit-equal to
+    rms_inv_ordered (the kernel's order in plain ops) and within NORM_RTOL of
+    the torch.mean chain; nw * (x * rms_inv(x)) equal to rmsnorm(x, nw) bit
+    for bit; rmsnorm within 2 NORM_RTOL of the plain chain; every row at b =
+    1 and 8 equal to the same row at b = 512 (a difference fails the run).
+    Times: the kernel (rmsnorm), its plain chain, as the library yardstick
+    torch.nn.functional.rms_norm, and the byte bound; then their sums over
+    a decoded token's 113 norms (b = 1)."""
+    import torch.nn.functional as F
+
+    from qwen3_tpu_torch.config import RMS_EPS
+    from qwen3_tpu_torch.ops import norms
+    from qwen3_tpu_torch.ops.cuda import norms as nm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    rows_out = []
+    qkv_all = torch.randn(max(NORM_BATCHES), 1, 4096, device="cuda",
+                          generator=gen) * 3
+    x_all = torch.randn(max(NORM_BATCHES), 1, 1024, device="cuda",
+                        generator=gen) * 3
+    w_all = {n: 1 + 0.1 * torch.randn(n, device="cuda", generator=gen)
+             for n in (128, 1024)}
+
+    def view(label, b):
+        if label == "dim":
+            return x_all[:b]
+        lo, heads = (0, 16) if label == "q_heads" else (2048, 8)
+        return qkv_all[:b, :, lo:lo + heads * 128].reshape(b, 1, heads, 128)
+
+    for label, heads, n in NORM_SHAPES:
+        w = w_all[n]
+        wide_inv = norms.rms_inv(view(label, max(NORM_BATCHES)))
+        wide_out = norms.rmsnorm(view(label, max(NORM_BATCHES)), w)
+        for b in NORM_BATCHES:
+            x = view(label, b)
+            tag = f"norm {label} b={b}"
+            nm.reset_launches()
+            inv = norms.rms_inv(x)
+            out = norms.rmsnorm(x, w)
+            torch.cuda.synchronize()
+            if nm.LAUNCHES != {"rmsnorm": 1, "rms_inv": 1}:
+                fail(f"{tag}: launches {nm.LAUNCHES}, want one a call")
+            if not (torch.isfinite(inv).all() and torch.isfinite(out).all()):
+                fail(f"{tag}: non-finite kernel output")
+            if not torch.equal(inv, nm.rms_inv_ordered(x)):
+                fail(f"{tag}: rms_inv != rms_inv_ordered")
+            plain_inv = norms.rms_inv_plain(x)
+            rel = ((inv - plain_inv).abs() / plain_inv).max().item()
+            if rel > nm.NORM_RTOL:
+                fail(f"{tag}: rms_inv vs the torch.mean chain {rel:.3e} past "
+                     f"{nm.NORM_RTOL}")
+            if not torch.equal(out, w * (x * inv)):
+                fail(f"{tag}: rmsnorm != w * (x * rms_inv(x))")
+            ref = norms.rmsnorm_plain(x, w)
+            err = (out - ref).abs().max().item()
+            if ((out - ref).abs() > 2 * nm.NORM_RTOL * ref.abs()).any():
+                fail(f"{tag}: rmsnorm vs the plain chain {err:.3e} past "
+                     f"2 * NORM_RTOL")
+            if not (torch.equal(inv, wide_inv[:b])
+                    and torch.equal(out, wide_out[:b])):
+                fail(f"{tag}: rows differ from the same rows at "
+                     f"b={max(NORM_BATCHES)}")
+            n_rows = b * heads
+            row = dict(
+                norm=label, b=b, rows=n_rows, n=n, max_abs_diff=err,
+                max_rel_inv=rel,
+                kernel_ms=device_ms(torch, lambda i: norms.rmsnorm(x, w)),
+                rms_inv_ms=device_ms(torch, lambda i: norms.rms_inv(x)),
+                plain_ms=device_ms(torch, lambda i: norms.rmsnorm_plain(x, w)),
+                library_ms=device_ms(torch, lambda i: F.rms_norm(
+                    x, (n,), w, RMS_EPS)),
+                bound_ms=norm_bound_ms(n_rows, n), bound_by="bytes")
+            rows_out.append(row)
+            log("norm " + json.dumps(row))
+    for b in NORM_BATCHES:
+        mine = [r for r in rows_out if r["b"] == b]
+        log("norm token " + json.dumps(dict(
+            b=b, launches=4 * L + 1, **{k: sum(
+                r[k] * NORM_PER_TOKEN[r["norm"]] for r in mine)
+                for k in ("kernel_ms", "plain_ms", "library_ms",
+                          "bound_ms")})))
+    log("norm kernel: bit-equal to rms_inv_ordered, a row's bits the same at "
+        "b = 1, 8 and 512, rmsnorm = w * (x * rms_inv(x)) bit for bit; "
+        "library_ms = torch.nn.functional.rms_norm")
+    return rows_out
 
 
 KV_CACHE = (28, 64, 512, 8, 128)   # qwen3-0.6b's cache at serve --batch 64 -c 512
@@ -1306,10 +1417,17 @@ def phase_untiled_kernels(torch):
     calls (b = 1, 8) equal bit for bit to the same row in the tile
     kernel's b = 512 call. Times: the kernel, its plain version and as the
     library yardstick F.linear on bf16 with the weights dequantized once to
-    bf16 (bound_ms for q8q8 as phase_kernels'); then each variant's sum
-    over a token's 113 matrices at b = 1 and 8 and over a 512-row block's
-    112 layer matrices. For q8_q8_matmul_pallas also, each route bit-equal
-    to the b = 512 rows: the GEMV against the MMA tile path at
+    bf16 (bound_ms for q8q8 as phase_kernels'), and for the f32 variants
+    also F.linear in f32 with TF32 off (cuBLAS SGEMM, the same function in
+    the same precision); bound_ms at the peak of the compute type, and for
+    the bf16 variants also fma_floor_ms, their FMAs over the fp32 peak
+    outside the tensor cores (the floor of the k-order fmaf chains the
+    kernel runs); then each variant's sum over a token's 113
+    matrices at b = 1 and 8 and over a 512-row block's 112 layer matrices.
+    The dequant kernel's tile routes at b = 512, forced (every tile shape,
+    every split that divides the k-tiles), each equal to the planned
+    call's rows, with their times. For q8_q8_matmul_pallas also, each
+    route bit-equal to the b = 512 rows: the GEMV against the MMA tile path at
     QG_CROSS_BATCHES (the crossover the planner's UNTILED_Q8Q8_GEMV_ROWS
     should follow), and both routes at b = 1 on QG_RULE_SHAPES (the
     planner's column threshold)."""
@@ -1317,17 +1435,19 @@ def phase_untiled_kernels(torch):
 
     from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
     from qwen3_tpu_torch.ops.q8 import quantize_act
+    from qwen3_tpu_torch.tools.untiled_routes import tile_routes
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    rows, routes = [], []
+    rows, routes, tiles = [], [], []
     for name, (n, d) in MATRICES.items():
         w_q = torch.randint(-127, 128, (n, d), dtype=torch.int8,
                             device="cuda", generator=gen)
         w_s = 0.02 / 127 * (0.5 + torch.rand(n // G, d, device="cuda",
                                              generator=gen))
-        w_bf = (w_q.float().reshape(n // G, G, d) * w_s[:, None, :]).reshape(
-            n, d).T.contiguous().to(torch.bfloat16)
+        w_f32 = (w_q.float().reshape(n // G, G, d)
+                 * w_s[:, None, :]).reshape(n, d).T.contiguous()
+        w_bf = w_f32.to(torch.bfloat16)
         x_all = torch.randn(max(UNTILED_BATCHES), n, device="cuda",
                             generator=gen)
         widest = {}
@@ -1352,7 +1472,11 @@ def phase_untiled_kernels(torch):
             def library(i, x_bf=x_bf):
                 return F.linear(x_bf, w_bf)
 
+            def library_f32(i, x=x):
+                return F.linear(x, w_f32)     # cuBLAS SGEMM: TF32 is off
+
             l_ms = device_ms(torch, library)
+            lf_ms = device_ms(torch, library_f32)
             got = qm.q8_q8_matmul_pallas(xq, xs, w_q, w_s, G)
             want = qm.q8_q8_matmul_pallas_plain(xq, xs, w_q, w_s, G)
             torch.cuda.synchronize()
@@ -1404,8 +1528,40 @@ def phase_untiled_kernels(torch):
                            kernel_ms=device_ms(torch, kernel),
                            plain_ms=device_ms(torch, plain, reps=3),
                            library_ms=l_ms, bound_ms=bnd, bound_by=by)
+                if kind.startswith("pallas_float32"):
+                    row["library_f32_ms"] = lf_ms
+                elif kind.startswith("pallas_bfloat16"):
+                    # the floor under the k-order rule: these fmaf chains
+                    # run on CUDA cores, which the bf16 bound does not ask
+                    row["fma_floor_ms"] = untiled_bound_ms(b, n, d,
+                                                           "float32")[0]
                 rows.append(row)
                 log("untiled " + json.dumps(row))
+        # q8_matmul_pallas's tile kernel at b = 512 on every route, forced:
+        # every tile shape, each split that divides the k-tiles; each equal
+        # to the planned call's rows
+        b = max(UNTILED_BATCHES)
+        planned = qm.plan_untiled(b, n, d, G)
+        for compute, post in UNTILED_MODES:
+            cdt = getattr(torch, compute)
+            for shape, sp in tile_routes(n, G):
+                def call(i, shape=shape, sp=sp, cdt=cdt, post=post):
+                    return qm.q8_untiled_launch(x_all, w_q, w_s, G, 512, cdt,
+                                                post, False, shape, sp)
+
+                got = call(0)
+                torch.cuda.synchronize()
+                if not torch.equal(got, widest[compute, post]):
+                    fail(f"untiled {name} {compute} postscale={post} b={b} "
+                         f"route ({shape}, {sp}): rows differ from the "
+                         f"planned route's")
+                tiles.append(dict(
+                    matrix=name, kernel=f"pallas_{compute}_"
+                    f"{'post' if post else 'pre'}", b=b, n=n, d=d,
+                    tile=qm.UNTILED_TILE_SHAPES[shape], k_splits=sp,
+                    planned=planned == (False, shape, sp),
+                    kernel_ms=device_ms(torch, call)))
+                log("untiled tile route " + json.dumps(tiles[-1]))
         # q8_q8_matmul_pallas's routes, forced, each against the b = 512
         # rows
         for b in QG_CROSS_BATCHES:
@@ -1431,7 +1587,7 @@ def phase_untiled_kernels(torch):
                 row[key] = device_ms(torch, call)
             routes.append(row)
             log("untiled q8q8 route " + json.dumps(row))
-        del w_q, w_s, w_bf
+        del w_q, w_s, w_bf, w_f32
         torch.cuda.empty_cache()
     for name, (n, d) in QG_RULE_SHAPES.items():
         w_q = torch.randint(-127, 128, (n, d), dtype=torch.int8,
@@ -1465,20 +1621,37 @@ def phase_untiled_kernels(torch):
                     mine, b, ("kernel_ms", "library_ms", "bound_ms")))))
     for kind in sorted({r["kernel"] for r in rows}):
         mine = [r for r in rows if r["kernel"] == kind]
+        keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms") + tuple(
+            k for k in ("library_f32_ms", "fma_floor_ms") if k in mine[0])
         log("untiled block " + json.dumps(dict(
             kernel=kind, b=max(UNTILED_BATCHES), layer_matmuls=4 * L,
-            **per_pass(mine, max(UNTILED_BATCHES),
-                       ("kernel_ms", "plain_ms", "library_ms", "bound_ms"),
-                       classifier=False))))
+            **per_pass(mine, max(UNTILED_BATCHES), keys, classifier=False))))
+    for kind in sorted({r["kernel"] for r in tiles}):
+        for tile in qm.UNTILED_TILE_SHAPES:
+            # a 512-row block's layer matrices with each matrix on its
+            # fastest split at this tile shape, and on the planned route
+            best = [min((r for r in tiles if r["kernel"] == kind
+                         and r["matrix"] == m and r["tile"] == tile),
+                        key=lambda r: r["kernel_ms"])
+                    for m in MATRICES if m != "classifier"]
+            log("untiled tile block " + json.dumps(dict(
+                kernel=kind, tile=tile, fastest_ms=L * sum(
+                    r["kernel_ms"] for r in best),
+                splits={r["matrix"]: r["k_splits"] for r in best})))
+        planned = [r for r in tiles if r["kernel"] == kind and r["planned"]
+                   and r["matrix"] != "classifier"]
+        log("untiled tile block " + json.dumps(dict(
+            kernel=kind, planned_ms=L * sum(r["kernel_ms"] for r in planned))))
     for b in QG_CROSS_BATCHES:
         log("untiled q8q8 routes " + json.dumps(dict(
             b=b, **per_pass(routes, b, ("gemv_ms", "tile_ms"))))
             + " (a token's 113 matrices)")
     log("untiled matmuls: q8q8 bit-equal to its plain version and to row 1 "
         "on w_q.T, on every route, the dequant kernel within 1e-5 * "
-        "max|plain| and its rows equal at every b; library_ms = "
-        "torch.nn.functional.linear on bf16 with the weights dequantized "
-        "once to bf16")
+        "max|plain| and its rows equal at every b and on every route; "
+        "library_ms = torch.nn.functional.linear on bf16 with the weights "
+        "dequantized once to bf16, library_f32_ms (f32 variants) the same "
+        "in f32 with TF32 off")
     return rows
 
 
@@ -1605,10 +1778,11 @@ def launch_modules():
     from qwen3_tpu_torch.ops.cuda import batched_decode as bd
     from qwen3_tpu_torch.ops.cuda import flash_decode as fd
     from qwen3_tpu_torch.ops.cuda import kv_write as kw
+    from qwen3_tpu_torch.ops.cuda import norms as nm
     from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
     from qwen3_tpu_torch.tools import probe_dma as pd
 
-    return qm, fd, bd, kw, pd
+    return qm, fd, bd, kw, pd, nm
 
 
 def want_launches(calls):
@@ -1620,12 +1794,19 @@ def want_launches(calls):
     that resolved to a kernel attention 28 launches of it (prefill blocks
     flash prefill; decode steps flash decode, or over the serving side
     buffer the two-segment flash or the batched decode kernel); no other
-    pass launches an attention kernel; no pass launches the kernels that
-    only the tests and the probe call (the KV row write, the untiled
-    matmuls, the pure reads)."""
+    pass launches an attention kernel; every pass in every mode 4 x 28 + 1
+    norm kernel launches: unfused, rmsnorm before wqkv (or q, k and v),
+    after q and k, before w13 (or w1 and w3) and before the classifier;
+    fused, rmsnorm after q and k, and rms_inv for the three norm prologues;
+    no pass launches the kernels that only the tests and the probe call
+    (the KV row write, the untiled matmuls, the pure reads)."""
     mm = {route: calls["mm_" + route] for route in (
         "pallas", "pallas-fast", "pallas-int8", "fused")}
-    return {"stacked": 4 * L * mm["pallas"], "tiled": mm["pallas"],
+    passes = calls["forward"] + calls["decode_forward"]
+    return {"rmsnorm": (4 * L + 1) * (passes - mm["fused"])
+            + 2 * L * mm["fused"],
+            "rms_inv": (2 * L + 1) * mm["fused"],
+            "stacked": 4 * L * mm["pallas"], "tiled": mm["pallas"],
             "stacked_fast": 4 * L * mm["pallas-fast"],
             "tiled_fast": mm["pallas-fast"],
             "stacked_int8": 4 * L * mm["pallas-int8"],
@@ -1731,8 +1912,8 @@ def phase_end_to_end(torch, path: str):
     counts = {"short": read_counts()}
     log(f"main path launches below depth 8192 (the runs above): "
         f"{counts['short']}")
-    if min(counts["short"][k] for k in ("stacked", "tiled")) == 0:
-        fail("a matmul kernel of the path was never launched")
+    if min(counts["short"][k] for k in ("stacked", "tiled", "rmsnorm")) == 0:
+        fail("a kernel of the path was never launched")
 
     reset_counts()
     runs.update(phase_long_context(torch, path))
@@ -1740,7 +1921,7 @@ def phase_end_to_end(torch, path: str):
     log(f"main path launches at long context (the runs above): "
         f"{counts['long']}")
     if min(counts["long"][k] for k in ("stacked", "tiled", "flash_decode",
-                                       "flash_prefill")) == 0:
+                                       "flash_prefill", "rmsnorm")) == 0:
         fail("a kernel of the long-context path was never launched")
     return counts, runs
 
@@ -2859,7 +3040,7 @@ def matmul_entry(name, source, line, mine, per_pass, launches):
 
 def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
                   serve_err, int8_rows, fused_rows, kv_rows, untiled_rows,
-                  probe, counts):
+                  probe, counts, norm_rows):
     """Per kernel, one decoded token at the main path's shapes: the matmuls
     at b = 1 (4 stacked x 28 layers, 1 classifier), their launches over the
     path below depth 8192; flash decode at depth 8192 and flash prefill per
@@ -2875,7 +3056,11 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
     for one call at the B = 64 cache in bf16; the untiled matmuls per
     decoded token at b = 1 (q8_matmul_pallas in the JAX defaults, f32
     pre-scaled). The pure reads per layer of qwen3-4b's w13 (the manual
-    ring at its fastest n_buf), their launches over the probe path."""
+    ring at its fastest n_buf), their launches over the probe path. The
+    norm kernel, the port's own (the JAX package's norms are XLA, no Pallas
+    kernel replaces it): per decoded token at b = 1 (4 x 28 + 1 rmsnorm
+    calls), its launches (rmsnorm and rms_inv) over the path below depth
+    8192."""
     out = []
     for kind, source_line in (("stacked", 419), ("tiled", 314)):
         mine = [r for r in rows if r["kernel"] == kind]
@@ -2990,6 +3175,19 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             [(r, 1 if r["matrix"] == "classifier" else L)
              for r in mine if r["b"] == 1 and r["kernel"] == kind],
             on_paths(count)))
+    def per_token(key):
+        return sum(r[key] * NORM_PER_TOKEN[r["norm"]] for r in norm_rows
+                   if r["b"] == 1)
+
+    out.append({
+        "name": "rmsnorm", "route": "cuda",
+        "source": "qwen3_tpu_torch/csrc/rmsnorm.cu",
+        "replaces": "qwen3_tpu/ops/norms.py:11", "pallas": None,
+        "launches": counts["short"]["rmsnorm"] + counts["short"]["rms_inv"],
+        "max_abs_err": max(r["max_abs_diff"] for r in norm_rows),
+        "ms": per_token("kernel_ms"), "plain_ms": per_token("plain_ms"),
+        "bound_ms": per_token("bound_ms"), "bound_by": "bytes",
+        "library_ms": per_token("library_ms")})
     probe_rows, probe_counts, plain_ms, nbytes = probe
     bound = 1e3 * (nbytes + 4 * 8 * 1024) / HBM_BYTES_PER_S
     for name, line, labels in (
@@ -3026,6 +3224,7 @@ def main() -> int:
     serve_rows, serve_err = phase_batched_kernels(torch)
     int8_rows = phase_int8_kernels(torch)
     fused_rows = phase_fused_kernels(torch)
+    norm_rows = phase_norm_kernel(torch)
     kv_rows = phase_kv_write(torch)
     untiled_rows = phase_untiled_kernels(torch)
     check_sampler(torch)
@@ -3040,14 +3239,15 @@ def main() -> int:
         log(f"serving path launches (the runs above): {counts['serve']}")
         if min(counts["serve"][k] for k in (
                 "stacked_fast", "tiled_fast", "batched_decode_partial",
-                "flash_decode_two_segment")) == 0:
+                "flash_decode_two_segment", "rmsnorm")) == 0:
             fail("a kernel of the serving path was never launched")
         reset_counts()
         phase_modes(torch, path, workdir)
         counts["modes"] = read_counts()
         log(f"modes path launches (the runs above): {counts['modes']}")
         if min(counts["modes"][k] for k in (
-                "stacked_int8", "tiled_int8", "fused")) == 0:
+                "stacked_int8", "tiled_int8", "fused", "rmsnorm",
+                "rms_inv")) == 0:
             fail("a kernel of the modes path was never launched")
         phase_quality(torch, path)
         phase_host_tools(torch, path, workdir)
@@ -3067,7 +3267,8 @@ def main() -> int:
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     report = kernel_report(
         rows, flash_rows, flash_err, fast_rows, serve_rows, serve_err,
-        int8_rows, fused_rows, kv_rows, untiled_rows, probe, counts)
+        int8_rows, fused_rows, kv_rows, untiled_rows, probe, counts,
+        norm_rows)
     for e in report:
         if e["name"] in BEFORE_MS:
             log(f"redesigned {e['name']}: {e['ms']:.4f} ms, recorded "

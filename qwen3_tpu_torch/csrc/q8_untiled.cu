@@ -69,15 +69,44 @@
 // split changes a bit.
 //
 // q8_matmul_pallas:
-//  - b > 8: a tile kernel. A block owns 64 rows x 64 columns with 256
-//    threads (thread (ty, tx) owns rows ty + 16 i, columns tx + 16 j, i, j
-//    < 4) and walks k in chunks of kc = min(G, 64) staged in shared memory,
-//    the weight chunk [kc, 64] read along d. Each row's arithmetic is the
-//    same at any b, so a row's bits do not depend on its batch-mates. When
-//    the row and column blocks alone would not fill the card, the k-tiles
-//    also split across blocks: block z computes acc_z into part[z], and a
-//    second kernel sums the tiles in order (out = ((0 + acc_0) + acc_1) +
-//    ...), the same sums as one block walking every tile.
+//  - b > 8: q8_untiled_tile_kernel, a register-blocked SGEMM tile on CUDA
+//    cores. Its first design (64 x 64 outputs a block of 256 threads, 4 x 4
+//    a thread, so 8 shared loads for every 16 FMAs; k staged in min(G,
+//    64)-row chunks through padded scalar stores, two barriers a chunk and
+//    no load in flight) took 22.72 ms a 512-row block's 112 layer matrices
+//    of qwen3-0.6b in f32 prescale, slower than its plain version (20.58)
+//    and 3.4x its fp32-FMA bound (6.73; an NVIDIA H100 80GB HBM3 at 700 W,
+//    chip_smoke.py). The bound is the FMAs: the function fixes each (row,
+//    column, k-tile) sum as one fmaf chain in k order (the GEMV's rows, b
+//    <= 8, must stay equal to these rows), so no tensor-core MMA can run it,
+//    and what the kernel does about it is to issue little but FFMAs:
+//    a block owns BM (64 or 128, plan_untiled's shape) rows x 128 columns
+//    with 2 BM threads, 8 x 8 outputs a thread (4 shared 16-byte loads for
+//    every 64 FMAs). k goes in stages of 16 rows through two shared buffers:
+//    x transposed ([16][BM] f32, cd-rounded) and the weights dequantized
+//    once while staging ([16][128] f32: int8 -> f32, times the scale and
+//    cd-rounded in prescale), each staged weight serving BM rows. The
+//    copies of the next two stages (two 16-byte x copies, 2-4 weight words
+//    and one scale quad a thread, cp.async into a ring of raw stages that
+//    only the copying thread reads back, so that no register holds them)
+//    are in flight while a stage's 1024 FMAs a thread run, and halfway
+//    through them each thread converts its landed copies of the next stage
+//    into the other shared buffer; one barrier a stage. (Held in registers
+//    instead, the copies made the prescale instances spill at the 128
+//    registers of two blocks an SM.) The tile sums go straight to out (out
+//    = 0 + acc_0, then out + acc_t, the block owning its outputs), so no
+//    running sum is held in registers: prescale keeps 64 chains a thread,
+//    postscale 64 more for the group's dot. Where the row and column
+//    blocks alone fill the card too thinly, plan_untiled splits the k-tiles
+//    evenly across blocks: block z writes each of its tiles' acc_t into
+//    part[t], and the last of a (row, column) block's splits to finish (a
+//    completion counter) adds them in order (out = ((0 + acc_0) + acc_1) +
+//    ...), the same sums, in the same launch. Each row's arithmetic is the
+//    same at any b, shape and split, so a row's bits do not depend on its
+//    batch-mates or the route, and equal the GEMV's. It takes 13.9 ms a
+//    512-row block's 112 layer matrices in f32 prescale, 2.06x the bound,
+//    where cuBLAS SGEMM on the dequantized f32 weights takes 12.1 (the same
+//    card, chip_smoke.py): the layer matrices are one thin wave each.
 //  - b <= 8 (decode): q8_untiled_gemv_kernel. The tile kernel's first design
 //    here (8 rows a block, 7 of them zeros at b = 1, one 4-byte weight load
 //    a thread a k-row, two barriers a chunk and no load in flight) took
@@ -107,161 +136,298 @@
 
 namespace {
 
-constexpr int kCols = 64, kThreads = 256;
+// ------------------------------------------------ the tile, b > 8 ----
 
-// Requires G a power of two in [16, 512], n % G == 0, d % 4 == 0.
-template <int BM, int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
-q8_untiled_kernel(const float* __restrict__ x, const int8_t* __restrict__ wq,
-                  const float* __restrict__ ws, float* __restrict__ out, int b,
-                  int n, int d, int G, int gpt, int bf16, int postscale,
-                  int split) {
-  constexpr int TY = BM / TM, TX = kThreads / TY;
-  static_assert(TX * TN == kCols, "a block owns 64 columns");
-  __shared__ float x_sm[BM][kMaxChunk + 1];
-  __shared__ float w_sm[kMaxChunk][kCols + 1];
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * kCols;
-  const int kc = min(G, kMaxChunk);
-  const int chunks = G / kc;
-  const int xv = kc / 4;       // float4 loads per activation row per chunk
-  const int ng = n / G;
-  const int t_begin = split ? (int)blockIdx.z : 0;
-  const int t_end = split ? t_begin + 1 : ng / gpt;
-  float o[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) o[i][j] = 0.f;
+// k-rows a stage, a block's columns, and the raw stages of the copy ring
+// (kTileRing - 1 in flight while a stage computes)
+constexpr int kTileK = 16, kTileCols = 128, kTileRing = 3;
 
-  for (int t = t_begin; t < t_end; ++t) {
-    float acc[TM][TN];
+// The block's dynamic shared memory: x transposed [2][kTileK][BM] f32, the
+// dequantized weights [2][kTileK][kTileCols] f32, then kTileRing raw
+// stages, each the 2 BM threads' own copies: x float4s (two a thread),
+// weight words (kTileK * 32 in all, 2 or 4 a thread) and scale quads (one
+// a thread); then a split's last-block flag
+template <int BM>
+__host__ __device__ constexpr int tile_raw_bytes() {
+  return 2 * (2 * BM) * 16 + kTileK * 32 * 4 + (2 * BM) * 16;
+}
+template <int BM>
+__host__ __device__ constexpr int tile_smem_bytes() {   // + the split's flag
+  return 2 * kTileK * (BM + kTileCols) * 4 + kTileRing * tile_raw_bytes<BM>() +
+         16;
+}
+
+// Thread (ty, tx) = (tid / 16, tid % 16) owns rows 4 ty + i and BM / 2 +
+// 4 ty + i, columns 4 tx + j and 64 + 4 tx + j (i, j < 4) of the block's
+// tile. Block z of the grid takes k-tiles z tps .. + tps - 1; with `part`
+// it writes each tile's sum there, else it adds them into out in order.
+// Requires G a power of two in [16, 512], n % tk == 0, tk % G == 0, d % 4
+// == 0, x 16-byte aligned.
+template <int BM, bool BF16, bool POST>
+__global__ void __launch_bounds__(2 * BM, POST ? 1 : 256 / BM)
+q8_untiled_tile_kernel(const float* __restrict__ x,
+                       const int8_t* __restrict__ wq,
+                       const float* __restrict__ ws, float* out, float* part,
+                       int* counters, int b, int n, int d, int G, int tk,
+                       int tps) {
+  constexpr int NT = 2 * BM;                  // threads
+  constexpr int XL = BM * kTileK / 4 / NT;    // 16-byte x loads a thread: 2
+  constexpr int WR = kTileK * 32 / NT;        // weight words a thread: 2 or 4
+  constexpr int RB = tile_raw_bytes<BM>();
+  extern __shared__ int4 tile_smem[];
+  auto xs = reinterpret_cast<float (*)[kTileK][BM]>(tile_smem);
+  auto wsm = reinterpret_cast<float (*)[kTileK][kTileCols]>(
+      reinterpret_cast<char*>(tile_smem) + 2 * kTileK * BM * 4);
+  char* raw = reinterpret_cast<char*>(tile_smem) +
+              2 * kTileK * (BM + kTileCols) * 4;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * kTileCols;
+  const int t0 = blockIdx.z * tps;
+  const int kbeg = t0 * tk, nstage = tps * (tk / kTileK);
+  const int spt = tk / kTileK, lg = 31 - __clz(G);
+  // staging: x copy i of a thread is row e % BM, k-quad e / BM (e = tid +
+  // NT i), so a warp stores 32 rows of one k into a [16][BM] row; weight
+  // word i is k-row tid / 32 + (NT / 32) i, columns 4 (tid % 32) .. + 3
+  const int cq = tid & 31, wc = c0 + 4 * cq;
+  const bool won = wc < d;    // d % 4 == 0: a quad is all in or all out
+  const unsigned raw_s = (unsigned)__cvta_generic_to_shared(raw);
+
+  // stage s's copies into raw stage s % kTileRing, one commit group (empty
+  // past the last stage)
+  auto fetch = [&](int s) {
+    if (s >= nstage) {
+      cp_async_commit();
+      return;
+    }
+    const int k0 = kbeg + s * kTileK;
+    const unsigned sx = raw_s + (s % kTileRing) * RB;
+    const unsigned sw = sx + XL * NT * 16, ss = sw + WR * NT * 4;
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < XL; ++i) {
+      const int e = tid + NT * i, r = e % BM, kq = e / BM;
+      const bool on = r0 + r < b;
+      cp_async16_s(sx + 16 * e,
+                   on ? (const void*)(x + (size_t)(r0 + r) * n + k0 + 4 * kq)
+                      : (const void*)x,
+                   on);
+    }
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    for (int gi = 0; gi < gpt; ++gi) {
-      const int g = t * gpt + gi;
-      float s[TM][TN];   // postscale: the group's dot
+    for (int i = 0; i < WR; ++i) {
+      const int kr = (tid >> 5) + (NT / 32) * i;
+      cp_async4_s(sw + 4 * (tid + NT * i),
+                  won ? (const void*)(wq + (size_t)(k0 + kr) * d + wc)
+                      : (const void*)wq,
+                  won);
+    }
+    if (!POST)   // a stage lies in one group (kTileK <= G)
+      cp_async16_s(ss + 16 * tid,
+                   won ? (const void*)(ws + (size_t)(k0 >> lg) * d + wc)
+                       : (const void*)ws,
+                   won);
+    cp_async_commit();
+  };
+
+  // stage s's copies, landed (this thread's own), into shared buffer s & 1:
+  // x transposed and cd-rounded, the weights dequantized
+  auto stash = [&](int s) {
+    cp_async_wait<kTileRing - 2>();
+    const int buf = s & 1;
+    const char* st = raw + (s % kTileRing) * RB;
+    const float4* raw_x = reinterpret_cast<const float4*>(st);
+    const int* raw_w = reinterpret_cast<const int*>(st + XL * NT * 16);
+    const float4* raw_sc =
+        reinterpret_cast<const float4*>(st + XL * NT * 16 + WR * NT * 4);
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < XL; ++i) {
+      const int e = tid + NT * i, r = e % BM, kq = e / BM;
+      const float4 q = raw_x[e];
+      const float v[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-        for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-      for (int ch = 0; ch < chunks; ++ch) {
-        const int k0 = g * G + ch * kc;
-        for (int e = tid; e < BM * xv; e += kThreads) {
-          const int r = e / xv, v = e % xv;
-          float4 xw = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (r0 + r < b)
-            xw = __ldg(reinterpret_cast<const float4*>(x + (size_t)(r0 + r) * n +
-                                                       k0) + v);
-          if (bf16) {
-            xw.x = round_bf16(xw.x); xw.y = round_bf16(xw.y);
-            xw.z = round_bf16(xw.z); xw.w = round_bf16(xw.w);
-          }
-          float* xd = &x_sm[r][4 * v];
-          xd[0] = xw.x; xd[1] = xw.y; xd[2] = xw.z; xd[3] = xw.w;
+      for (int j = 0; j < 4; ++j)
+        xs[buf][4 * kq + j][r] = BF16 ? round_bf16(v[j]) : v[j];
+    }
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (!POST) {
+      const float4 q = raw_sc[tid];
+      sc[0] = q.x; sc[1] = q.y; sc[2] = q.z; sc[3] = q.w;
+    }
+#pragma unroll
+    for (int i = 0; i < WR; ++i) {
+      const int kr = (tid >> 5) + (NT / 32) * i, word = raw_w[tid + NT * i];
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float f =   // byte j, sign-extended: exact
+            (float)((int)((unsigned)word << (24 - 8 * j)) >> 24);
+        v[j] = POST ? f : BF16 ? round_bf16(__fmul_rn(f, sc[j]))
+                               : __fmul_rn(f, sc[j]);
+      }
+      *reinterpret_cast<float4*>(&wsm[buf][kr][4 * cq]) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  };
+
+  // prescale: acc the tile's chains; postscale: sg the group's, acc the
+  // tile's sum of the scaled group dots
+  float acc[8][8], sg[POST ? 8 : 1][POST ? 8 : 1];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[i][j] = 0.f;
+      if constexpr (POST) sg[i][j] = 0.f;
+    }
+
+#pragma unroll
+  for (int q = 0; q < kTileRing - 1; ++q) fetch(q);
+  stash(0);
+  __syncthreads();
+  int ks = 0;   // stages done in the current k-tile
+  for (int s = 0; s < nstage; ++s) {
+    fetch(s + kTileRing - 1);
+    const int buf = s & 1;
+#pragma unroll
+    for (int kk = 0; kk < kTileK; ++kk) {
+      // the next stage into the other buffer (last read before the previous
+      // barrier), halfway, so that its latency hides behind the FMAs
+      if (kk == kTileK / 2 && s + 1 < nstage) stash(s + 1);
+      const float4 a0 = *reinterpret_cast<const float4*>(&xs[buf][kk][4 * ty]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&xs[buf][kk][BM / 2 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&wsm[buf][kk][4 * tx]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&wsm[buf][kk][64 + 4 * tx]);
+      const float xv[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float wv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if constexpr (POST)
+            sg[i][j] = fmaf(xv[i], wv[j], sg[i][j]);
+          else
+            acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
         }
-        // item (kr, cq): k-row k0 + kr, columns c0 + 4 cq .. + 3
-        for (int e = tid; e < kc * (kCols / 4); e += kThreads) {
-          const int kr = e / (kCols / 4), cq = e % (kCols / 4);
-          const int c = c0 + 4 * cq;
-          float wv[4] = {0.f, 0.f, 0.f, 0.f};
-          if (c < d) {
-            const char4 q = __ldg(reinterpret_cast<const char4*>(
-                wq + (size_t)(k0 + kr) * d + c));
-            wv[0] = (float)q.x; wv[1] = (float)q.y;
-            wv[2] = (float)q.z; wv[3] = (float)q.w;
-            if (!postscale) {
-              const float4 sc = __ldg(reinterpret_cast<const float4*>(
-                  ws + (size_t)g * d + c));
-              wv[0] = __fmul_rn(wv[0], sc.x); wv[1] = __fmul_rn(wv[1], sc.y);
-              wv[2] = __fmul_rn(wv[2], sc.z); wv[3] = __fmul_rn(wv[3], sc.w);
-              if (bf16) {
+    }
+    const int kend = kbeg + (s + 1) * kTileK;
+    if constexpr (POST) {
+      if ((kend & (G - 1)) == 0) {   // a group ends: acc += dot * scale
+        const size_t g = (size_t)((kend >> lg) - 1) * d;
+        float sc[8];
 #pragma unroll
-                for (int j = 0; j < 4; ++j) wv[j] = round_bf16(wv[j]);
-              }
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + 64 * h + 4 * tx;
+          const float4 q = c < d ? __ldg(reinterpret_cast<const float4*>(
+                                       ws + g + c))
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+          sc[4 * h] = q.x; sc[4 * h + 1] = q.y;
+          sc[4 * h + 2] = q.z; sc[4 * h + 3] = q.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(sg[i][j], sc[j]));
+            sg[i][j] = 0.f;
+          }
+      }
+    }
+    if (++ks == spt) {   // a k-tile ends: its sum to part, or into out
+      ks = 0;
+      const int t = kend / tk - 1;
+      float* dst = part != nullptr ? part + (size_t)t * b * d : out;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = r0 + (i < 4 ? 4 * ty + i : BM / 2 + 4 * ty + i - 4);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + 64 * h + 4 * tx;
+          if (r < b && c < d) {
+            float4* p = reinterpret_cast<float4*>(dst + (size_t)r * d + c);
+            float4 o = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                   acc[i][4 * h + 2], acc[i][4 * h + 3]);
+            if (part == nullptr) {   // out = out + acc_t, out from 0
+              const float4 q = t == t0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *p;
+              o = make_float4(__fadd_rn(q.x, o.x), __fadd_rn(q.y, o.y),
+                              __fadd_rn(q.z, o.z), __fadd_rn(q.w, o.w));
             }
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) w_sm[kr][4 * cq + j] = wv[j];
-        }
-        __syncthreads();
-        for (int kk = 0; kk < kc; ++kk) {
-          float xr[TM], wr[TN];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) xr[i] = x_sm[ty + TY * i][kk];
-#pragma unroll
-          for (int j = 0; j < TN; ++j) wr[j] = w_sm[kk][tx + TX * j];
-          if (postscale) {
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-              for (int j = 0; j < TN; ++j) s[i][j] = fmaf(xr[i], wr[j], s[i][j]);
-          } else {
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-              for (int j = 0; j < TN; ++j)
-                acc[i][j] = fmaf(xr[i], wr[j], acc[i][j]);
+            *p = o;
           }
         }
-        __syncthreads();
-      }
-      if (postscale) {
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int c = c0 + tx + TX * j;
-          const float sc = c < d ? ws[(size_t)g * d + c] : 0.f;
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-            acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(s[i][j], sc));
-        }
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
       }
     }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) o[i][j] = __fadd_rn(o[i][j], acc[i][j]);
+    __syncthreads();
   }
-  float* dst = out + (split ? (size_t)t_begin * b * d : 0);
+  if (part == nullptr) return;
+  // split: the last of the (row, column) block's gridDim.z blocks to finish
+  // adds every tile's sum in order, out = ((0 + acc_0) + acc_1) + ..., and
+  // leaves its counter at 0 for the next call on the stream
+  int& last = *reinterpret_cast<int*>(raw + kTileRing * RB);
+  __threadfence();
+  int* counter = counters + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0) {
+    last = atomicAdd(counter, 1) == (int)gridDim.z - 1;
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int nt = (int)gridDim.z * tps;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + ty + TY * i;
-    if (r >= b) continue;
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + (i < 4 ? 4 * ty + i : BM / 2 + 4 * ty + i - 4);
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx + TX * j;
-      if (c < d) dst[(size_t)r * d + c] = o[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 64 * h + 4 * tx;
+      if (r >= b || c >= d) continue;
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int t = 0; t < nt; ++t) {   // other blocks' writes: through L2
+        const float4 q = __ldcg(reinterpret_cast<const float4*>(
+            part + ((size_t)t * b + r) * d + c));
+        o = make_float4(__fadd_rn(o.x, q.x), __fadd_rn(o.y, q.y),
+                        __fadd_rn(o.z, q.z), __fadd_rn(o.w, q.w));
+      }
+      *reinterpret_cast<float4*>(out + (size_t)r * d + c) = o;
     }
   }
 }
 
-// out[i] = ((0 + part[0][i]) + part[1][i]) + ... over nt tiles, in order
-__global__ void sum_tiles_kernel(const float* __restrict__ part,
-                                 float* __restrict__ out, int nt,
-                                 size_t count) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float o = 0.f;
-  for (int t = 0; t < nt; ++t) o = __fadd_rn(o, part[(size_t)t * count + i]);
-  out[i] = o;
-}
-
-// grid of (column blocks, row blocks, k-tiles when split); `part` non-null
-// splits the tiles across blocks and sums them into `out` after
-dim3 grid_of(int b, int d, int bm, int nt, bool split) {
-  return dim3((unsigned)((d + kCols - 1) / kCols), (unsigned)((b + bm - 1) / bm),
-              split ? (unsigned)nt : 1u);
-}
-
-int sum_tiles(const float* part, float* out, int nt, size_t count,
-              cudaStream_t s) {
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  sum_tiles_kernel<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(part, out,
-                                                                   nt, count);
+// The tile kernel at BM rows a block, its k-tiles split over `splits`
+// blocks (a divisor of the tile count; part: f32 [nt, b, d] and counters:
+// int32 zeros, one a (row, column) block, when splits > 1), one launch
+template <int BM, bool BF16, bool POST>
+int launch_tile(const float* x, const int8_t* wq, const float* ws, float* out,
+                float* part, int* counters, int b, int n, int d, int G,
+                int tk, int splits, cudaStream_t s) {
+  const int nt = n / tk;
+  if (splits < 1 || nt % splits != 0 ||
+      (splits > 1 && (part == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  static size_t set[16] = {};
+  auto kernel = q8_untiled_tile_kernel<BM, BF16, POST>;
+  const int err = allow_smem(kernel, tile_smem_bytes<BM>(), set);
+  if (err) return err;
+  const dim3 grid((unsigned)((d + kTileCols - 1) / kTileCols),
+                  (unsigned)((b + BM - 1) / BM), (unsigned)splits);
+  kernel<<<grid, 2 * BM, tile_smem_bytes<BM>(), s>>>(
+      x, wq, ws, out, splits > 1 ? part : nullptr, counters, b, n, d, G, tk,
+      nt / splits);
   return (int)cudaGetLastError();
+}
+
+template <bool BF16, bool POST>
+int untiled_tiles(const float* x, const int8_t* wq, const float* ws,
+                  float* out, float* part, int* counters, int b, int n, int d,
+                  int G, int tk, int shape, int splits, cudaStream_t s) {
+  if (shape == 0)
+    return launch_tile<64, BF16, POST>(x, wq, ws, out, part, counters, b, n, d,
+                                       G, tk, splits, s);
+  if (shape == 1)
+    return launch_tile<128, BF16, POST>(x, wq, ws, out, part, counters, b, n,
+                                        d, G, tk, splits, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------- the GEMV, b <= 8 ----
@@ -785,35 +951,45 @@ int q8q8_untiled(const void* xq, const void* xs, const void* wq,
 // out = q8_matmul_pallas(x, wq, ws): x f32 [b, n], wq int8 [n, d], ws f32
 // [n/G, d], out f32 [b, d]; bf16 != 0 computes in bf16, postscale != 0
 // scales each group's dot after it. gemv != 0 (b <= 8) runs the GEMV, one
-// launch, and ignores part; else the 64-row tile kernel, its k-tiles split
-// over blocks into part (f32 [n / (gpt G), b, d]) when part is not null.
+// launch; else the tile kernel at plan_untiled's `shape` (0: 64 rows a
+// block, 1: 128) with its k-tiles split over `splits` blocks (a divisor of
+// the n / (gpt G) tiles; when splits > 1, part: f32 [n / (gpt G), b, d]
+// scratch and counters: int32 zeros, one a (row, column) block, left at
+// 0), one launch. Launches on `stream` and returns cudaGetLastError() (0 =
+// launched).
 int q8_untiled(const void* x, const void* wq, const void* ws, void* out,
-               void* part, int b, int n, int d, int group_size, int gpt,
-               int bf16, int postscale, int gemv, void* stream) {
+               void* part, void* counters, int b, int n, int d,
+               int group_size, int gpt, int bf16, int postscale, int gemv,
+               int shape, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const int8_t* w8 = static_cast<const int8_t*>(wq);
   const float* wsf = static_cast<const float*>(ws);
+  float* o = static_cast<float*>(out);
+  const int G = group_size;
   if (gemv) {
-    float* o = static_cast<float*>(out);
     if (bf16)
       return postscale ? untiled_gemv_rows<true, true>(xf, w8, wsf, o, b, n, d,
-                                                       group_size, gpt, s)
+                                                       G, gpt, s)
                        : untiled_gemv_rows<true, false>(xf, w8, wsf, o, b, n,
-                                                        d, group_size, gpt, s);
+                                                        d, G, gpt, s);
     return postscale ? untiled_gemv_rows<false, true>(xf, w8, wsf, o, b, n, d,
-                                                      group_size, gpt, s)
-                     : untiled_gemv_rows<false, false>(xf, w8, wsf, o, b, n, d,
-                                                       group_size, gpt, s);
+                                                      G, gpt, s)
+                     : untiled_gemv_rows<false, false>(xf, w8, wsf, o, b, n,
+                                                       d, G, gpt, s);
   }
-  const int nt = n / group_size / gpt;
-  const bool split = part != nullptr;
-  float* dst = static_cast<float*>(split ? part : out);
-  q8_untiled_kernel<64, 4, 4><<<grid_of(b, d, 64, nt, split), kThreads, 0,
-                                s>>>(xf, w8, wsf, dst, b, n, d, group_size,
-                                     gpt, bf16, postscale, (int)split);
-  if (!split) return (int)cudaGetLastError();
-  return sum_tiles(dst, static_cast<float*>(out), nt, (size_t)b * d, s);
+  float* pt = static_cast<float*>(part);
+  int* cn = static_cast<int*>(counters);
+  const int tk = gpt * G;
+  if (bf16)
+    return postscale ? untiled_tiles<true, true>(xf, w8, wsf, o, pt, cn, b, n,
+                                                 d, G, tk, shape, splits, s)
+                     : untiled_tiles<true, false>(xf, w8, wsf, o, pt, cn, b, n,
+                                                  d, G, tk, shape, splits, s);
+  return postscale ? untiled_tiles<false, true>(xf, w8, wsf, o, pt, cn, b, n,
+                                                d, G, tk, shape, splits, s)
+                   : untiled_tiles<false, false>(xf, w8, wsf, o, pt, cn, b, n,
+                                                 d, G, tk, shape, splits, s);
 }
 
 }  // extern "C"

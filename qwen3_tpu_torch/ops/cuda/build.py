@@ -32,8 +32,9 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 NO_CONTRACT_EXCEPT = {"q8_fused.cu"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures: pointers and the stream as c_void_p, every int as c_int,
-# every float as c_float
+_L = ctypes.c_longlong
+# C signatures: pointers and the stream as c_void_p, every int as c_int
+# (a long long as c_longlong), every float as c_float
 SIGNATURES = {
     "q8q8_matmul": [_P] * 6 + [_I] * 7 + [_P],
     "q8q8_matmul_stacked": [_P] * 4 + [_I, _P, _P] + [_I] * 7 + [_P],
@@ -48,7 +49,8 @@ SIGNATURES = {
     "batched_decode_partial": [_P] * 12 + [_I] * 9 + [_F, _P],
     "kv_write_rows": [_P] * 3 + [_I] * 6 + [_P],
     "q8q8_untiled": [_P] * 6 + [_I] * 8 + [_P],
-    "q8_untiled": [_P] * 5 + [_I] * 8 + [_P],
+    "q8_untiled": [_P] * 6 + [_I] * 10 + [_P],
+    "rmsnorm": [_P] * 4 + [_I] * 3 + [_L] * 2 + [_I] * 2 + [_F, _P],
     "pure_read_stacked": [_P, _I, _P] + [_I] * 5 + [_P],
     "pure_read_manual": [_P, _I, _P] + [_I] * 6 + [_P],
 }

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from qwen3_tpu_torch.ops.activations import swiglu
+from qwen3_tpu_torch.ops.cuda.flash_decode import decode_counters
 from qwen3_tpu_torch.ops.q8 import quantize_act, round_bf16
 
 LAUNCHES = {"stacked": 0, "tiled": 0, "stacked_fast": 0,
@@ -609,6 +610,19 @@ def _check_untiled(x, x_s, w_q, w_s, group_size, x_dtype):
 
 
 UNTILED_GEMV_ROWS = 8      # q8_matmul_pallas runs its GEMV up to this b
+# q8_matmul_pallas's tile kernel past it: plan_untiled's shapes, (rows,
+# columns) a block of 2 x rows threads, 8 x 8 outputs a thread; its k-tiles
+# split only where the unsplit grid holds fewer than UNTILED_SPLIT_WARPS
+# warps (16 an SM on 132 SMs: two 128-row blocks), and a grid under
+# UNTILED_MIN_WARPS (4 an SM) is short of warps. Chosen by chip_smoke.py's
+# forced routes at qwen3-0.6b's b = 512 layer matrices on an H100 (f32
+# prescale, us): wqkv 124.0 (128 rows, 2 splits; unsplit 132.1), wo 75.9
+# (128 rows, 4; 64 rows, 2 splits: 92.4), w13 187.4 (128 rows, 2; unsplit
+# 221.2), w2 108.5 (64 rows, 6; 128 rows, 6: 126.8); blocks of 64 x 64
+# (8 x 4 a thread) were slower in prescale on all four
+UNTILED_TILE_SHAPES = ((64, 128), (128, 128))
+UNTILED_SPLIT_WARPS = 16 * 132
+UNTILED_MIN_WARPS = 4 * 132
 # q8_q8_matmul_pallas runs its GEMV up to this b (the crossover with the
 # MMA tile path measured by chip_smoke.py on an H100: the GEMV faster on
 # every qwen3-0.6b layer matrix at b <= 4, even with it summed over a token
@@ -639,17 +653,39 @@ def untiled_gemv_fits(b: int, n: int, group_size: int) -> bool:
 
 
 def plan_untiled(b: int, n: int, d: int, group_size: int, block_k: int = 512,
-                 sms: int = 132) -> tuple[bool, bool]:
-    """q8_matmul_pallas's route: (gemv, split). A call of at most
+                 sms: int = 132) -> tuple[bool, int, int]:
+    """q8_matmul_pallas's route: (gemv, shape, splits). A call of at most
     UNTILED_GEMV_ROWS rows runs the GEMV, one launch whose warps take the
-    k-tiles; a larger one the 64-row tile kernel, whose k-tiles split
-    across blocks, with an ordered second pass, when there is more than one
-    and its row and column blocks alone are fewer than 2 sms."""
+    k-tiles (shape 0, splits 1). A larger one runs the tile kernel on
+    UNTILED_TILE_SHAPES[shape] (128-row blocks only past 64 rows), its
+    k-tiles split evenly over `splits` blocks (a divisor of the tile count,
+    combined in order in the same launch), splitting only where the
+    unsplit grid holds fewer than UNTILED_SPLIT_WARPS warps. Of those grids
+    it takes the one whose busiest SM has the fewest FMAs to run (its
+    blocks, rounded up, times each block's rows x columns x k-rows),
+    leaving out grids under UNTILED_MIN_WARPS warps where others reach it;
+    on a tie, more warps, then more rows a block. The thresholds scale with
+    `sms`. Every route runs each row's chains in the same order, so the
+    plan changes no bit."""
     if b <= UNTILED_GEMV_ROWS:
-        return True, False
+        return True, 0, 1
     nt = n // pick_tile(n, 8 * group_size, block_k)
-    blocks = -(-d // 64) * -(-b // 64)
-    return False, nt > 1 and blocks < 2 * sms
+    best = None
+    for shape, (rows, cols) in enumerate(UNTILED_TILE_SHAPES):
+        if rows > 64 >= b:
+            continue             # one 64-row block holds every row
+        grid = -(-d // cols) * -(-b // rows)
+        for splits in range(1, nt + 1):
+            if nt % splits or (splits > 1 and grid * rows // 16
+                               >= UNTILED_SPLIT_WARPS * sms // 132):
+                continue
+            warps = grid * splits * rows // 16
+            key = (warps < UNTILED_MIN_WARPS * sms // 132,
+                   -(-grid * splits // sms) * rows * cols * (n // splits),
+                   -warps, -rows)
+            if best is None or key < best[0]:
+                best = (key, shape, splits)
+    return False, best[1], best[2]
 
 
 def plan_untiled_q8q8(b: int, n: int, d: int, group_size: int,
@@ -727,6 +763,57 @@ def q8_q8_matmul_pallas(x_q: torch.Tensor, x_s: torch.Tensor,
                                 gemv, shape, splits)
 
 
+def q8_untiled_launch(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                      group_size: int, block_k: int, compute_dtype,
+                      postscale: bool, gemv: bool, shape: int = 0,
+                      splits: int = 1) -> torch.Tensor:
+    """The untiled dequant kernel on CUDA tensors, on a given route: the GEMV
+    (b <= UNTILED_GEMV_ROWS), or the tile kernel on
+    UNTILED_TILE_SHAPES[shape] with its k-tiles over `splits` blocks (a
+    divisor of the tile count). q8_matmul_pallas takes plan_untiled's
+    route; chip_smoke.py and the card tests force the others to hold and
+    time them. Raises on a refused launch."""
+    from qwen3_tpu_torch.ops.cuda.build import load_library
+
+    if x.dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    xf = x.float().contiguous()
+    _check_untiled(xf, None, w_q, w_s, group_size, torch.float32)
+    *lead, n = x.shape
+    d = w_q.shape[1]
+    b = xf.numel() // n
+    gpt = pick_tile(n, 8 * group_size, block_k) // group_size
+    nt = n // group_size // gpt
+    if gemv and b > UNTILED_GEMV_ROWS:
+        raise ValueError(f"the GEMV takes at most {UNTILED_GEMV_ROWS} rows, "
+                         f"got b={b}")
+    if not gemv and (shape not in range(len(UNTILED_TILE_SHAPES))
+                     or splits < 1 or nt % splits):
+        raise ValueError(f"the tile kernel takes a shape of "
+                         f"UNTILED_TILE_SHAPES and a split "
+                         f"dividing its {nt} k-tiles, got shape={shape}, "
+                         f"splits={splits}")
+    out = torch.empty(b, d, dtype=torch.float32, device=x.device)
+    part = counters = None
+    if not gemv and splits > 1:
+        rows, cols = UNTILED_TILE_SHAPES[shape]
+        part = torch.empty(nt, b, d, dtype=torch.float32, device=x.device)
+        # the decode kernels' completion counters, one a (row, column)
+        # block: zeros on this stream, left at zero by the kernel
+        counters = decode_counters(x.device, -(-d // cols) * -(-b // rows))
+    err = load_library().q8_untiled(
+        xf.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), b, n, d,
+        group_size, gpt, int(compute_dtype == torch.bfloat16),
+        int(postscale), int(gemv), shape, splits,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pallas kernel launch failed: CUDA error {err}")
+    LAUNCHES["pallas"] += 1
+    return out.reshape(*lead, d)
+
+
 def q8_matmul_pallas(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
                      group_size: int, block_k: int = 512, block_d: int = 512,
                      compute_dtype=torch.float32,
@@ -742,29 +829,9 @@ def q8_matmul_pallas(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     if x.device.type == "cpu":
         return q8_matmul_pallas_plain(x, w_q, w_s, group_size, block_k,
                                       compute_dtype, postscale)
-    from qwen3_tpu_torch.ops.cuda.build import load_library
-
-    if x.dtype not in COMPUTE_DTYPES:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    xf = x.float().contiguous()
-    _check_untiled(xf, None, w_q, w_s, group_size, torch.float32)
-    *lead, n = x.shape
-    d = w_q.shape[1]
-    b = xf.numel() // n
-    gpt = pick_tile(n, 8 * group_size, block_k) // group_size
-    gemv, split = plan_untiled(b, n, d, group_size, block_k,
-                               _sm_count(x.device))
-    out = torch.empty(b, d, dtype=torch.float32, device=x.device)
-    part = None
-    if split:
-        part = torch.empty(n // group_size // gpt, b, d, dtype=torch.float32,
-                           device=x.device)
-    err = load_library().q8_untiled(
-        xf.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), b, n, d, group_size, gpt,
-        int(compute_dtype == torch.bfloat16), int(postscale), int(gemv),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"pallas kernel launch failed: CUDA error {err}")
-    LAUNCHES["pallas"] += 1
-    return out.reshape(*lead, d)
+    n = x.shape[-1]
+    gemv, shape, splits = plan_untiled(
+        x.numel() // max(n, 1), n, w_q.shape[-1], group_size, block_k,
+        _sm_count(x.device))
+    return q8_untiled_launch(x, w_q, w_s, group_size, block_k, compute_dtype,
+                             postscale, gemv, shape, splits)

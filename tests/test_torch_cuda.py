@@ -214,21 +214,23 @@ def test_fused_kernel_matches_plain_on_card(dev, n, g, d, prologue, exact):
         np.float32)).to(dev)
     nw = torch.from_numpy((1 + 0.1 * rng.standard_normal(n)).astype(
         np.float32)).to(dev)
-    # the row factors of the widest call, sliced: torch.mean's reduction
-    # order on the card may follow the number of rows
-    inv_all = tq_norms.rms_inv(x_all) if prologue == "norm" else None
     wq, ws = _weights(rng, 1, d, n, g, dev)
 
+    def row_inv(x):
+        # the norm kernel's row factors: a row's do not depend on the rows
+        # beside it
+        return tq_norms.rms_inv(x) if prologue == "norm" else None
+
     def fused(rows):
-        inv = None if inv_all is None else inv_all[rows].contiguous()
-        return tq.q8_matmul_fused(x_all[rows].contiguous(), wq[0], ws[0], g,
-                                  inv, nw, prologue=prologue, exact=exact)
+        x = x_all[rows].contiguous()
+        return tq.q8_matmul_fused(x, wq[0], ws[0], g, row_inv(x), nw,
+                                  prologue=prologue, exact=exact)
 
     widest = fused(slice(0, 512))
     alone = {r: fused(slice(r, r + 1)) for r in (0, 6, 511)}
     for b in FUSED_B:
         x = x_all[:b].contiguous()
-        inv = None if inv_all is None else inv_all[:b].contiguous()
+        inv = row_inv(x)
         tq.reset_launches()
         got = fused(slice(0, b))
         torch.cuda.synchronize()
@@ -829,6 +831,67 @@ def test_untiled_gemv_rows_on_card(dev, n, g, cdt, postscale, d):
             assert torch.equal(got[r], alone[r][0]), (b, r)
 
 
+# (n, G) of the tile kernel's routes: G 16 to 512, one to six k-tiles
+TILE_ROUTES = [(1024, 16), (768, 32), (1024, 64), (3072, 64), (1024, 128),
+               (2048, 256), (1024, 512)]
+
+
+@pytest.mark.parametrize("d", [196, 256])
+@pytest.mark.parametrize("n,g", TILE_ROUTES)
+def test_untiled_tile_routes_on_card(dev, n, g, d):
+    """q8_matmul_pallas past 8 rows (the tile kernel) at b = 9, 64, 65 and
+    512, in f32 and bf16, pre- and post-scaled, one launch a call on its
+    planned route and within 1e-5 * max|plain|; every route forced (every
+    tile shape, each split that divides the k-tiles): each row equal bit
+    for bit to the same row on every route and at every b, and the first 8
+    rows to the GEMV's (both run each (row, column, k-tile) sum as one fmaf
+    chain in k order, the tiles in order). d = 196 leaves a ragged column
+    block."""
+    x, wq, ws = _untiled_inputs(n * 5 + g + d, (512,), n, d, g, dev)
+    nt = n // tq.pick_tile(n, 8 * g, 512)
+    splits = [s for s in range(1, nt + 1) if nt % s == 0]
+    for cdt in (torch.float32, torch.bfloat16):
+        for post in (False, True):
+            kw = dict(compute_dtype=cdt, postscale=post)
+            ref = tq.q8_untiled_launch(x, wq, ws, g, 512, cdt, post, False,
+                                       1, 1)
+            want = tq.q8_matmul_pallas_plain(x, wq, ws, g, **kw)
+            gemv = tq.q8_untiled_launch(x[:8].contiguous(), wq, ws, g, 512,
+                                        cdt, post, True)
+            torch.cuda.synchronize()
+            label = (cdt, post)
+            assert (ref - want).abs().max() <= 1e-5 * want.abs().max(), label
+            assert torch.equal(gemv, ref[:8]), label
+            for b in (9, 64, 65, 512):
+                xb = x[:b].contiguous()
+                tq.reset_launches()
+                got = tq.q8_matmul_pallas(xb, wq, ws, g, **kw)
+                torch.cuda.synchronize()
+                assert tq.LAUNCHES["pallas"] == 1, (label, b)
+                assert torch.equal(got, ref[:b]), (label, b)
+                for shape in range(len(tq.UNTILED_TILE_SHAPES)):
+                    for sp in splits:
+                        got = tq.q8_untiled_launch(xb, wq, ws, g, 512, cdt,
+                                                   post, False, shape, sp)
+                        torch.cuda.synchronize()
+                        assert torch.equal(got, ref[:b]), (label, b, shape,
+                                                           sp)
+
+
+def test_untiled_tile_refuses_a_bad_route(dev):
+    """A split that does not divide the k-tiles, an unknown shape and the
+    GEMV past 8 rows raise."""
+    x, wq, ws = _untiled_inputs(1, (16,), 3072, 64, 64, dev)
+    with pytest.raises(ValueError, match="split"):
+        tq.q8_untiled_launch(x, wq, ws, 64, 512, torch.float32, False, False,
+                             1, 4)
+    with pytest.raises(ValueError, match="shape"):
+        tq.q8_untiled_launch(x, wq, ws, 64, 512, torch.float32, False, False,
+                             len(tq.UNTILED_TILE_SHAPES), 1)
+    with pytest.raises(ValueError, match="GEMV"):
+        tq.q8_untiled_launch(x, wq, ws, 64, 512, torch.float32, False, True)
+
+
 def test_untiled_refuse_on_card(dev):
     """d % 4 != 0, a CPU weight beside CUDA activations, and a compute
     dtype other than f32 and bf16 raise."""
@@ -1054,3 +1117,93 @@ def test_batched_slot_does_not_depend_on_batch_or_bucket_on_card(dev):
             if i < 7:
                 for a, m_ in zip(alone, mid):
                     assert torch.equal(a[0], m_[i])
+
+
+# -- the fixed-order norm kernel ----------------------------------------------
+
+# the QK-norm's head_dim, the model dims of qwen3-0.6b, 4b and 8b, and two
+# ragged widths (the scalar path, one warp and 128 threads a row)
+NORM_WIDTHS = (128, 1024, 2560, 4096, 130, 1030)
+
+
+def _norm_rows(seed, rows, n, dtype, dev):
+    """Rows of very different scales, and norm weights 1 + 0.1 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, n)) * np.exp(rng.uniform(-4, 4, (rows, 1)))
+    w = 1 + 0.1 * rng.standard_normal(n)
+    return (torch.from_numpy(x.astype(np.float32)).to(dev).to(dtype),
+            torch.from_numpy(w.astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", NORM_WIDTHS)
+def test_norm_kernel_rows_on_card(dev, n, dtype):
+    """rms_inv and rmsnorm on the card, one launch a call: rms_inv bit-equal
+    to rms_inv_ordered (the kernel's order in plain ops, on the card) and
+    within NORM_RTOL of the torch.mean chain; w * (x * rms_inv(x)) equal to
+    rmsnorm(x, w) bit for bit, and rmsnorm within 2 NORM_RTOL of the plain
+    chain (plus one bf16 rounding step in bf16); a row's bits the same at b
+    = 1, 8 and 512 and alone."""
+    from qwen3_tpu_torch.ops.cuda import norms as cn
+
+    x_all, w = _norm_rows(n, 512, n, dtype, dev)
+    cn.reset_launches()
+    inv_all = tq_norms.rms_inv(x_all)
+    out_all = tq_norms.rmsnorm(x_all, w)
+    torch.cuda.synchronize()
+    assert cn.LAUNCHES == {"rmsnorm": 1, "rms_inv": 1}
+    assert inv_all.shape == (512, 1) and out_all.dtype == dtype
+    assert torch.equal(inv_all, cn.rms_inv_ordered(x_all))
+    plain = tq_norms.rms_inv_plain(x_all)
+    assert ((inv_all - plain).abs() / plain).max() <= cn.NORM_RTOL
+    xf = x_all.float()
+    assert torch.equal(out_all, (w * (xf * inv_all)).to(dtype))
+    ref = tq_norms.rmsnorm_plain(x_all, w).float()
+    tol = 2 * cn.NORM_RTOL * ref.abs()
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ref.abs()   # one bf16 step
+    assert ((out_all.float() - ref).abs() <= tol).all()
+    for b in (1, 8):
+        x = x_all[:b].contiguous()
+        assert torch.equal(tq_norms.rms_inv(x), inv_all[:b]), b
+        assert torch.equal(tq_norms.rmsnorm(x, w), out_all[:b]), b
+    for r in (0, 7, 511):
+        assert torch.equal(tq_norms.rms_inv(x_all[r]), inv_all[r]), r
+        assert torch.equal(tq_norms.rmsnorm(x_all[r], w), out_all[r]), r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_kernel_on_qk_views_on_card(dev, dtype):
+    """The q and k heads sliced from a qwen3-0.6b qkv output (16 + 8 + 8
+    heads of 128) normalize in place as views, one launch each, equal to
+    their contiguous copies and to the same rows in any batch."""
+    from qwen3_tpu_torch.ops.cuda import norms as cn
+
+    B, T, H, KV, D = 2, 65, 16, 8, 128
+    flat, w = _norm_rows(7, B * T, (H + 2 * KV) * D, dtype, dev)
+    qkv = flat.reshape(B, T, -1)
+    wd = w[:D].contiguous()
+    for lo, heads in ((0, H), (H * D, KV)):
+        view = qkv[..., lo:lo + heads * D].reshape(B, T, heads, D)
+        cn.reset_launches()
+        got = tq_norms.rmsnorm(view, wd)
+        inv = tq_norms.rms_inv(view)
+        torch.cuda.synchronize()
+        assert cn.LAUNCHES == {"rmsnorm": 1, "rms_inv": 1}
+        assert got.is_contiguous() and got.shape == view.shape
+        assert torch.equal(got, tq_norms.rmsnorm(view.contiguous(), wd))
+        assert torch.equal(inv, tq_norms.rms_inv(view.contiguous()))
+        one = tq_norms.rmsnorm(view[1, 64:65].contiguous(), wd)
+        assert torch.equal(one, got[1, 64:65])
+
+
+def test_norm_refuses_on_card(dev):
+    """Weights on the CPU beside CUDA rows, and a layout the kernel does not
+    walk, raise."""
+    x = torch.zeros(4, 6, 8, 16, device=dev)
+    with pytest.raises(ValueError):
+        tq_norms.rmsnorm(x, torch.ones(16))
+    with pytest.raises(ValueError):
+        tq_norms.rms_inv(x[::2, :, :4])
+    with pytest.raises(ValueError):
+        tq_norms.rms_inv(torch.zeros(16, 4, device=dev).T)

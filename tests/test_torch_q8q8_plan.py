@@ -79,18 +79,23 @@ def test_plan_scales_with_the_sm_count():
 @pytest.mark.parametrize("n,d", MATRICES)
 def test_untiled_plan_routes_decode_to_the_gemv(b, n, d):
     """q8_matmul_pallas takes its GEMV at b <= 8 (one launch, no split),
-    above it the 64-row tile kernel, which splits its k-tiles when there are
-    several and its row and column blocks fall short of two an SM;
-    q8_q8_matmul_pallas takes its own GEMV up to UNTILED_Q8Q8_GEMV_ROWS
-    (not for the classifier, whose tile blocks fill the card) and else
+    above it the tile kernel (64 rows a block, or past 64 rows 128), which
+    splits its k-tiles evenly only when its row and column blocks hold
+    fewer than 16 warps an SM; q8_q8_matmul_pallas takes its own GEMV up to
+    UNTILED_Q8Q8_GEMV_ROWS (not for the classifier, whose tile blocks fill
+    the card) and else
     plan_q8q8's MMA grid (the [d, n] tile path's)."""
-    gemv, split = tq.plan_untiled(b, n, d, 64)
+    gemv, shape, splits = tq.plan_untiled(b, n, d, 64)
     assert gemv == (b <= tq.UNTILED_GEMV_ROWS)
     nt = n // tq.pick_tile(n, 8 * 64, 512)
     if gemv:
-        assert not split
+        assert (shape, splits) == (0, 1)
     else:
-        assert split == (nt > 1 and -(-d // 64) * -(-b // 64) < 2 * 132)
+        rows, cols = tq.UNTILED_TILE_SHAPES[shape]
+        warps = -(-d // cols) * -(-b // rows) * rows // 16
+        assert nt % splits == 0 and (rows == 64 or b > 64)
+        if warps >= tq.UNTILED_SPLIT_WARPS:
+            assert splits == 1
     qgemv, shape, splits = tq.plan_untiled_q8q8(b, n, d, 64)
     assert qgemv == _q8q8_gemv(b, n, d)
     assert qgemv == (b <= tq.UNTILED_Q8Q8_GEMV_ROWS and d < 16896)
@@ -103,9 +108,9 @@ def test_untiled_plan_routes_decode_to_the_gemv(b, n, d):
 def test_untiled_plan_scales_with_the_sm_count():
     """The tile kernels' k-splits follow the card's SM count; the GEMVs'
     routes do not depend on it."""
-    assert tq.plan_untiled(512, 3072, 1024, 64, sms=132) == (False, True)
-    assert tq.plan_untiled(512, 3072, 1024, 64, sms=16) == (False, False)
-    assert tq.plan_untiled(1, 3072, 1024, 64, sms=16) == (True, False)
+    assert tq.plan_untiled(512, 3072, 1024, 64, sms=132) == (False, 0, 6)
+    assert tq.plan_untiled(512, 3072, 1024, 64, sms=16) == (False, 1, 1)
+    assert tq.plan_untiled(1, 3072, 1024, 64, sms=16) == (True, 0, 1)
     assert tq.plan_untiled_q8q8(512, 3072, 1024, 64, sms=132) == (False, 2, 3)
     assert tq.plan_untiled_q8q8(512, 3072, 1024, 64, sms=16) == (False, 2, 1)
     assert tq.plan_untiled_q8q8(1, 3072, 1024, 64, sms=16) == (True, 0, 1)
