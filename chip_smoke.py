@@ -55,7 +55,15 @@ final line:
    prompt, the CLI with --profile, see phase_host_tools); 4d. the DMA
    probe at qwen3-4b's full width (tools/probe_dma.py: the Q8_0 GEMV
    against the pure-read kernels, their checksums against the plain
-   version, no rate past 1.05 x 3.35 TB/s; see phase_probe);
+   version, no rate past 1.05 x 3.35 TB/s; see phase_probe); 4e. the B = 1
+   chunk whose loop stays on the card (decode_loop.decode_chunk) bit-equal
+   to its host loop, with no synchronizing call inside a chunk (see
+   phase_chunk_checks); then, counted as one path, Engine's fused program
+   (greedy, seeded twice) and its side program against BatchedEngine(
+   side_buffer=True) at B = 1 below and from depth 8192 (see
+   phase_decode_programs), and the fused chunk at qwen3-4b's full width
+   with bench.py's headline settings and at depth 8192, tok/s and the
+   launches of every step (see phase_fused_4b);
 5. the path against its plain version, step by step with the card's
    rounding decisions forced on the CPU (every op within 1e-5 of its max,
    every rounding step bit for bit, logits and argmax): a 64-token prefill
@@ -65,10 +73,11 @@ final line:
    phase_serving_plain) and a 64-token pallas-int8 block;
 6. profile: torch.profiler over a warm greedy completion (one prefill
    block, 64 decode steps) in mode pallas, unfused and with the fused
-   matmuls, and in mode pallas-int8, and over one 32-step serving chunk at
-   B = 8 (-c 1024) and at B = 64 (-c 512): device time by kernel (the
-   matmul kernels' sum apart), kernels per step and the device's idle
-   share.
+   matmuls, and in mode pallas-int8, over one warm fused chunk of 32 steps
+   at qwen3-0.6b and at qwen3-4b (ctx 1024, bf16 KV, greedy), and over one
+   32-step serving chunk at B = 8 (-c 1024) and at B = 64 (-c 512): device
+   time by kernel (the matmul kernels' sum apart), kernels per step and the
+   device's idle share.
 
 The last two lines are a JSON object of per-kernel numbers and
 {"ok": true, "device": {...}}.
@@ -1792,8 +1801,9 @@ def want_launches(calls):
     pallas-fast the fast ones, pallas-int8 the int8 ones, with fuse the
     fused kernel for all 113; modes exact and bf16 no kernel); every pass
     that resolved to a kernel attention 28 launches of it (prefill blocks
-    flash prefill; decode steps flash decode, or over the serving side
-    buffer the two-segment flash or the batched decode kernel); no other
+    flash prefill; decode steps, the fused chunk's forward_step passes
+    included, flash decode, or over the serving side buffer the
+    two-segment flash or the batched decode kernel); no other
     pass launches an attention kernel; every pass in every mode 4 x 28 + 1
     norm kernel launches: unfused, rmsnorm before wqkv (or q, k and v),
     after q and k, before w13 (or w1 and w3) and before the classifier;
@@ -1802,7 +1812,8 @@ def want_launches(calls):
     (the KV row write, the untiled matmuls, the pure reads)."""
     mm = {route: calls["mm_" + route] for route in (
         "pallas", "pallas-fast", "pallas-int8", "fused")}
-    passes = calls["forward"] + calls["decode_forward"]
+    passes = (calls["forward"] + calls["decode_forward"]
+              + calls["forward_step"])
     return {"rmsnorm": (4 * L + 1) * (passes - mm["fused"])
             + 2 * L * mm["fused"],
             "rms_inv": (2 * L + 1) * mm["fused"],
@@ -1812,7 +1823,8 @@ def want_launches(calls):
             "stacked_int8": 4 * L * mm["pallas-int8"],
             "tiled_int8": mm["pallas-int8"],
             "fused": (4 * L + 1) * mm["fused"],
-            "flash_decode": L * calls["decode_forward_flash"],
+            "flash_decode": L * (calls["decode_forward_flash"]
+                                 + calls["forward_step_flash"]),
             "flash_prefill": L * calls["forward_flash"],
             "flash_decode_two_segment":
                 L * calls["decode_forward_two_segment"],
@@ -1833,7 +1845,8 @@ def checked(torch, label, fn):
     wall = time.perf_counter() - t0
     launches = {k: c - before[k] for k, c in read_counts().items()}
     calls = {k: model.CALLS[k] - calls0[k] for k in model.CALLS}
-    blocks, steps = calls["forward"], calls["decode_forward"]
+    blocks = calls["forward"]
+    steps = calls["decode_forward"] + calls["forward_step"]
     if steps == 0 or blocks == 0:
         fail(f"{label}: no prefill block or no decode step ran")
     want = want_launches(calls)
@@ -2440,6 +2453,341 @@ def phase_host_tools(torch, path: str, workdir: Path):
         fail("--profile: the trace holds no kernel events")
 
 
+# -- phase 4e ------------------------------------------------------------------
+
+CHUNK_SEED = 7                 # the seeded runs' RNG seed
+DEEP_TOKENS = FLASH_DEPTH      # the side program's deep prompt: its prefill
+                               # blocks start below 8192, its decode at it
+L4B = 36                       # qwen3-4b's layers
+BENCH_4B = dict(ctx=1024, chunk=32, tokens=256,    # bench.py's headline
+                deep_rows=32768, depth=8192, deep_chunks=2)
+
+
+def prompt_of_tokens(tok, n: int) -> str:
+    """A prompt that encodes to exactly n ids: the longest word prefix of
+    LONG_PROMPT's text within n ids, then single "x" bytes, which no merge
+    of the synthetic tokenizer takes."""
+    words = (LONG_PROMPT * 2).split()
+    lo, hi = 0, len(words)
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if len(tok.encode(" ".join(words[:mid]))) <= n:
+            lo = mid
+        else:
+            hi = mid - 1
+    text = " ".join(words[:lo])
+    text += "x" * (n - len(tok.encode(text)))
+    if len(tok.encode(text)) != n:
+        fail(f"no prompt of exactly {n} tokens")
+    return text
+
+
+def no_sync(torch, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): a call that
+    synchronizes with the host (a read, a blocking copy) raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def clone_cache(cache):
+    from qwen3_tpu_torch.runtime import kvcache
+
+    vals, sc = kvcache.split(cache)
+    return kvcache.join(vals.clone(), None if sc is None else sc.clone())
+
+
+def phase_chunk_checks(torch, path: str):
+    """decode_chunk (the B = 1 chunk, its loop on the card) against
+    decode_chunk_host, the same steps one at a time with a host read after
+    each, bit for bit: packed, token, position, RNG state and every KV row
+    below the position. qwen3-0.6b (mode pallas, int8 KV, seeded at t 0.8),
+    an 826-token prefill, chunks of 16: a free chunk, then under
+    torch.cuda.set_sync_debug_mode("error") (only the read of packed
+    outside it) a stop drawn inside the chunk, the limit without
+    emit_at_limit and the limit with it. Not counted as a path: these runs
+    hold the chunk against its plain loop."""
+    from qwen3_tpu_torch.runtime import kvcache
+    from qwen3_tpu_torch.runtime.decode_loop import (
+        decode_chunk,
+        decode_chunk_host,
+    )
+    from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig
+    from qwen3_tpu_torch.runtime.xorshift import (
+        from_device_state,
+        to_device_state,
+    )
+
+    t0 = time.perf_counter()
+    eng = Engine(EngineConfig(path=path, temperature=0.8, seed=CHUNK_SEED,
+                              mode="pallas", kv_dtype="int8", seq_len=1024,
+                              device="cuda"))
+    ids = eng.tokenizer.encode(PROMPT)
+    eng.reset(batch=1)
+    first = eng._first_token(eng._prefill(ids, 0), 0)
+    k0, v0 = eng._kv
+    pos0, rng0 = len(ids), eng._rng
+    sp = eng.tokenizer.special
+    base = dict(mode="pallas", chunk=16, temperature=eng.sampler.temperature,
+                top_p=eng.sampler.top_p, greedy=False, bos=sp.bos,
+                eos=sp.eos, top_k=64)
+
+    def compare(label, limit, guard, **kw):
+        kw = {**base, **kw}
+        want = decode_chunk_host(eng.params, eng.model_cfg,
+                                 clone_cache(k0), clone_cache(v0), first,
+                                 pos0, limit, rng0, **kw)
+        k, v = clone_cache(k0), clone_cache(v0)
+        hi, lo = to_device_state(rng0, eng.device)
+        tok = torch.full((1,), first, dtype=torch.int64, device=eng.device)
+
+        def run():
+            return decode_chunk(eng.params, eng.model_cfg, k, v, tok, pos0,
+                                limit, hi, lo, **kw)
+
+        got = no_sync(torch, run) if guard else run()
+        packed = got[0].cpu().numpy()          # the one read
+        w_packed, wk, wv, w_tok, w_pos, w_rng = want
+        if packed.tolist() != w_packed.tolist():
+            fail(f"chunk {label}: packed {packed.tolist()}, host loop "
+                 f"{w_packed.tolist()}")
+        state = (int(got[3][0]), int(got[4]), from_device_state(*got[5:]))
+        if state != (w_tok, w_pos, w_rng):
+            fail(f"chunk {label}: (token, pos, rng) {state}, host loop "
+                 f"{(w_tok, w_pos, w_rng)}")
+        for a, b in zip(kvcache.tensors(got[1]) + kvcache.tensors(got[2]),
+                        kvcache.tensors(wk) + kvcache.tensors(wv)):
+            if not torch.equal(a[:, :, :w_pos], b[:, :, :w_pos]):
+                fail(f"chunk {label}: a KV row below {w_pos} differs")
+        log(f"chunk {label}: {int(packed[-2])} ids, done {int(packed[-1])}, "
+            f"pos {w_pos}; equal to the host loop"
+            + (" (no sync inside)" if guard else ""))
+        return packed
+
+    packed = compare("free", 1024, False)
+    free = packed[:int(packed[-2])].tolist()
+    at = next((i for i in range(3, len(free)) if free[i] not in free[:i]),
+              None)
+    if at is None:
+        fail(f"chunk: no new id past step 3 in the free stream {free}")
+    compare(f"stop at step {at}", 1024, True, eos=free[at])
+    compare("limit", pos0 + 5, True)
+    compare("limit, emit_at_limit", pos0 + 5, True, emit_at_limit=True)
+    del eng, k0, v0
+    torch.cuda.empty_cache()
+    log(f"chunk checks: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_decode_programs(torch, path: str):
+    """The single-stream engine's fused and side programs at qwen3-0.6b
+    (the phase 4 checkpoint; mode pallas, int8 KV), each run with the
+    launch-count check (want_launches; every step of the fused chunk is a
+    forward_step pass):
+    1. Engine(decode_impl="fused"), chunks of 16: a greedy completion and a
+       seeded one twice (reset_rng between them), equal ids;
+    2. Engine(decode_impl="side") against BatchedEngine(side_buffer=True)
+       at B = 1, seeded, the same ids: below depth 8192 (-c 1024, both on
+       the dense two-segment attention) and from depth 8192 (an 8192-token
+       prompt, whose prefill blocks all start below 8192, so both engines
+       prefill dense; every decode step runs the two-segment flash kernel).
+    Returns the runs."""
+    from qwen3_tpu_torch.runtime.batched import BatchedEngine, Request
+    from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    runs = {}
+
+    def engine(**kw):
+        base = dict(path=path, temperature=0.8, seed=CHUNK_SEED,
+                    mode="pallas", kv_dtype="int8", seq_len=1024,
+                    device="cuda")
+        return Engine(EngineConfig(**{**base, **kw}))
+
+    eng = engine(temperature=0.0, decode_chunk=16, decode_impl="fused")
+    greedy, runs["fused_greedy"] = checked(
+        torch, "fused greedy", lambda: eng.generate(PROMPT, max_tokens=48))
+    eng = engine(decode_chunk=16, decode_impl="fused")
+    seeded, runs["fused_seeded_1"] = checked(
+        torch, "fused seeded 1", lambda: eng.generate(PROMPT, max_tokens=48))
+    eng.reset_rng()
+    again, runs["fused_seeded_2"] = checked(
+        torch, "fused seeded 2", lambda: eng.generate(PROMPT, max_tokens=48))
+    if seeded.ids != again.ids:
+        fail("fused seeded: the two runs gave different ids")
+    for name, res in (("fused_greedy", greedy), ("fused_seeded_1", seeded)):
+        run = runs[name]
+        if run["calls"]["forward_step"] != run["steps"] or not res.n_generated:
+            fail(f"{name}: passes {run['calls']}; want every step a "
+                 f"forward_step and some tokens")
+        log(f"{name}: {res.n_generated} tokens, {run['steps']} chunk steps, "
+            f"launches { {k: n for k, n in run['launches'].items() if n} }, "
+            f"generate {res.generate_ms:.1f} ms, "
+            f"{1e3 * res.n_generated / res.generate_ms:.2f} tok/s")
+    del eng
+    torch.cuda.empty_cache()
+
+    for label, seq_len, attn in (("below 8192", 1024, "dense"),
+                                 ("from 8192", 8448, "flash")):
+        eng = engine(seq_len=seq_len, decode_impl="side")
+        prompt = (PROMPT if seq_len <= FLASH_DEPTH else
+                  prompt_of_tokens(eng.tokenizer, DEEP_TOKENS))
+        side, run = checked(torch, f"side {label}",
+                            lambda: eng.generate(prompt, max_tokens=32))
+        kind = {"dense": "decode_forward",
+                "flash": "decode_forward_two_segment"}[attn]
+        if run["calls"][kind] != run["steps"]:
+            fail(f"side {label}: passes {run['calls']}; want every step "
+                 f"{attn}")
+        runs[f"side {label}"] = run
+        beng = BatchedEngine(path, max_batch=1, seq_len=seq_len,
+                             mode="pallas", temperature=0.8, top_p=0.9,
+                             kv_dtype="int8", prefill_bucket=64, attn=attn,
+                             model_cfg=eng.model_cfg, params=eng.params,
+                             device="cuda")
+        if beng.attn != attn:
+            fail(f"BatchedEngine resolved attn={beng.attn}, want {attn}")
+        req = beng.submit(Request(prompt=prompt, seed=CHUNK_SEED,
+                                  max_tokens=32))
+        (_, runs[f"batched {label}"]) = checked(torch, f"batched {label}",
+                                                beng.run)
+        if req.prompt_ids + req.out_ids != side.ids:
+            fail(f"side {label}: ids differ from BatchedEngine("
+                 f"side_buffer=True) at B = 1")
+        log(f"side {label}: {len(side.ids)} ids ({side.n_generated} "
+            f"generated) equal BatchedEngine(side_buffer=True)'s, attn "
+            f"{attn}, launches "
+            f"{ {k: n for k, n in run['launches'].items() if n} }")
+        del eng, beng
+        torch.cuda.empty_cache()
+    return runs
+
+
+def chunk_profile(torch, label: str, chunk_fn, steps: int, trace: str):
+    """Where a chunk's time goes: chunk_fn() (one decode_chunk call and the
+    read of its packed ids, which it returns) once to warm, once timed alone, once under
+    torch.profiler, read from its Chrome trace. Reports wall per token,
+    device busy per step, kernels per step and the device's idle share (busy
+    from the trace, wall from the run without the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    chunk_fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = int(chunk_fn()[-2])
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        chunk_fn()
+        torch.cuda.synchronize()
+    got = trace_busy(prof, trace)
+    if got is None:
+        log(f"{label} profile: the trace holds no kernel events; device "
+            f"time not measured")
+        return None
+    busy, n_kernels, span, by_name = got
+    matmul = sum(v for k, v in by_name.items()
+                 if k.startswith(MATMUL_KERNELS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = dict(label=label, steps=steps, tokens=n, wall_ms=wall_ms,
+               wall_ms_per_token=wall_ms / max(n, 1),
+               device_busy_ms_per_step=busy / 1e3 / steps,
+               matmul_kernel_ms_per_step=matmul / 1e3 / steps,
+               kernels_per_step=n_kernels / steps,
+               device_idle_share=1.0 - busy / 1e3 / wall_ms,
+               profiled_idle_share=1.0 - busy / span,
+               top_kernels_ms={k: v / 1e3 for k, v in top})
+    log("chunk profile " + json.dumps(out))
+    return out
+
+
+def phase_fused_4b(torch, card: str, workdir: Path):
+    """The fused chunk at qwen3-4b's full width (PRESETS["qwen3-4b"],
+    parameters made on the card from seed 0 by io/device_synth.py), with
+    bench.py's headline settings: mode pallas, a 1024-row bf16 cache,
+    greedy from token 7 at position 0, chunks of 32, one warm chunk, then
+    256 tokens timed; then an int8 cache of 32768 rows (values 1, as
+    bench.py fills it), flash decode from depth 8192, one warm chunk and two
+    timed. Every step must launch 4 x 36 layer matmuls, 1 classifier matmul
+    and 4 x 36 + 1 norms (and at depth 36 flash decodes); a profile of one
+    warm chunk at ctx 1024 (chunk_profile). Returns (tok/s by run,
+    profile)."""
+    from qwen3_tpu_torch.config import PRESETS
+    from qwen3_tpu_torch.io.device_synth import synth_device_params
+    from qwen3_tpu_torch.models.qwen3 import init_kv_cache
+    from qwen3_tpu_torch.runtime.decode_loop import chunk_steps, decode_chunk
+    from qwen3_tpu_torch.runtime.xorshift import seed_to_device
+
+    t0 = time.perf_counter()
+    cfg = PRESETS["qwen3-4b"]
+    b = BENCH_4B
+    dev = torch.device("cuda")
+    params = synth_device_params(cfg, b["deep_rows"], seed=0)
+    torch.cuda.synchronize()
+    log(f"qwen3-4b parameters on the card in {time.perf_counter() - t0:.1f} "
+        f"s: {sum(t.numel() * t.element_size() for t in params.values()) / 1e9:.2f} GB")
+    kw = dict(mode="pallas", chunk=b["chunk"], temperature=1e-6, top_p=0.9,
+              greedy=True, bos=cfg.vocab_size - 1, eos=cfg.vocab_size - 2,
+              top_k=64)
+    out = {}
+
+    def decode(label, kv_dtype, rows, pos, attn, tokens=None, chunks=None):
+        k, v = init_kv_cache(cfg, 1, rows, kv_dtype, dev)
+        if kv_dtype == "int8":
+            k[0].fill_(1)
+            v[0].fill_(1)
+        hi, lo = seed_to_device(3, dev)
+        tok = torch.full((1,), 7, dtype=torch.int64, device=dev)
+
+        def chunk():
+            nonlocal k, v, tok, hi, lo, pos
+            packed, k, v, tok, _, hi, lo = decode_chunk(
+                params, cfg, k, v, tok, pos, rows, hi, lo, attn=attn, **kw)
+            row = packed.cpu()
+            pos = min(pos + int(row[-2]), rows)
+            return row
+
+        chunk()                                    # warm
+        before, steps, emitted, n_chunks = read_counts(), 0, 0, 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        while (emitted < tokens) if tokens else (n_chunks < chunks):
+            steps += chunk_steps(pos, rows, b["chunk"])
+            row = chunk()
+            emitted += int(row[-2])
+            n_chunks += 1
+            if bool(row[-1]) or int(row[-2]) == 0:
+                break
+        dt = time.perf_counter() - t1
+        got = {k_: c - before[k_] for k_, c in read_counts().items()}
+        want = {"stacked": 4 * L4B * steps, "tiled": steps,
+                "rmsnorm": (4 * L4B + 1) * steps,
+                "flash_decode": L4B * steps if attn == "flash" else 0}
+        if any(got[k_] != n for k_, n in want.items()) or any(
+                c for k_, c in got.items() if k_ not in want):
+            fail(f"qwen3-4b {label}: launches {got}, want {want} for "
+                 f"{steps} steps")
+        out[label] = emitted / dt
+        log(f"qwen3-4b {label}: {emitted} tokens in {n_chunks} chunks "
+            f"({steps} steps) in {dt:.3f} s: {emitted / dt:.2f} tok/s, "
+            f"{1e3 * dt / max(emitted, 1):.2f} ms/token ({card}); launches "
+            f"{ {k_: c for k_, c in got.items() if c} }")
+        return chunk
+
+    chunk = decode("ctx 1024, bf16 KV, dense", "bfloat16", b["ctx"], 0,
+                   "dense", tokens=b["tokens"])
+    prof = chunk_profile(torch, "qwen3-4b fused chunk, ctx 1024",
+                         chunk, b["chunk"], str(workdir / "chunk4b"))
+    decode(f"depth {b['depth']}, int8 KV, flash, {b['deep_rows']} rows",
+           "int8", b["deep_rows"], b["depth"], "flash",
+           chunks=b["deep_chunks"])
+    del params, chunk
+    torch.cuda.empty_cache()
+    log(f"qwen3-4b phase: {time.perf_counter() - t0:.1f} s")
+    return out, prof
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 class Forcing:
@@ -2963,6 +3311,42 @@ def phase_profile(torch, path: str, fuse: bool = False,
     return out
 
 
+def phase_chunk_profile(torch, path: str, workdir: Path):
+    """The fused chunk at qwen3-0.6b with qwen3-4b's headline settings
+    (phase_fused_4b): mode pallas, a 1024-row bf16 cache, greedy from token
+    7 at position 0, chunks of 32; one warm chunk profiled
+    (chunk_profile)."""
+    from qwen3_tpu_torch.models.qwen3 import init_kv_cache
+    from qwen3_tpu_torch.runtime.decode_loop import decode_chunk
+    from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig
+    from qwen3_tpu_torch.runtime.xorshift import seed_to_device
+
+    eng = Engine(EngineConfig(path=path, temperature=0.0, mode="pallas",
+                              seq_len=1024, device="cuda"))
+    cfg, dev, rows = eng.model_cfg, eng.device, 1024
+    k, v = init_kv_cache(cfg, 1, rows, "bfloat16", dev)
+    hi, lo = seed_to_device(3, dev)
+    tok = torch.full((1,), 7, dtype=torch.int64, device=dev)
+    pos = 0
+    sp = eng.tokenizer.special
+
+    def chunk():
+        nonlocal k, v, tok, hi, lo, pos
+        packed, k, v, tok, _, hi, lo = decode_chunk(
+            eng.params, cfg, k, v, tok, pos, rows, hi, lo, mode="pallas",
+            chunk=32, temperature=eng.sampler.temperature, top_p=0.9,
+            greedy=True, bos=sp.bos, eos=sp.eos, top_k=64)
+        row = packed.cpu()
+        pos = min(pos + int(row[-2]), rows)
+        return row
+
+    out = chunk_profile(torch, "qwen3-0.6b fused chunk, ctx 1024", chunk,
+                        32, str(workdir / "chunk06b"))
+    del eng, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_serving_profile(torch, path: str, batch: int, seq_len: int):
     """Where a serving decode step's time goes: a BatchedEngine with the
     serve defaults but `batch` slots and a `seq_len` context (pallas-fast,
@@ -3043,12 +3427,14 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
                   probe, counts, norm_rows):
     """Per kernel, one decoded token at the main path's shapes: the matmuls
     at b = 1 (4 stacked x 28 layers, 1 classifier), their launches over the
-    path below depth 8192; flash decode at depth 8192 and flash prefill per
-    512-row block at start 8192 (28 launches each), their launches over the
-    long-context path. The serving kernels per decode step of the serve
-    defaults (B = 8): the fast matmuls at b = 8, batched decode at B = 8
-    over 1152 rows (fast), two-segment flash at base 8192 (B = 1), their
-    launches over the serving path. The int8 and fused kernels per decoded
+    path below depth 8192 and the fused and side path (phase 4e); flash
+    decode at depth 8192 and flash prefill per 512-row block at start 8192
+    (28 launches each), their launches over the long-context path (flash
+    decode's also over the fused and side path). The serving kernels per
+    decode step of the serve defaults (B = 8): the fast matmuls at b = 8,
+    batched decode at B = 8 over 1152 rows (fast), two-segment flash at base
+    8192 (B = 1), their launches over the serving path (two-segment flash's
+    also over the fused and side path). The int8 and fused kernels per decoded
     token at b = 1: the int8 matmuls (4 stacked x 28, 1 classifier) and the
     fused matmul in mode pallas (exact: 4 x 28 layer matmuls and the
     classifier), their launches over the modes path. The kernels that no
@@ -3060,7 +3446,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
     norm kernel, the port's own (the JAX package's norms are XLA, no Pallas
     kernel replaces it): per decoded token at b = 1 (4 x 28 + 1 rmsnorm
     calls), its launches (rmsnorm and rms_inv) over the path below depth
-    8192."""
+    8192 and the fused and side path."""
     out = []
     for kind, source_line in (("stacked", 419), ("tiled", 314)):
         mine = [r for r in rows if r["kernel"] == kind]
@@ -3072,7 +3458,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "route": "cuda",
             "source": "qwen3_tpu_torch/csrc/q8_matmul.cu",
             "replaces": f"qwen3_tpu/ops/pallas/q8_matmul.py:{source_line}",
-            "launches": counts["short"][kind],
+            "launches": counts["short"][kind] + counts["fused"][kind],
             "max_abs_err": max(r["max_abs_diff"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in dec) * per_token,
             "plain_ms": sum(r["plain_ms"] for r in dec) * per_token,
@@ -3090,7 +3476,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "route": "cuda",
             "source": "qwen3_tpu_torch/csrc/flash_decode.cu",
             "replaces": f"qwen3_tpu/ops/pallas/flash_decode.py:{source_line}",
-            "launches": counts["long"][kind],
+            "launches": counts["long"][kind] + counts["fused"][kind],
             "max_abs_err": flash_err[kind],
             "ms": r["kernel_ms"] * L,
             "plain_ms": r["plain_ms"] * L,
@@ -3133,7 +3519,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "route": "cuda",
             "source": f"qwen3_tpu_torch/csrc/{src}",
             "replaces": f"qwen3_tpu/ops/pallas/{line}",
-            "launches": counts["serve"][count],
+            "launches": counts["serve"][count] + counts["fused"][count],
             "max_abs_err": serve_err[name],
             "ms": r["kernel_ms"] * L,
             "plain_ms": r["plain_ms"] * L,
@@ -3183,7 +3569,8 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
         "name": "rmsnorm", "route": "cuda",
         "source": "qwen3_tpu_torch/csrc/rmsnorm.cu",
         "replaces": "qwen3_tpu/ops/norms.py:11", "pallas": None,
-        "launches": counts["short"]["rmsnorm"] + counts["short"]["rms_inv"],
+        "launches": sum(counts[p][k] for p in ("short", "fused")
+                        for k in ("rmsnorm", "rms_inv")),
         "max_abs_err": max(r["max_abs_diff"] for r in norm_rows),
         "ms": per_token("kernel_ms"), "plain_ms": per_token("plain_ms"),
         "bound_ms": per_token("bound_ms"), "bound_by": "bytes",
@@ -3209,7 +3596,7 @@ def main() -> int:
     t_start = time.perf_counter()
     import torch
 
-    _, kind = phase_device(torch)
+    card, kind = phase_device(torch)
     # the paths below set QWEN3_TPU_FUSE themselves where they run fused
     os.environ.pop("QWEN3_TPU_FUSE", None)
     sys.path.insert(0, str(HERE))
@@ -3249,6 +3636,19 @@ def main() -> int:
                 "stacked_int8", "tiled_int8", "fused", "rmsnorm",
                 "rms_inv")) == 0:
             fail("a kernel of the modes path was never launched")
+        t4e = time.perf_counter()
+        phase_chunk_checks(torch, path)
+        reset_counts()
+        phase_decode_programs(torch, path)
+        tok_s_4b, _ = phase_fused_4b(torch, card, workdir)
+        counts["fused"] = read_counts()
+        log(f"fused and side path launches (the runs above): "
+            f"{counts['fused']}; qwen3-4b tok/s {tok_s_4b} ({card}); "
+            f"{time.perf_counter() - t4e:.1f} s")
+        if min(counts["fused"][k] for k in (
+                "stacked", "tiled", "flash_decode",
+                "flash_decode_two_segment", "rmsnorm")) == 0:
+            fail("a kernel of the fused and side path was never launched")
         phase_quality(torch, path)
         phase_host_tools(torch, path, workdir)
         probe = phase_probe(torch)
@@ -3260,6 +3660,7 @@ def main() -> int:
         phase_profile(torch, path)
         phase_profile(torch, path, fuse=True)
         phase_profile(torch, path, mode="pallas-int8")
+        phase_chunk_profile(torch, path, workdir)
         phase_serving_profile(torch, path, 8, 1024)
         phase_serving_profile(torch, path, 64, 512)
     finally:

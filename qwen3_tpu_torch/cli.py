@@ -41,9 +41,14 @@ import contextlib
 import sys
 import time
 
-from qwen3_tpu_torch.config import fuse_from_env, native_tokenizer_from_env
+from qwen3_tpu_torch.config import (
+    fuse_from_env,
+    native_tokenizer_from_env,
+    quiet_from_env,
+)
 from qwen3_tpu_torch.runtime.chat import ChatSession
 from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig
+from qwen3_tpu_torch.utils.logging import set_quiet
 
 
 def _stdout_bytes(piece: bytes) -> None:
@@ -138,6 +143,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
+    set_quiet(quiet_from_env())
 
     if (args.coordinator is not None or args.num_processes is not None
             or args.process_id is not None):

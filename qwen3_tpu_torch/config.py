@@ -41,6 +41,14 @@ def native_tokenizer_from_env(environ=None) -> bool:
     return env.get("QWEN3_TPU_NATIVE_TOKENIZER", "1") == "1"
 
 
+def quiet_from_env(environ=None) -> bool:
+    """QWEN3_TPU_QUIET read as the JAX package reads it (qwen3_tpu/utils/
+    logging.py): "1" silences utils.logging.log. Only the entry points call
+    this and pass the result to utils.logging.set_quiet."""
+    env = os.environ if environ is None else environ
+    return env.get("QWEN3_TPU_QUIET", "0") == "1"
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Static architecture hyperparameters (checkpoint header contents)."""

@@ -104,11 +104,15 @@ ATTN = ("dense", "flash", "fused")
 # the two-segment flash kernel, or the fused batched decode kernel), for
 # checking launch counts against them; and every pass once under the route
 # its matmuls took: "mm_" + mode, or "mm_fused" for the fused-prologue kernel
-CALLS = {"forward": 0, "decode_forward": 0, "forward_flash": 0,
-         "decode_forward_flash": 0, "forward_fast": 0,
-         "decode_forward_fast": 0, "decode_forward_two_segment": 0,
-         "decode_forward_fused": 0, "mm_pallas": 0, "mm_pallas-fast": 0,
-         "mm_pallas-int8": 0, "mm_exact": 0, "mm_bf16": 0, "mm_fused": 0}
+# "forward_step" counts forward's one-token passes at a device position (the
+# B = 1 decode chunk), apart from its blocks ("forward")
+CALLS = {"forward": 0, "decode_forward": 0, "forward_step": 0,
+         "forward_flash": 0, "decode_forward_flash": 0,
+         "forward_step_flash": 0, "forward_fast": 0,
+         "decode_forward_fast": 0, "forward_step_fast": 0,
+         "decode_forward_two_segment": 0, "decode_forward_fused": 0,
+         "mm_pallas": 0, "mm_pallas-fast": 0, "mm_pallas-int8": 0,
+         "mm_exact": 0, "mm_bf16": 0, "mm_fused": 0}
 
 
 def resolve_device(device) -> torch.device:
@@ -391,9 +395,9 @@ def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
-            v_cache, start_pos: int, *, mode: str = "pallas",
+            v_cache, start_pos, *, mode: str = "pallas",
             all_logits: bool = False, attn: str = "dense", last_pos=None,
-            fuse: bool = False):
+            fuse: bool = False, live: int | None = None):
     """Run a [B, T] block of tokens starting at absolute position `start_pos`.
 
     `last_pos` (optional): position within the block whose logits to return
@@ -401,6 +405,15 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
     int tensor with one position per row (batched admission: prompts padded
     to one block width end at different rows). The block must fit the
     cache: rows start_pos .. start_pos + T - 1 are written.
+
+    `start_pos` is a host int, or for T = 1 a 0-dim int64 tensor on the
+    device (the B = 1 decode chunk, qwen3_tpu's forward_impl at a traced
+    position): nothing is then read back to the host. The row is written
+    by index_copy_ at the position clamped into the cache, as the JAX
+    package's dynamic_update_slice clamps it, and `live` (a host int,
+    required then) bounds the attention's rows: at least the position + 1;
+    the rows past the position are masked, so `live` sizes the work, never
+    the result.
 
     `attn="flash"` runs the flash kernels (qwen3_tpu's forward_impl
     routing): flash decode for T == 1, with the position broadcast over B,
@@ -417,34 +430,53 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
                          "over the side buffer (decode_forward with side=); "
                          "a block runs 'dense' or 'flash'")
     fast = mode in FAST_ATTN_MODES
-    fuse = _count_pass("forward", mode, fuse)
     B, T = tokens.shape
     k_vals, k_sc = kvc.split(k_cache)
     v_vals, v_sc = kvc.split(v_cache)
-    if start_pos < 0 or start_pos + T > k_vals.shape[2]:
-        raise ValueError(f"block [{start_pos}, {start_pos + T}) outside the "
-                         f"{k_vals.shape[2]}-row cache")
+    S = k_vals.shape[2]
+    on_device = isinstance(start_pos, torch.Tensor)
+    if on_device:
+        if T != 1 or live is None or not 1 <= live <= S:
+            raise ValueError(f"a device start_pos takes one token and a host "
+                             f"live in [1, {S}]; got T={T}, live={live}")
+        kind = "forward_step"
+    else:
+        if start_pos < 0 or start_pos + T > S:
+            raise ValueError(f"block [{start_pos}, {start_pos + T}) outside "
+                             f"the {S}-row cache")
+        live = start_pos + T
+        kind = "forward"
+    fuse = _count_pass(kind, mode, fuse)
     x = _embed(p, cfg, tokens)                              # [B, T, dim]
     positions = start_pos + torch.arange(T, device=x.device)
     rp = positions.clamp(max=p["rope_cos"].shape[0] - 1)
     cos = p["rope_cos"][rp][:, None, :]                     # [T, 1, half]
     sin = p["rope_sin"][rp][:, None, :]
-    rows = slice(start_pos, start_pos + T)
-    live = start_pos + T
     if attn == "flash":
-        CALLS["forward_flash"] += 1
+        CALLS[kind + "_flash"] += 1
         pos32 = positions.to(torch.int32)
         if T == 1:
             pos32 = pos32.expand(B).contiguous()
 
+    if on_device:
+        at = positions.clamp(0, S - 1)                      # [1]
+
+        def put(cache, l, x):
+            cache[l].index_copy_(1, at, x)
+    else:
+        rows = slice(start_pos, start_pos + T)
+
+        def put(cache, l, x):
+            cache[l, :, rows] = x
+
     def write_kv(l, k, v):
         k_enc, k_es = kvc.encode_block(k_vals, k)
         v_enc, v_es = kvc.encode_block(v_vals, v)
-        k_vals[l, :, rows] = k_enc
-        v_vals[l, :, rows] = v_enc
+        put(k_vals, l, k_enc)
+        put(v_vals, l, v_enc)
         if k_es is not None:
-            k_sc[l, :, rows] = k_es
-            v_sc[l, :, rows] = v_es
+            put(k_sc, l, k_es)
+            put(v_sc, l, v_es)
 
     def attend(l, q):
         # layer l's cache as the contiguous views k_vals[l] / k_sc[l]

@@ -61,7 +61,7 @@ class ChatSession:
         self.pos = 0
         self.last_metrics: Optional[TurnMetrics] = None
         self.last_stop: Optional[str] = None   # "eos" | "limit"
-        engine.reset()
+        engine.reset(batch=1)
 
     def send(self, user_text: str,
              stream_cb: Optional[Callable[[bytes], None]] = None) -> bytes:

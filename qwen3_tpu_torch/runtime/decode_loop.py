@@ -1,19 +1,24 @@
-"""Prefill block plan and the decode chunk.
+"""Prefill block plan and the decode chunks.
 
 Semantics are the JAX package's (runtime/decode_loop.py, and the serving
-program runtime/batched.py::batched_decode_chunk_impl, which the
-single-stream engine runs at B=1 without side buffers): each step emits the
+program runtime/batched.py::batched_decode_chunk_impl): each step emits the
 current token, runs the forward at the current position, draws one xorshift
-coin and samples the next token. A slot stops at BOS/EOS (the stop token is not
-emitted) or when its position reaches its limit; its token, position and RNG
-then freeze. Completion stops *before* emitting at the limit
-(src/completion.c:57); chat emits the final token first (`emit_lim`,
+coin and samples the next token. A stream stops at BOS/EOS (the stop token
+is not emitted) or when its position reaches its limit; its token, position
+and RNG then freeze. Completion stops *before* emitting at the limit
+(src/completion.c:57); chat emits the final token first (`emit_at_limit`,
 src/completion.c:279-284).
 
-The JAX package runs the chunk inside one jitted while_loop; here the loop
-runs on the host, PyTorch queues each step's forward on the device, and one
-small read of the sampled ids per step decides whether to go on. The step
-count, the KV rows written and the tokens are the same.
+Two chunk programs:
+- `decode_chunk` (B = 1, the JAX package's fused chunk): the loop's state
+  (token, position, RNG, stop flag, emitted ids) lives on the device, and
+  the host queues a step count it knows from the position and the limit
+  alone; steps after a stop run with their state frozen. Nothing is read
+  back until the caller reads `packed`, once a chunk.
+- `batched_decode_chunk` (the serving program, also the single-stream
+  engine's "slot" and "side" programs at B = 1): the loop runs on the host,
+  which reads each step's sampled ids to decide whether to go on. The step
+  count, the KV rows written and the tokens are the JAX program's.
 """
 
 from __future__ import annotations
@@ -21,10 +26,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qwen3_tpu_torch.models.qwen3 import decode_forward
+from qwen3_tpu_torch.models.qwen3 import decode_forward, forward
 from qwen3_tpu_torch.runtime.kvcache import make_side, split, tensors
 from qwen3_tpu_torch.runtime.sampler import sample_tokens
-from qwen3_tpu_torch.runtime.xorshift import xorshift_float
+from qwen3_tpu_torch.runtime.xorshift import (
+    xorshift_coin_device,
+    xorshift_float,
+)
 
 GREEDY_EPS = 1e-6
 
@@ -79,6 +87,117 @@ def burn_and_sample(logits: torch.Tensor, rng_state: int, n_burn: int,
     tok = sample_tokens(logits[None, :], coin_t, temperature, top_p,
                         greedy=g, top_k_hint=top_k)
     return int(tok[0]), rng_state
+
+
+def chunk_steps(pos: int, limit: int, chunk: int) -> int:
+    """The steps decode_chunk runs from host position `pos`: the JAX
+    while_loop's iterations for a stream that draws no stop token (one per
+    token emitted, plus the one that meets the limit), at least one."""
+    return min(chunk, max(1, limit - pos + 1))
+
+
+def decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit, rng_hi,
+                 rng_lo, *, mode: str, chunk: int, temperature: float,
+                 top_p: float, greedy: bool, bos: int, eos: int,
+                 emit_at_limit: bool = False, top_k: int = 0,
+                 attn: str = "dense", fuse: bool = False):
+    """Up to `chunk` decode steps of one stream (B = 1), the JAX package's
+    decode_chunk.
+
+    token: int [1] on the device, the current sampled-but-unemitted token.
+    pos, limit: host ints (a 0-dim tensor is read once, before the first
+    step): the next forward's position and the exclusive position bound.
+    rng_hi, rng_lo: the xorshift64* state as 0-dim int64 device tensors
+    (xorshift.to_device_state). temperature/top_p: clamped host floats.
+    `attn` "dense" or "flash" (flash decode at T = 1); `fuse` as in
+    models.qwen3.forward.
+
+    The host queues chunk_steps(pos, limit, chunk) steps and reads nothing
+    back. Step i runs the forward at the position clamped into the cache
+    (JAX's safe_pos) with `live` = pos + i + 1, the exact bound while the
+    stream runs; once a stop token is drawn or the limit met, later steps
+    keep token, position, RNG and the emitted ids as they were. Such a step
+    may rewrite KV row `pos`, which nothing reads before the next prefill
+    rewrites it; no row below the final position changes, except when the
+    position reaches the cache's last row + 1, where the clamped write
+    lands on that row, as in the JAX package.
+
+    Returns (packed int32 [chunk + 2] = (tokens.. with -1 padding,
+    n_emitted, done), k, v, token [1], pos, rng_hi, rng_lo), all on the
+    device; pos equals min(pos + n_emitted, limit), so a caller that has
+    read `packed` knows it without another read."""
+    pos0, limit = int(pos), int(limit)
+    dev = token.device
+    rows = split(k_cache)[0].shape[2]
+    tok = token.reshape(1).to(torch.int64)
+    pos_t = torch.full((), pos0, dtype=torch.int64, device=dev)
+    hi, lo = rng_hi, rng_lo
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    emitted = []
+    for i in range(chunk_steps(pos0, limit, chunk)):
+        is_stop = (tok[0] == bos) | (tok[0] == eos)
+        at_limit = pos_t >= limit
+        emit = ~done & ~is_stop
+        if not emit_at_limit:
+            emit = emit & ~at_limit
+        emitted.append(torch.where(emit, tok[0], -1))
+        done = done | is_stop | at_limit
+        logits, k_cache, v_cache = forward(
+            params, cfg, tok[None], k_cache, v_cache,
+            pos_t.clamp(max=rows - 1), mode=mode, attn=attn,
+            live=min(pos0 + i + 1, rows), fuse=fuse)
+        nhi, nlo, coin = xorshift_coin_device(hi, lo)
+        nxt = sample_tokens(logits[:, 0], coin.reshape(1), temperature,
+                            top_p, greedy=greedy, top_k_hint=top_k)
+        tok = torch.where(done, tok, nxt)
+        pos_t = torch.where(done, pos_t, pos_t + 1)
+        hi = torch.where(done, hi, nhi)
+        lo = torch.where(done, lo, nlo)
+    out = torch.stack(emitted)
+    n_emitted = torch.sum(out >= 0)
+    packed = torch.cat([
+        out, torch.full((chunk - out.shape[0],), -1, dtype=out.dtype,
+                        device=dev),
+        n_emitted[None], done.to(out.dtype)[None]]).to(torch.int32)
+    return packed, k_cache, v_cache, tok, pos_t, hi, lo
+
+
+def decode_chunk_host(params, cfg, k_cache, v_cache, token: int, pos: int,
+                      limit: int, rng: int, *, mode: str, chunk: int,
+                      temperature: float, top_p: float, greedy: bool,
+                      bos: int, eos: int, emit_at_limit: bool = False,
+                      top_k: int = 0, attn: str = "dense",
+                      fuse: bool = False):
+    """decode_chunk's plain version: the JAX while_loop run one step at a
+    time with a host read after each (token, position and RNG state host
+    ints), ending where that loop ends. Its steps are decode_chunk's, so
+    the two give the same packed ids, token, position and RNG state, and
+    the same KV rows below the final position, bit for bit.
+
+    Returns (packed np.int32 [chunk + 2], k, v, token, pos, rng)."""
+    rows = split(k_cache)[0].shape[2]
+    dev = params["emb_q"].device
+    out, done = [], False
+    while len(out) < chunk and not done:
+        is_stop = token in (bos, eos)
+        at_limit = pos >= limit
+        if not is_stop and (emit_at_limit or not at_limit):
+            out.append(token)
+        done = is_stop or at_limit
+        # the forward runs on the final step too, as in the JAX loop
+        logits, k_cache, v_cache = forward(
+            params, cfg, torch.tensor([[token]], device=dev), k_cache,
+            v_cache, min(pos, rows - 1), mode=mode, attn=attn, fuse=fuse)
+        state, coin = xorshift_float(rng)
+        nxt = sample_tokens(logits[:, 0], torch.tensor([coin], device=dev),
+                            temperature, top_p, greedy=greedy,
+                            top_k_hint=top_k)
+        if not done:
+            token, pos, rng = int(nxt[0]), pos + 1, state
+    packed = np.full(chunk + 2, -1, np.int32)
+    packed[:len(out)] = out
+    packed[-2:] = len(out), done
+    return packed, k_cache, v_cache, token, pos, rng
 
 
 def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,

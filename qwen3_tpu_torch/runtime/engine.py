@@ -5,8 +5,11 @@ loop (src/completion.c:24-84), with qwen3_tpu/runtime/engine.py's contract:
 
 - the prompt prefills in chunked batched forward passes on the graded block
   plan (runtime/decode_loop.py::prefill_plan);
-- decode runs the serving program's step at B=1 (per-slot KV writes, the JAX
-  engine's decode_impl="slot"), in chunks of `decode_chunk` tokens;
+- decode runs in chunks of `decode_chunk` tokens through one of the JAX
+  engine's three programs (`EngineConfig.decode_impl`): the serving
+  program at B=1 with per-slot KV writes ("slot", the default) or with the
+  chunk side buffer ("side"), or the B=1 chunk whose loop stays on the
+  device ("fused", runtime/decode_loop.py::decode_chunk);
 - the xorshift64* state carries across chunks and chat turns, so seeded
   streams reproduce the C engine token for token.
 
@@ -35,13 +38,19 @@ from qwen3_tpu_torch.runtime.decode_loop import (
     GREEDY_EPS,
     batched_decode_chunk,
     burn_and_sample,
+    decode_chunk,
     prefill_blocks,
 )
 from qwen3_tpu_torch.runtime.kvcache import pad_rows
 from qwen3_tpu_torch.runtime.sampler import Sampler
+from qwen3_tpu_torch.runtime.xorshift import (
+    from_device_state,
+    to_device_state,
+)
 from qwen3_tpu_torch.tokenizer import Tokenizer
 
 FLASH_DEPTH = 8192
+DECODE_IMPLS = ("slot", "side", "fused")
 
 
 @dataclasses.dataclass
@@ -60,10 +69,23 @@ class EngineConfig:
     prefill_chunk: int = 64
     decode_chunk: int = 32         # tokens generated per decode chunk
     top_k: int = 64                # top-k fast path for nucleus sampling (0=off)
+    batch: int = 1                 # KV cache rows reset() allocates by default
     tp: int = 1                    # tensor parallelism: not ported yet
     device: str = "cuda"
     fuse: bool = False             # prologue-fused matmuls (pallas modes)
     native_tokenizer: bool = True  # encode with the native C++ core
+    # decode program (qwen3_tpu's EngineConfig.decode_impl):
+    #   "slot"  - the serving engine's program at B=1 (runtime/batched.py,
+    #             direct KV writes); bit-equal to BatchedEngine(
+    #             side_buffer=False);
+    #   "side"  - the same program with side-buffer KV staging; bit-equal
+    #             to BatchedEngine(side_buffer=True), the serving default;
+    #   "fused" - the B=1 chunk with its loop on the device
+    #             (decode_loop.decode_chunk), one host read a chunk. The same
+    #             tokens in practice, but its attention runs as a one-token
+    #             block, so no bit-parity guarantee against the batched
+    #             engine.
+    decode_impl: str = "slot"
 
 
 @dataclasses.dataclass
@@ -83,6 +105,9 @@ def _not_ported(cfg: EngineConfig) -> None:
     check_mode(cfg.mode)
     if cfg.tp != 1:
         raise NotImplementedError("tp > 1 is not ported yet")
+    if cfg.decode_impl not in DECODE_IMPLS:
+        raise ValueError(f"decode_impl={cfg.decode_impl!r}: one of "
+                         f"{DECODE_IMPLS}")
     if cfg.attn not in ("auto", "dense", "flash"):
         # "fused" is the serving engine's (runtime/batched.py)
         raise NotImplementedError(f"attn={cfg.attn!r} is not ported yet "
@@ -113,10 +138,21 @@ class Engine:
 
     # -- state ---------------------------------------------------------------
 
-    def reset(self):
-        self._kv = init_kv_cache(self.model_cfg, 1,
-                                 pad_rows(self.model_cfg.seq_len),
-                                 self.kv_dtype, self.device)
+    def reset(self, batch: int | None = None):
+        """A fresh KV cache of `batch` rows (default `EngineConfig.batch`).
+        The side program merges a whole chunk window past a stream's last
+        position, so its cache has `decode_chunk` rows more; every cache is
+        padded to the flash kernels' 256-row tile."""
+        extra = self.cfg.decode_chunk if self.cfg.decode_impl == "side" else 0
+        self._kv = init_kv_cache(
+            self.model_cfg, self.cfg.batch if batch is None else batch,
+            pad_rows(self.model_cfg.seq_len + extra), self.kv_dtype,
+            self.device)
+
+    def reset_rng(self):
+        """Back to the seed's xorshift state (the RNG otherwise carries
+        across generations and chat turns)."""
+        self._rng = self.cfg.seed & ((1 << 64) - 1)
 
     def _attn_for(self, depth: int) -> str:
         """Resolve attn="auto" per dispatch from the actual attention depth:
@@ -157,7 +193,12 @@ class Engine:
 
     def _decode_chunks(self, token: int, pos: int, limit: int,
                        emit_at_limit: bool):
-        """Yield (np_tokens, done) per decode chunk until stop/limit."""
+        """Yield (np_tokens, done) per decode chunk until stop/limit, in the
+        program `decode_impl` names."""
+        if self.cfg.decode_impl == "fused":
+            yield from self._decode_chunks_fused(token, pos, limit,
+                                                 emit_at_limit)
+            return
         k, v = self._kv
         t = self.tokenizer
         chunk = self.cfg.decode_chunk
@@ -172,7 +213,7 @@ class Engine:
                 [emit_at_limit], chunk=chunk, greedy=self.greedy,
                 bos=t.special.bos, eos=t.special.eos, top_k=self.cfg.top_k,
                 attn=self._attn_for(cur), mode=self.cfg.mode,
-                fuse=self.cfg.fuse)
+                use_side=self.cfg.decode_impl == "side", fuse=self.cfg.fuse)
             state = dict(token=tok_a, pos=pos_a, done=done_a, rng=rng)
             row = packed[0]
             cur = int(row[-2])
@@ -186,6 +227,36 @@ class Engine:
                 yield toks, done
             else:
                 break
+
+    def _decode_chunks_fused(self, token: int, pos: int, limit: int,
+                             emit_at_limit: bool):
+        """The "fused" program: decode_chunk until stop/limit, one read of
+        `packed` a chunk. Token and RNG stay on the device across chunks;
+        the position follows on the host from `packed`; the RNG comes back
+        to the host state once the stream ends, for the next turn."""
+        k, v = self._kv
+        t = self.tokenizer
+        tok = torch.full((1,), token, dtype=torch.int64, device=self.device)
+        hi, lo = to_device_state(self._rng, self.device)
+        while True:
+            packed, k, v, tok, _, hi, lo = decode_chunk(
+                self.params, self.model_cfg, k, v, tok, pos, limit, hi, lo,
+                mode=self.cfg.mode, chunk=self.cfg.decode_chunk,
+                temperature=self.sampler.temperature,
+                top_p=self.sampler.top_p, greedy=self.greedy,
+                bos=t.special.bos, eos=t.special.eos,
+                emit_at_limit=emit_at_limit, top_k=self.cfg.top_k,
+                attn=self._attn_for(pos), fuse=self.cfg.fuse)
+            row = packed.cpu().numpy()     # the one host read a chunk
+            n, done = int(row[-2]), bool(row[-1])
+            pos = min(pos + n, limit)
+            self._kv = (k, v)
+            self._last_pos = pos
+            if n:
+                yield row[:n], done
+            if done or n == 0:
+                break
+        self._rng = from_device_state(hi, lo)
 
     # -- completion (single turn) ---------------------------------------------
 
@@ -203,7 +274,7 @@ class Engine:
         seq_len = self.model_cfg.seq_len
         ids = ids[:seq_len]
 
-        self.reset()
+        self.reset(batch=1)
         logits = self._prefill(ids, 0)
         token = self._first_token(logits, 0)
         t1 = time.perf_counter()

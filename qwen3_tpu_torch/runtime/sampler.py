@@ -13,8 +13,8 @@ top_p -> [1e-6, 1.0] (NaN/+inf -> 1.0), temperature -> [1e-6, inf)
 
 Two implementations with identical semantics:
 - `Sampler.sample_host`: numpy, the parity oracle;
-- `sample_tokens`: batched PyTorch on the logits' device; only the sampled
-  ids cross to the host.
+- `sample_tokens`: batched PyTorch on the logits' device; nothing is read
+  back to the host inside it.
 
 Ties sort by lower token id first (a stable descending sort), as the
 reference's qsort does in practice and as jax.lax.top_k / a stable argsort do
@@ -169,11 +169,13 @@ def sample_tokens(logits: torch.Tensor, coin: torch.Tensor, temperature,
     float or a [B] tensor. `greedy=True` returns argmax (lowest id on ties);
     a [B] bool tensor applies argmax per row.
 
-    `top_k_hint` > 0 takes the fast path when the top-k prefix already holds
-    more than top_p of the mass: the nucleus then lies inside it and
-    sampling over those k candidates is exact. Both paths read the same
-    stable descending sort, so they agree with the JAX package's top_k and
-    argsort orders."""
+    `top_k_hint` > 0 takes the fast path when every row's top-k prefix
+    already holds more than top_p of the mass: the nucleus then lies inside
+    it and sampling over those k candidates is exact. Both paths read the
+    same stable descending sort, so they agree with the JAX package's top_k
+    and argsort orders. The choice is the JAX sampler's lax.cond over the
+    whole batch, made on the device: both picks are computed and a select
+    on the `covered` test takes one, so nothing is read back to the host."""
     if isinstance(greedy, bool) and greedy:
         return torch.argmax(logits, dim=-1)
     B, V = logits.shape
@@ -183,13 +185,13 @@ def sample_tokens(logits: torch.Tensor, coin: torch.Tensor, temperature,
     e = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
     probs = e / torch.sum(e, dim=-1, keepdim=True)
     sp, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    sampled = _nucleus_pick(order, sp, coin, tp, V - 1)
     k = top_k_hint
-    if k and k < V and bool(torch.all(
-            torch.sum(sp[:, :k], dim=-1)
-            > torch.clamp(tp, min=_HEAL_EPS))):
-        sampled = _nucleus_pick(order[:, :k], sp[:, :k], coin, tp, k - 1)
-    else:
-        sampled = _nucleus_pick(order, sp, coin, tp, V - 1)
+    if k and k < V:
+        covered = torch.all(torch.sum(sp[:, :k], dim=-1)
+                            > torch.clamp(tp, min=_HEAL_EPS))
+        fast = _nucleus_pick(order[:, :k], sp[:, :k], coin, tp, k - 1)
+        sampled = torch.where(covered, fast, sampled)
     if isinstance(greedy, bool):
         return sampled
     return torch.where(greedy, torch.argmax(logits, dim=-1), sampled)

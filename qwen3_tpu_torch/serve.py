@@ -67,8 +67,15 @@ def main(argv=None) -> int:
                     help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    from qwen3_tpu_torch.config import fuse_from_env, native_tokenizer_from_env
+    from qwen3_tpu_torch.config import (
+        fuse_from_env,
+        native_tokenizer_from_env,
+        quiet_from_env,
+    )
     from qwen3_tpu_torch.runtime.batched import BatchedEngine, Request
+    from qwen3_tpu_torch.utils.logging import set_quiet
+
+    set_quiet(quiet_from_env())
 
     lines = (sys.stdin if args.prompts == "-"
              else open(args.prompts, encoding="utf-8"))

@@ -1207,3 +1207,71 @@ def test_norm_refuses_on_card(dev):
         tq_norms.rms_inv(x[::2, :, :4])
     with pytest.raises(ValueError):
         tq_norms.rms_inv(torch.zeros(16, 4, device=dev).T)
+
+
+@pytest.mark.parametrize("attn", ["dense", "flash"])
+@pytest.mark.parametrize("case", ["free", "stop", "limit", "emit"])
+def test_decode_chunk_equals_host_loop_without_sync_on_card(dev, case,
+                                                            attn):
+    """The B = 1 chunk (runtime/decode_loop.py::decode_chunk) on the card
+    at preset tiny (mode pallas, int8 KV, seeded): no synchronizing call
+    between its first step and the read of packed
+    (set_sync_debug_mode("error")), and bit-equal to decode_chunk_host,
+    the same steps with a host read after each: packed, token, position,
+    RNG and every KV row below the position. A free chunk, a stop drawn at
+    a later step, the limit without and with emit_at_limit."""
+    from qwen3_tpu_torch.config import PRESETS
+    from qwen3_tpu_torch.io.synthetic import synthetic_weights
+    from qwen3_tpu_torch.models import qwen3 as model
+    from qwen3_tpu_torch.runtime import kvcache
+    from qwen3_tpu_torch.runtime.decode_loop import (
+        decode_chunk,
+        decode_chunk_host,
+    )
+    from qwen3_tpu_torch.runtime.xorshift import (
+        from_device_state,
+        to_device_state,
+    )
+
+    cfg, rows, pos0, chunk = PRESETS["tiny"], 128, 16, 8
+    params = model.init_params(synthetic_weights(cfg, seed=3),
+                               mode="pallas", max_seq_len=rows, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, pos0))).to(dev)
+
+    def prefilled():
+        k, v = model.init_kv_cache(cfg, 1, rows, "int8", dev)
+        model.forward(params, cfg, toks, k, v, 0)
+        return k, v
+
+    kw = dict(mode="pallas", chunk=chunk, temperature=0.8, top_p=0.9,
+              greedy=False, bos=cfg.vocab_size - 1, eos=cfg.vocab_size - 2,
+              emit_at_limit=case == "emit", top_k=64, attn=attn)
+    limit = pos0 + 5 if case in ("limit", "emit") else rows
+    free = decode_chunk_host(params, cfg, *prefilled(), 7, pos0, limit, 5,
+                             **kw)[0]
+    if case == "stop":
+        ids = free[:int(free[-2])].tolist()
+        kw["eos"] = next(t for i, t in enumerate(ids) if i >= 2
+                         and t not in ids[:i])
+    want, wk, wv, w_tok, w_pos, w_rng = decode_chunk_host(
+        params, cfg, *prefilled(), 7, pos0, limit, 5, **kw)
+    k, v = prefilled()
+    tok = torch.full((1,), 7, dtype=torch.int64, device=dev)
+    hi, lo = to_device_state(5, dev)
+    # a first chunk makes the per-device constants (ops/q8.py::const)
+    decode_chunk(params, cfg, *prefilled(), tok, pos0, limit, hi, lo, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = decode_chunk(params, cfg, k, v, tok, pos0, limit, hi, lo, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got[0].cpu().tolist() == want.tolist()
+    assert (int(got[3][0]), int(got[4]), from_device_state(*got[5:])) == (
+        w_tok, w_pos, w_rng)
+    if case == "stop":
+        assert bool(want[-1]) and int(want[-2]) < chunk
+    for a, b in zip(kvcache.tensors(got[1]) + kvcache.tensors(got[2]),
+                    kvcache.tensors(wk) + kvcache.tensors(wv)):
+        assert torch.equal(a[:, :, :w_pos], b[:, :, :w_pos])

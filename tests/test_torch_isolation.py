@@ -48,7 +48,7 @@ def test_no_jax_import_in_source(path):
 # the port's modules (packages included, __main__ excluded): a module that
 # disappears, or fails to be found, lowers the count and fails the check;
 # a new module raises it here
-N_MODULES = 48
+N_MODULES = 49
 
 
 def test_importing_every_port_module_leaves_jax_unloaded():

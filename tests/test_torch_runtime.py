@@ -142,3 +142,35 @@ def test_blocked_cumsum_matches_sequential(n):
     assert np.max(np.abs(got.numpy() - want)) <= 1e-6
     assert torch.equal(got, tsamp.blocked_cumsum(x))
     assert torch.equal(tsamp.cumsum_last(x), torch.cumsum(x, dim=-1))
+
+
+def test_log_matches_jax(capsys, monkeypatch):
+    """utils.log writes the JAX package's `[Component] msg` stderr line;
+    QWEN3_TPU_QUIET=1, read by an entry point (config.quiet_from_env) and
+    passed to set_quiet, silences both."""
+    import qwen3_tpu.utils.logging as jlog
+
+    from qwen3_tpu_torch import utils as tutils
+    from qwen3_tpu_torch.config import quiet_from_env
+    from qwen3_tpu_torch.utils import logging as tlog
+
+    monkeypatch.setattr(jlog, "_QUIET", False)
+    jlog.log("Engine", "loading x.bin (mode=pallas)")
+    want = capsys.readouterr()
+    tutils.log("Engine", "loading x.bin (mode=pallas)")
+    got = capsys.readouterr()
+    assert (got.out, got.err) == (want.out, want.err)
+    assert got.err == "[Engine] loading x.bin (mode=pallas)\n"
+    assert tutils.profile_trace.__module__ == "qwen3_tpu_torch.utils.profiling"
+
+    assert quiet_from_env({"QWEN3_TPU_QUIET": "1"})
+    assert not quiet_from_env({}) and not quiet_from_env(
+        {"QWEN3_TPU_QUIET": "0"})
+    monkeypatch.setattr(jlog, "_QUIET", True)
+    try:
+        tlog.set_quiet(quiet_from_env({"QWEN3_TPU_QUIET": "1"}))
+        jlog.log("Serve", "x")
+        tlog.log("Serve", "x")
+        assert capsys.readouterr().err == ""
+    finally:
+        tlog.set_quiet(False)
