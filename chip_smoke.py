@@ -35,8 +35,11 @@ final line:
    fragment transposes at b = 64 and 512;
    the dequant one in f32 and bf16, pre- and post-scaled, within 1e-5 *
    max|plain|, its rows equal on every tile route), which only the tests
-   call; then the sampler on the card against its CPU run at the
-   vocabulary of qwen3-0.6b (see check_sampler);
+   call; every matmul kernel of the tensor-parallel paths at one tp = 2
+   rank's shard shapes of qwen3-0.6b and qwen3-4b, bit for bit (qwen3-4b's
+   w2 at 76 groups a k-tile), and the decode attention kernels at 4 and 1
+   kv heads a rank (see phase_shard_kernels); then the sampler on the card
+   against its CPU run at the vocabulary of qwen3-0.6b (see check_sampler);
 4. end to end: a synthetic qwen3-0.6b checkpoint (full width and depth,
    random weights from a seed) through the port's CLI main() with its
    defaults (--qmode pallas --kv-dtype int8 --attn auto --device cuda):
@@ -63,7 +66,12 @@ final line:
    side_buffer=True) at B = 1 below and from depth 8192 (see
    phase_decode_programs), and the fused chunk at qwen3-4b's full width
    with bench.py's headline settings and at depth 8192, tok/s and the
-   launches of every step (see phase_fused_4b);
+   launches of every step (see phase_fused_4b); 4f. the tensor- and
+   data-parallel paths, their ranks processes on this card over gloo (or
+   NCCL with a card a rank): the CLI at --tp 2 (greedy, seeded twice, the
+   prefill's logits against tp = 1), the fused chunk at qwen3-4b's full
+   width at tp = 2, serve.py at --tp 2 and --dp 2, the CLI through
+   --coordinator in two processes (see phase_tp_paths);
 5. the path against its plain version, step by step with the card's
    rounding decisions forced on the CPU (every op within 1e-5 of its max,
    every rounding step bit for bit, logits and argmax): a 64-token prefill
@@ -72,10 +80,10 @@ final line:
    step at depth 8192, one serving decode step at B = 8 (see
    phase_serving_plain) and a 64-token pallas-int8 block;
 6. profile: torch.profiler over a warm greedy completion (one prefill
-   block, 64 decode steps) in mode pallas, unfused and with the fused
+   block, 16 decode steps) in mode pallas, unfused and with the fused
    matmuls, and in mode pallas-int8, over one warm fused chunk of 32 steps
    at qwen3-0.6b and at qwen3-4b (ctx 1024, bf16 KV, greedy), and over one
-   32-step serving chunk at B = 8 (-c 1024) and at B = 64 (-c 512): device
+   16-step serving chunk at B = 8 (-c 1024) and at B = 64 (-c 512): device
    time by kernel (the matmul kernels' sum apart), kernels per step and the
    device's idle share.
 
@@ -146,6 +154,13 @@ TILE_BEFORE_US = {
     "w2": {64: 125.9, 256: 117.2, 512: 115.5},
     "classifier": {64: 348.6, 256: 1331.9, 512: 2640.9}}
 REPS, WARMUP = 20, 3
+# the depth of the earlier paths, cut to leave the run room for the tensor-
+# parallel paths (phase 4f): tokens of the CLI's completions below depth
+# 8192, of each request of the 16-prompt serving runs, and decode steps a
+# profile covers (the CLI and the serving profiles)
+E2E_TOKENS = 48
+SERVE_TOKENS = 32
+PROFILE_STEPS = 16
 SLEEP_CYCLES = 4_000_000       # a ~2 ms device spin queued before each timed run
 
 
@@ -350,19 +365,20 @@ def phase_kernels(torch):
 
 
 def attn_bound_ms(q_rows, rows_read, score_pairs, fast=False, outputs=None,
-                  tf32_mmas=0):
+                  tf32_mmas=0, heads=FLASH_H, kv_heads=FLASH_KV):
     """The least time for one attention launch: the bytes it must move (the
     f32 queries, the int8 K/V values and f32 scales of the rows it reads,
     once each, and `outputs` f32 values, by default one a query value) over
     the memory rate, or its operations (2 for q . k and 2 for p v per score
     pair and head dim) over the peak of the dots' type: bf16 when `fast`,
     `tf32_mmas` TF32 tensor-core products each when it is nonzero (the
-    flash prefill's split fp32), else fp32 outside the tensor cores."""
+    flash prefill's split fp32), else fp32 outside the tensor cores.
+    `heads`/`kv_heads`: qwen3-0.6b's unless a tensor-parallel shard's."""
     if outputs is None:
-        outputs = q_rows * FLASH_H * FLASH_D
-    nbytes = 4 * q_rows * FLASH_H * FLASH_D + 4 * outputs + \
-        2 * rows_read * FLASH_KV * (FLASH_D + 4)
-    ops = 4 * score_pairs * FLASH_H * FLASH_D
+        outputs = q_rows * heads * FLASH_D
+    nbytes = 4 * q_rows * heads * FLASH_D + 4 * outputs + \
+        2 * rows_read * kv_heads * (FLASH_D + 4)
+    ops = 4 * score_pairs * heads * FLASH_D
     if tf32_mmas:
         ops, peak = tf32_mmas * ops, TF32_OPS_PER_S
     else:
@@ -1904,14 +1920,15 @@ def phase_end_to_end(torch, path: str):
     out, err, runs["greedy"] = checked_run(
         torch, "greedy", base + ["-m", "completion", "-i", PROMPT, "-t", "0",
                                  "-s", "42", "-c", "4096",
-                                 "--max-tokens", "128"])
+                                 "--max-tokens", str(E2E_TOKENS)])
     if runs["greedy"]["blocks"] != len(plan):
         fail(f"greedy: {runs['greedy']['blocks']} prefill blocks, plan has "
              f"{len(plan)}")
     if not out.startswith(PROMPT.encode()):
         fail("greedy: stdout does not start with the prompt")
     seeded = base + ["-m", "completion", "-i", PROMPT, "-t", "0.8", "-p",
-                     "0.9", "-s", "7", "-c", "4096", "--max-tokens", "128"]
+                     "0.9", "-s", "7", "-c", "4096", "--max-tokens",
+                     str(E2E_TOKENS)]
     out1, _, runs["seeded_1"] = checked_run(torch, "seeded run 1", seeded)
     out2, _, runs["seeded_2"] = checked_run(torch, "seeded run 2", seeded)
     if out1 != out2:
@@ -2089,7 +2106,7 @@ def phase_serving(torch, path: str, workdir: Path):
     """The serving path through qwen3_tpu_torch.serve.main, each run with
     the launch-count check: every default (--batch 8 -c 1024, pallas-fast,
     int8 KV, --attn auto -> fused) on 16 prompts (two waves of admission),
-    64 tokens each, greedy, then seeded twice with equal records; --batch
+    SERVE_TOKENS each, greedy, then seeded twice with equal records; --batch
     64 -c 512 on 64 prompts (batched admission, 8 rows a forward) for 32
     tokens; --batch 1 -c 32768 on the 8378-token prompt (auto -> flash: the
     two-segment flash kernel at depth >= 8378); a BatchedChat with two
@@ -2105,14 +2122,16 @@ def phase_serving(torch, path: str, workdir: Path):
     prompts = serve_prompts(16, 5, 30, 1)
     recs, runs["serve_greedy"] = checked_serve(
         torch, "serve greedy (defaults, 16 prompts)",
-        base + ["-t", "0", "-s", "42", "--max-tokens", "64"], prompts,
-        workdir, "fused", 64)
+        base + ["-t", "0", "-s", "42", "--max-tokens", str(SERVE_TOKENS)],
+        prompts, workdir, "fused", SERVE_TOKENS)
     seeded = base + ["-t", "0.8", "-p", "0.9", "-s", "7", "--max-tokens",
-                     "64"]
+                     str(SERVE_TOKENS)]
     rec1, runs["serve_seeded_1"] = checked_serve(
-        torch, "serve seeded run 1", seeded, prompts, workdir, "fused", 64)
+        torch, "serve seeded run 1", seeded, prompts, workdir, "fused",
+        SERVE_TOKENS)
     rec2, runs["serve_seeded_2"] = checked_serve(
-        torch, "serve seeded run 2", seeded, prompts, workdir, "fused", 64)
+        torch, "serve seeded run 2", seeded, prompts, workdir, "fused",
+        SERVE_TOKENS)
     if untimed(rec1) != untimed(rec2):
         fail("serve seeded: the two runs printed different records")
     _, runs["serve_b64"] = checked_serve(
@@ -2459,7 +2478,8 @@ CHUNK_SEED = 7                 # the seeded runs' RNG seed
 DEEP_TOKENS = FLASH_DEPTH      # the side program's deep prompt: its prefill
                                # blocks start below 8192, its decode at it
 L4B = 36                       # qwen3-4b's layers
-BENCH_4B = dict(ctx=1024, chunk=32, tokens=256,    # bench.py's headline
+# bench.py's headline settings (its 256 tokens cut to 128 for time)
+BENCH_4B = dict(ctx=1024, chunk=32, tokens=128,
                 deep_rows=32768, depth=8192, deep_chunks=2)
 
 
@@ -2707,7 +2727,7 @@ def phase_fused_4b(torch, card: str, workdir: Path):
     parameters made on the card from seed 0 by io/device_synth.py), with
     bench.py's headline settings: mode pallas, a 1024-row bf16 cache,
     greedy from token 7 at position 0, chunks of 32, one warm chunk, then
-    256 tokens timed; then an int8 cache of 32768 rows (values 1, as
+    BENCH_4B["tokens"] tokens timed; then an int8 cache of 32768 rows (values 1, as
     bench.py fills it), flash decode from depth 8192, one warm chunk and two
     timed. Every step must launch 4 x 36 layer matmuls, 1 classifier matmul
     and 4 x 36 + 1 norms (and at depth 36 flash decodes); a profile of one
@@ -2786,6 +2806,633 @@ def phase_fused_4b(torch, card: str, workdir: Path):
     torch.cuda.empty_cache()
     log(f"qwen3-4b phase: {time.perf_counter() - t0:.1f} s")
     return out, prof
+
+
+# -- phase 4f: tensor and data parallelism -------------------------------------
+
+TP = 2                         # the ranks of the tp paths
+SHARD_PRESETS = ("qwen3-0.6b", "qwen3-4b")
+SHARD_BATCHES = (1, 8, 512)    # decode, serving's B = 8, a prefill block
+# the decode attention kernels at a rank's heads: qwen3-0.6b at tp = 2 (8
+# heads over 4 kv heads) and qwen3-4b at tp = 8 (4 heads over 1)
+SHARD_ATTN = ((8, 4), (4, 1))
+SHARD_ROWS = 8448              # a cache past depth 8192, in 256-row tiles
+TP_TOKENS = 16                 # tokens a tp CLI run generates (-c 4096)
+TP_SERVE_TOKENS = 16           # tokens a tp serve.py request generates
+TP_4B_TOKENS = 64              # qwen3-4b's timed tokens at tp = 2
+# the prefill's last logits at tp = 2 against tp = 1 (826 tokens, 28
+# layers): within TP_LOGIT_TOL * max|logits|. The wo and w2 sums run in two
+# chains, so an fp32 ulp can move a Q8 activation a step (a rounding flip,
+# ROADMAP Queue C #1) in any later quantization; the first reduction (layer
+# 0's wo, before any quantization sees a tp sum) holds the JAX package's
+# 2e-5 (TP_LAYER_TOL)
+TP_LOGIT_TOL = 2e-2
+TP_LAYER_TOL = 2e-5
+
+
+def shard_matrices(preset):
+    """One tp = 2 rank's layer matrices and classifier, (n = in, d = out)."""
+    from qwen3_tpu_torch.config import PRESETS
+    from qwen3_tpu_torch.parallel.shard_layout import local_config
+
+    loc = local_config(PRESETS[preset], TP)
+    return {"wqkv": (loc.dim, loc.proj_dim + 2 * loc.kv_dim),
+            "wo": (loc.proj_dim, loc.dim),
+            "w13": (loc.dim, 2 * loc.hidden_dim),
+            "w2": (loc.hidden_dim, loc.dim),
+            "classifier": (loc.dim, loc.vocab_size)}
+
+
+def phase_shard_kernels(torch):
+    """(a) Every matmul kernel of the tp paths at one tp = 2 rank's shard
+    shapes of qwen3-0.6b and qwen3-4b, b = 1, 8 and 512, against its plain
+    version bit for bit: the Q8_0 x Q8_0 GEMV and tile path (rows 1, 1b,
+    2), pallas-fast (6-7), pallas-int8 (9-10) and the fused kernel, exact
+    and fast, with each matrix's prologue (11). qwen3-4b's w2 contracts
+    over 4864: one k-tile of 76 groups (every earlier run had 8 a tile).
+    Then the decode attention kernels at a rank's heads (SHARD_ATTN): flash
+    decode and a 64-row flash prefill block at depth 8192, two-segment
+    flash at base 8192, batched decode (fast) at B = 8 over 1152 rows,
+    within their phase-3 tolerances. Each shape's time (CUDA events) beside
+    its bound. Returns the rows."""
+    from qwen3_tpu_torch.ops.cuda import batched_decode as bd
+    from qwen3_tpu_torch.ops.cuda import flash_decode as fd
+    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+    from qwen3_tpu_torch.ops.norms import rms_inv
+    from qwen3_tpu_torch.ops.q8 import quantize_act
+    from qwen3_tpu_torch.runtime import kvcache as kvc
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    rows = []
+
+    def hold(label, kernel, plain, exact=True, tol=None):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (
+                got if isinstance(got, tuple) else (got,))):
+            fail(f"shard {label}: non-finite kernel output")
+        if exact:
+            diff = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                fail(f"shard {label}: kernel != plain (max_abs_diff "
+                     f"{diff:.3e})")
+            return diff
+        diff = (got - want).abs().max().item()
+        if diff > tol * max(1.0, want.abs().max().item()):
+            fail(f"shard {label}: kernel vs plain max_abs_diff {diff:.3e}")
+        return diff
+
+    for preset in SHARD_PRESETS:
+        for name, (n, d) in shard_matrices(preset).items():
+            stacked = name != "classifier"
+            lead = (2,) if stacked else ()
+            w_q = torch.randint(-127, 128, lead + (d, n), dtype=torch.int8,
+                                device="cuda", generator=gen)
+            w_s = 0.02 / 127 * (0.5 + torch.rand(lead + (d, n // G),
+                                                 device="cuda", generator=gen))
+            wl, sl = (w_q[1], w_s[1]) if stacked else (w_q, w_s)
+            prologue = FUSED_PROLOGUES[name]
+            width = 2 * n if prologue == "swiglu" else n
+            x_all = torch.randn(max(SHARD_BATCHES), width, device="cuda",
+                                generator=gen)
+            nw = 1 + 0.1 * torch.randn(n, device="cuda", generator=gen)
+            for b in SHARD_BATCHES:
+                xr = x_all[:b].contiguous()       # the fused kernel's rows
+                x = xr[:, :n].contiguous()
+                xq, xs = quantize_act(x, G)
+                xb = x.to(torch.bfloat16)
+                inv = rms_inv(xr) if prologue == "norm" else None
+                if stacked:
+                    q8q8 = lambda: qm.q8_q8_matmul_stacked(      # noqa: E731
+                        xq, xs, w_q, w_s, 1, G)
+                    fast = lambda: qm.q8_matmul_stacked_fast(    # noqa: E731
+                        xb, w_q, w_s, 1, G)
+                    int8 = lambda: qm.q8i8_matmul_stacked(       # noqa: E731
+                        x, w_q, w_s, 1, G)
+                else:
+                    q8q8 = lambda: qm.q8_q8_matmul_tiled(        # noqa: E731
+                        xq, xs, w_q, w_s, G)
+                    fast = lambda: qm.q8_matmul_tiled_fast(      # noqa: E731
+                        xb, w_q, w_s, G)
+                    int8 = lambda: qm.q8i8_matmul_tiled(         # noqa: E731
+                        x, w_q, w_s, G)
+                cases = [
+                    ("q8q8", q8q8, lambda: qm.q8q8_matmul_plain(
+                        xq, xs, wl, sl, G), bound_ms(b, n, d)),
+                    ("fast", fast, lambda: qm.q8_fast_matmul_plain(
+                        xb, wl, sl, G), fast_bound_ms(b, n, d)),
+                    ("int8", int8, lambda: qm.q8i8_matmul_plain(
+                        x, wl, sl, G), int8_bound_ms(b, n, d))]
+                for exact in (True, False):
+                    cases.append((
+                        f"fused_{'exact' if exact else 'fast'}",
+                        lambda exact=exact: qm.q8_matmul_fused(
+                            xr, wl, sl, G, inv, nw, prologue=prologue,
+                            exact=exact),
+                        lambda exact=exact: qm.q8_fused_matmul_plain(
+                            xr, wl, sl, G, inv, nw, prologue=prologue,
+                            exact=exact),
+                        fused_bound_ms(b, n, d, prologue, exact)))
+                for kind, kernel, plain, (bnd, by) in cases:
+                    label = f"{preset} {name} {kind} b={b} n={n} d={d}"
+                    diff = hold(label, kernel, plain)
+                    row = dict(preset=preset, matrix=name, kernel=kind, b=b,
+                               n=n, d=d, groups_per_tile=qm.groups_per_tile(
+                                   n, G), max_abs_diff=diff,
+                               kernel_ms=device_ms(torch, lambda i: kernel(),
+                                                   reps=10),
+                               bound_ms=bnd, bound_by=by)
+                    if kind == "q8q8" and b > 1:
+                        shape, splits = qm.plan_q8q8(b, n, d, G)
+                        row.update(tile_rows=qm.TILE_ROWS[shape],
+                                   k_splits=splits)
+                    rows.append(row)
+                    log("shard " + json.dumps(row))
+            del w_q, w_s, wl, sl
+            torch.cuda.empty_cache()
+
+    for heads, kvh in SHARD_ATTN:
+        def cache(slots, n_rows):
+            out = []
+            for _ in range(2):
+                x = torch.randn(1, slots, n_rows, kvh, FLASH_D,
+                                device="cuda", generator=gen)
+                out.append(kvc.quantize_heads(x))
+            (k_, ks_), (v_, vs_) = out
+            return k_, v_, ks_, vs_
+
+        depth, t_blk = FLASH_DEPTH, 64
+        k, v, ks, vs = cache(1, SHARD_ROWS)
+        sk, sv, sks, svs = cache(1, SIDE_C)
+        q = torch.randn(1, heads, FLASH_D, device="cuda", generator=gen)
+        qp = torch.randn(1, t_blk, heads, FLASH_D, device="cuda",
+                         generator=gen)
+        pos = torch.tensor([depth], dtype=torch.int32, device="cuda")
+        qpos = torch.arange(depth, depth + t_blk, dtype=torch.int32,
+                            device="cuda")
+        off = torch.tensor([SIDE_C - 4], dtype=torch.int32, device="cuda")
+        hkw = dict(heads=heads, kv_heads=kvh)
+        pairs = t_blk * depth + t_blk * (t_blk + 1) // 2
+        cases = [
+            ("flash_decode",
+             lambda: fd.flash_decode_gqa(q, k[0], v[0], pos, ks[0], vs[0],
+                                         live=depth + 1),
+             lambda: fd.flash_decode_plain(q, k[0], v[0], pos, ks[0], vs[0],
+                                           live=depth + 1),
+             attn_bound_ms(1, depth + 1, depth + 1, **hkw)),
+            ("flash_prefill",
+             lambda: fd.flash_prefill_gqa(qp, k[0], v[0], qpos, ks[0], vs[0],
+                                          live=depth + t_blk),
+             lambda: fd.flash_prefill_plain(qp, k[0], v[0], qpos, ks[0],
+                                            vs[0], live=depth + t_blk),
+             attn_bound_ms(t_blk, depth + t_blk, pairs, tf32_mmas=2, **hkw)),
+            ("flash_decode_two_segment",
+             lambda: fd.flash_decode_gqa_two_segment(
+                 q, k[0], v[0], sk[0], sv[0], pos, off, ks[0], vs[0], sks[0],
+                 svs[0], live=depth),
+             lambda: fd.flash_decode_two_segment_plain(
+                 q, k[0], v[0], sk[0], sv[0], pos, off, ks[0], vs[0], sks[0],
+                 svs[0], live=depth),
+             attn_bound_ms(1, depth + SIDE_C - 3, depth + SIDE_C - 3,
+                           **hkw))]
+        for kind, kernel, plain, (bnd, by) in cases:
+            label = f"{kind} {heads}/{kvh} heads"
+            diff = hold(label, kernel, plain, exact=False, tol=2e-5)
+            row = dict(kernel=kind, heads=heads, kv_heads=kvh, depth=depth,
+                       max_abs_diff=diff,
+                       kernel_ms=device_ms(torch, lambda i: kernel(),
+                                           reps=10),
+                       bound_ms=bnd, bound_by=by)
+            rows.append(row)
+            log("shard " + json.dumps(row))
+        del k, v, ks, vs, sk, sv, sks, svs
+        B, bucket = BATCHED_CASES[0]
+        k, v, ks, vs = cache(B, bucket)
+        qb = torch.randn(B, heads, FLASH_D, device="cuda", generator=gen)
+        lim_host = [0] + [int(x) for x in torch.linspace(
+            1, bucket, B - 1).round().tolist()]
+        lim = torch.tensor(lim_host, dtype=torch.int32, device="cuda")
+
+        def kernel():
+            return bd.batched_decode_partial(qb, k, v, 0, lim, ks, vs,
+                                             bucket=bucket, fast=True)
+
+        got = kernel()
+        want = bd.batched_decode_plain(qb, k, v, 0, lim, ks, vs,
+                                       bucket=bucket, fast=True)
+        mag = bd.batched_decode_magnitude(qb, k, v, 0, lim, ks, vs,
+                                          bucket=bucket)
+        over = partials_over(got, want, value_tol(want[0], mag, True))
+        if max(used for _, used in over.values()) > 1.0:
+            fail(f"shard batched_decode {heads}/{kvh} heads: {over}")
+        read = sum(lim_host)
+        bnd, by = attn_bound_ms(B, read, read, True, B * heads * (FLASH_D + 2),
+                                **hkw)
+        row = dict(kernel="batched_decode_partial", heads=heads,
+                   kv_heads=kvh, B=B, bucket=bucket,
+                   max_abs_diff=max(dd for dd, _ in over.values()),
+                   kernel_ms=device_ms(torch, lambda i: kernel(), reps=10),
+                   bound_ms=bnd, bound_by=by)
+        rows.append(row)
+        log("shard " + json.dumps(row))
+        del k, v, ks, vs
+        torch.cuda.empty_cache()
+    for preset in SHARD_PRESETS:
+        for kind in ("q8q8", "fast", "int8", "fused_exact"):
+            step = {k: sum(r[k] * (1 if r["matrix"] == "classifier" else
+                                   (L if preset == "qwen3-0.6b" else L4B))
+                           for r in rows if r.get("preset") == preset
+                           and r["kernel"] == kind and r["b"] == 1)
+                    for k in ("kernel_ms", "bound_ms")}
+            log("shard step " + json.dumps(dict(preset=preset, tp=TP,
+                                                kernel=kind, b=1, **step)))
+    log(f"shard kernels: every matmul bit-equal to its plain version at the "
+        f"tp = {TP} shard shapes, the attention kernels within their "
+        f"tolerances, in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def prefill_logits(torch, params, cfg, mode, ids, mesh):
+    """The last prompt position's logits after the prompt's prefill on the
+    CLI's block plan (chunk 64) in a 4096-row int8 cache, through the tp
+    forward on `mesh` (tp = 1: the plain forward); and the first block's
+    first reduction (layer 0's wo output, summed over the ranks at tp > 1,
+    models.qwen3._reduce)."""
+    from qwen3_tpu_torch.models import qwen3 as model
+    from qwen3_tpu_torch.parallel.shard_layout import local_config
+    from qwen3_tpu_torch.parallel.tp import make_tp_forward
+    from qwen3_tpu_torch.runtime.decode_loop import prefill_blocks
+
+    dev = params["emb_q"].device
+    k, v = model.init_kv_cache(local_config(cfg, mesh.tp), 1, 4096, "int8",
+                               dev)
+    fwd = make_tp_forward(mesh, cfg, mode=mode)
+    first = []
+    orig = model._reduce
+
+    def spy(group, y):
+        out = orig(group, y)
+        if not first:
+            first.append(out.clone())
+        return out
+
+    model._reduce = spy
+    try:
+        for off, block, n_valid in prefill_blocks(ids, 0, 64, 4096):
+            lg, k, v = fwd(params, torch.tensor([block], device=dev), k, v,
+                           off, n_valid - 1)
+    finally:
+        model._reduce = orig
+    return lg[0, 0], first[0]
+
+
+def rank_prefill_logits(rank, path, ids, out):
+    """(b) on a tp rank: prefill_logits in modes pallas and pallas-fast from
+    this rank's shard of the checkpoint (load_params(tp=, rank=)); every
+    rank's must be equal; rank 0 saves them to `out`."""
+    import torch
+
+    from qwen3_tpu_torch.models.qwen3 import load_params
+    from qwen3_tpu_torch.parallel import launch
+    from qwen3_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(dp=1, tp=TP, device="cuda")
+    got = {}
+    for mode in ("pallas", "pallas-fast"):
+        cfg, p = load_params(path, mode, max_seq_len=4096,
+                             device=mesh.device, tp=TP, rank=mesh.tp_idx)
+        got[mode] = [t.cpu() for t in prefill_logits(
+            torch, p, cfg.with_seq_len(4096), mode, ids, mesh)]
+        del p
+    if not launch.ranks_agree({m: [t.numpy().tobytes() for t in ts]
+                               for m, ts in got.items()}):
+        raise RuntimeError("the tp ranks computed different logits")
+    if rank == 0:
+        torch.save(got, out)
+    return 0
+
+
+def rank_fused_4b_tp(rank, out, workdir):
+    """(c) on a tp rank: qwen3-4b's parameters made on the card from seed 0
+    (io/device_synth.py, the whole model, as phase 4e), this rank's shard
+    cut by parallel/tp.py::tp_shard_params and the rest freed; the fused
+    chunk on the mesh with bench.py's headline settings (pallas, a
+    1024-row bf16 cache, greedy from token 7, chunks of 32): one warm
+    chunk, then TP_4B_TOKENS tokens timed, each step's launches checked (4
+    x 36 + 1 matmuls and norms; 2 x 36 + 1 collectives); then
+    chunk_profile's three chunks on every rank, profiled on rank 0. The
+    ranks' ids must be equal; rank 0 writes its numbers to `out`."""
+    import torch
+
+    from qwen3_tpu_torch.config import PRESETS
+    from qwen3_tpu_torch.io.device_synth import synth_device_params
+    from qwen3_tpu_torch.models.qwen3 import init_kv_cache
+    from qwen3_tpu_torch.parallel import comm, launch
+    from qwen3_tpu_torch.parallel.sharding import make_mesh
+    from qwen3_tpu_torch.parallel.shard_layout import (
+        local_config,
+        tp_shard_params,
+    )
+    from qwen3_tpu_torch.parallel.tp import make_tp_decode_chunk
+    from qwen3_tpu_torch.runtime.decode_loop import chunk_steps
+    from qwen3_tpu_torch.runtime.xorshift import seed_to_device
+
+    cfg, b = PRESETS["qwen3-4b"], BENCH_4B
+    mesh = make_mesh(dp=1, tp=TP, device="cuda")
+    dev = mesh.device
+    t0 = time.perf_counter()
+    full = synth_device_params(cfg, b["ctx"], seed=0, device=dev)
+    params = tp_shard_params(full, cfg, TP, mesh.tp_idx)
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    shard_gb = sum(t.numel() * t.element_size()
+                   for t in params.values()) / 1e9
+    load_s = time.perf_counter() - t0
+    rows = b["ctx"]
+    k, v = init_kv_cache(local_config(cfg, TP), 1, rows, "bfloat16", dev)
+    hi, lo = seed_to_device(3, dev)
+    tok = torch.full((1,), 7, dtype=torch.int64, device=dev)
+    fn = make_tp_decode_chunk(
+        mesh, cfg, mode="pallas", chunk=b["chunk"], temperature=1e-6,
+        top_p=0.9, greedy=True, bos=cfg.vocab_size - 1,
+        eos=cfg.vocab_size - 2, top_k=64, attn="dense")
+    pos, ids = 0, []
+
+    def chunk():
+        nonlocal k, v, tok, hi, lo, pos
+        packed, k, v, tok, _, hi, lo = fn(params, k, v, tok, pos, rows, hi,
+                                          lo)
+        row = packed.cpu()
+        n = int(row[-2])
+        ids.extend(row[:n].tolist())
+        pos = min(pos + n, rows)
+        return row
+
+    chunk()                                               # warm
+    # the timed chunks' launches and collectives, as differences: rank 0
+    # runs in the smoke's own process, whose counts the tp path reads
+    before, coll0 = read_counts(), dict(comm.COUNTS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps = emitted = 0
+    while emitted < TP_4B_TOKENS:
+        steps += chunk_steps(pos, rows, b["chunk"])
+        row = chunk()
+        emitted += int(row[-2])
+        if bool(row[-1]) or int(row[-2]) == 0:
+            break
+    dt = time.perf_counter() - t1
+    got = {k_: c - before[k_] for k_, c in read_counts().items()
+           if c != before[k_]}
+    coll = {k_: c - coll0[k_] for k_, c in comm.COUNTS.items()}
+    want = {"stacked": 4 * L4B * steps, "tiled": steps,
+            "rmsnorm": (4 * L4B + 1) * steps}
+    if got != want or coll["calls"] != (2 * L4B + 1) * steps:
+        raise RuntimeError(f"qwen3-4b tp: launches {got} and {coll['calls']} "
+                           f"collectives for {steps} steps; want {want} and "
+                           f"{(2 * L4B + 1) * steps}")
+    prof = None
+    if rank == 0:
+        prof = chunk_profile(torch, f"qwen3-4b tp={TP} fused chunk, ctx "
+                             f"{rows}", chunk, b["chunk"],
+                             str(Path(workdir) / "chunk4b_tp"))
+    else:
+        for _ in range(3):                 # chunk_profile's three chunks
+            chunk()
+    if not launch.ranks_agree(ids):
+        raise RuntimeError("the tp ranks decoded different ids")
+    if rank == 0:
+        Path(out).write_text(json.dumps(dict(
+            tp=TP, shard_gb=shard_gb, load_s=load_s, tokens=emitted,
+            steps=steps, seconds=dt, tok_s=emitted / dt,
+            launches_per_step={k_: c / steps for k_, c in got.items()},
+            collectives_per_step=coll["calls"] / steps,
+            collective_bytes_per_step=coll["bytes"] / steps,
+            collective_share=coll["seconds"] / dt, profile=prof,
+            first_ids=ids[:16])))
+    return 0
+
+
+def sampler_batch_check(torch, vocab=151936, seed=0):
+    """Whether a row's sampled token and softmax bits follow its batch on
+    the card: sample_tokens over 8 rows against the same first 4 rows
+    alone (seeded at t 0.8, top-p 0.9, top-k hint 64, as serve.py), on 200
+    draws of flat random logits. Reported, not gated: a dp rank samples its
+    own share of the slots."""
+    from qwen3_tpu_torch.runtime.sampler import sample_tokens
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tok_diff = prob_diff = 0
+    for _ in range(200):
+        lg = 2.0 * torch.randn(8, vocab, device="cuda", generator=gen)
+        coin = torch.rand(8, device="cuda", generator=gen)
+        t8 = sample_tokens(lg, coin, 0.8, 0.9, top_k_hint=64)
+        t4 = sample_tokens(lg[:4].contiguous(), coin[:4].contiguous(), 0.8,
+                           0.9, top_k_hint=64)
+        tok_diff += int((t8[:4] != t4).sum())
+        x = lg / 0.8
+        e = torch.exp(x - x.amax(-1, keepdim=True))
+        s8, s4 = e.sum(-1), e[:4].contiguous().sum(-1)
+        prob_diff += int((s8[:4] != s4).sum())
+    out = dict(draws=200, rows=800, tokens_differ=tok_diff,
+               softmax_sums_differ=prob_diff)
+    log("sampler batch " + json.dumps(out))
+    return out
+
+
+def by_id_diff(recs, want):
+    """The ids of the requests whose record differs from want's."""
+    mine = {r["id"]: r for r in untimed(recs)}
+    return [w["id"] for w in untimed(want) if mine.get(w["id"]) != w]
+
+
+def first_difference(a, b):
+    """The first index where two sequences differ (None if one is a prefix
+    of the other)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def phase_tp_paths(torch, path: str, workdir: Path, card: str):
+    """The tensor- and data-parallel paths on this host's card(s), counted
+    as one path (launch counts set to 0 before and read after; the counts
+    are rank 0's, which runs in this process): (b) the CLI at --tp 2 with
+    its defaults on the 826-token prompt at -c 4096, greedy and seeded
+    twice (the ranks agree, checked by the CLI; the seeded bytes repeat),
+    the first byte where greedy stdout leaves tp = 1's (not gated), and the
+    prefill's last logits and layer 0's output at tp = 2 against tp = 1 in
+    modes pallas and pallas-fast (TP_LOGIT_TOL, TP_LAYER_TOL); (c) the
+    fused chunk at qwen3-4b's full width at tp = 2 (rank_fused_4b_tp); (d)
+    serve.py at --tp 2 (B = 8, -c 1024, greedy; the requests whose stream
+    leaves tp = 1's, not gated) and at --dp 2, greedy (records equal to the
+    single-rank server's, gated) and seeded (the ids of the requests whose
+    record differs from the single-rank server's, reported, not gated: a
+    rank samples its own share of the rows, and the sampler's sums follow
+    the batch, ROADMAP Queue C #7, measured by sampler_batch_check). Then,
+    not counted (processes of their own): (e) the CLI through
+    --coordinator in two processes (process 0 prints the spawned --tp 2
+    run's bytes, process 1 nothing; chat returns rc 1). The backend is the rule's (checked on the [Mesh] line): on a host
+    with one card the ranks share it over gloo, and no multi-card scaling
+    shows; with a card a rank every run above is NCCL's. Returns (counts,
+    results)."""
+    from qwen3_tpu_torch.models.qwen3 import load_params
+    from qwen3_tpu_torch.parallel import comm, launch
+    from qwen3_tpu_torch.parallel.sharding import make_mesh
+    from qwen3_tpu_torch.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    base = [path, "--device", "cuda"]
+    greedy = base + ["-m", "completion", "-i", PROMPT, "-t", "0", "-s", "42",
+                     "-c", "4096", "--max-tokens", str(TP_TOKENS)]
+    seeded = base + ["-m", "completion", "-i", PROMPT, "-t", "0.8", "-p",
+                     "0.9", "-s", "7", "-c", "4096", "--max-tokens",
+                     str(TP_TOKENS)]
+    serve_greedy = base + ["-t", "0", "-s", "42", "--max-tokens",
+                           str(TP_SERVE_TOKENS)]
+    serve_seeded = base + ["-t", "0.8", "-p", "0.9", "-s", "7",
+                           "--max-tokens", str(TP_SERVE_TOKENS)]
+    prompts = serve_prompts(16, 5, 30, 1)
+    ids = Tokenizer.from_file(path).encode(PROMPT)
+
+    # tp = 1 references, outside the counted path
+    one_out, one_err = run_cli(greedy)
+    one_greedy, one_serr = run_serve(serve_greedy, prompts, workdir)
+    one_seeded, _ = run_serve(serve_seeded, prompts, workdir)
+    log("tp 1 references: cli " + str(re.findall(
+        r"\[(pp|tg|t/ms|tok/s) ([0-9.]+)(?:ms)?\]", one_err)) + "; serve "
+        + str(re.findall(r"\(([0-9.]+) tok/s aggregate\)", one_serr)))
+    want = {}
+    for mode in ("pallas", "pallas-fast"):
+        cfg, p = load_params(path, mode, max_seq_len=4096, device="cuda")
+        want[mode] = [t.cpu() for t in prefill_logits(
+            torch, p, cfg.with_seq_len(4096), mode, ids,
+            make_mesh(1, 1, device="cuda"))]
+        del p
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    comm.reset_counts()
+    res = {}
+    tp_flag = ["--tp", str(TP)]
+    out2, err2, res["cli_greedy"] = checked_run(
+        torch, f"cli --tp {TP} greedy", greedy + tp_flag)
+    mesh_line = next((ln for ln in err2.splitlines()
+                      if ln.startswith("[Mesh]")), "")
+    # the rule: NCCL with a card a rank (rank r on card r % the cards)
+    backend = "nccl" if torch.cuda.device_count() >= TP else "gloo"
+    if f"backend={backend}" not in mesh_line:
+        fail(f"cli --tp: the [Mesh] line {mesh_line!r} does not show the "
+             f"rule's backend {backend}")
+    log(f"cli --tp {TP}: {mesh_line}")
+    res["greedy_first_difference"] = first_difference(out2, one_out)
+    log(f"cli --tp {TP} greedy against --tp 1: first differing stdout byte "
+        f"{res['greedy_first_difference']} of {len(out2)} (not gated: the "
+        f"wo/w2 sums run in two chains)")
+    s1, _, res["cli_seeded_1"] = checked_run(
+        torch, f"cli --tp {TP} seeded run 1", seeded + tp_flag)
+    s2, _, res["cli_seeded_2"] = checked_run(
+        torch, f"cli --tp {TP} seeded run 2", seeded + tp_flag)
+    if s1 != s2:
+        fail(f"cli --tp {TP} seeded: the two runs printed different bytes")
+    rc = launch.run_ranks(rank_prefill_logits, TP,
+                          (path, ids, str(workdir / "tp_logits.pt")),
+                          device="cuda")
+    if rc != 0:
+        fail(f"tp prefill logits: rc {rc}")
+    got = torch.load(workdir / "tp_logits.pt")
+    for mode in ("pallas", "pallas-fast"):
+        (lg2, x2), (lg1, x1) = got[mode], want[mode]
+        if not (torch.isfinite(lg2).all() and lg2.shape == lg1.shape):
+            fail(f"tp logits {mode}: {lg2.shape}, finite "
+                 f"{bool(torch.isfinite(lg2).all())}")
+        rel = ((lg2 - lg1).abs().max() / lg1.abs().max()).item()
+        rel0 = ((x2 - x1).abs().max() / x1.abs().max()).item()
+        same = int(lg2.argmax()) == int(lg1.argmax())
+        res[f"logits_{mode}"] = dict(rel_diff=rel, layer0_rel_diff=rel0,
+                                     argmax_equal=same)
+        log(f"tp {TP} against tp 1, {mode}: the prefill's last logits "
+            f"max|diff| / max|logits| {rel:.3e} (gate {TP_LOGIT_TOL}), "
+            f"argmax equal {same} (not gated); layer 0's wo output "
+            f"{rel0:.3e} (gate {TP_LAYER_TOL})")
+        if rel > TP_LOGIT_TOL or rel0 > TP_LAYER_TOL:
+            fail(f"tp logits {mode} beyond their tolerances")
+    rc = launch.run_ranks(rank_fused_4b_tp, TP,
+                          (str(workdir / "tp_4b.json"), str(workdir)),
+                          device="cuda")
+    if rc != 0:
+        fail(f"qwen3-4b tp chunk: rc {rc}")
+    res["fused_4b"] = json.loads((workdir / "tp_4b.json").read_text())
+    log(f"qwen3-4b tp={TP} " + json.dumps(res["fused_4b"]) + f" ({card})")
+    recs, res["serve_tp"] = checked_serve(
+        torch, f"serve --tp {TP} (B = 8, -c 1024, greedy)",
+        serve_greedy + tp_flag, prompts, workdir, "fused", TP_SERVE_TOKENS)
+    diverged = by_id_diff(recs, one_greedy)
+    res["serve_tp_diverged"] = diverged
+    log(f"serve --tp {TP} against --tp 1: requests whose stream differs "
+        f"{diverged} of {len(prompts)} (not gated)")
+    recs, res["serve_dp"] = checked_serve(
+        torch, "serve --dp 2 (B = 8, -c 1024, greedy)",
+        serve_greedy + ["--dp", "2"], prompts, workdir, "fused",
+        TP_SERVE_TOKENS)
+    if untimed(recs) != untimed(one_greedy):
+        fail("serve --dp 2: records differ from the single-rank server's")
+    recs, res["serve_dp_seeded"] = checked_serve(
+        torch, "serve --dp 2 (B = 8, -c 1024, seeded)",
+        serve_seeded + ["--dp", "2"], prompts, workdir, "fused",
+        TP_SERVE_TOKENS)
+    diverged = by_id_diff(recs, one_seeded)
+    res["serve_dp_seeded_diverged"] = diverged
+    log(f"serve --dp 2 seeded against the single-rank server: requests "
+        f"whose record differs {diverged} of {len(prompts)} (not gated: "
+        f"the sampler's softmax sum follows the rank's row count, ROADMAP "
+        f"Queue C #7; sampler batch below)")
+    res["sampler_batch"] = sampler_batch_check(torch)
+    counts = read_counts()
+    coll = dict(comm.COUNTS)
+    log(f"tp path launches (rank 0, the runs above): {counts}; collectives "
+        f"{coll}")
+    if min(counts[k] for k in ("stacked", "tiled", "stacked_fast",
+                               "tiled_fast", "batched_decode_partial",
+                               "rmsnorm")) == 0:
+        fail("a kernel of the tp path was never launched")
+
+    # (e) processes joined through --coordinator, outside the count
+    port = launch.free_port()
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    argv = [sys.executable, "-m", "qwen3_tpu_torch.cli", *greedy, *tp_flag,
+            "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+            str(TP)]
+    procs = [subprocess.Popen(argv + ["--process-id", str(i)], cwd=HERE,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE) for i in range(TP)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for i, (p, (o, e)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"--coordinator process {i}: rc {p.returncode}\n"
+                 f"{e.decode(errors='replace')[-3000:]}")
+    if outs[0][0] != out2 or any(o or e for o, e in outs[1:]):
+        fail("--coordinator: process 0 did not print the --tp run's bytes, "
+             "or another process wrote")
+    chat = subprocess.run(
+        [sys.executable, "-m", "qwen3_tpu_torch.cli", path, "-m", "chat",
+         *tp_flag, "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+         str(TP), "--process-id", "0"], cwd=HERE, env=env, input=b"hi\n",
+        capture_output=True, timeout=120)
+    if chat.returncode != 1:
+        fail(f"--coordinator chat: rc {chat.returncode}, want 1")
+    log(f"--coordinator: {TP} processes printed the --tp {TP} run's bytes; "
+        f"chat returned 1")
+    if backend == "nccl":
+        log("NCCL: the tp paths above ran over NCCL, a card a rank")
+    else:
+        log(f"NCCL not run: this host shows {torch.cuda.device_count()} "
+            f"card, so the ranks shared it over gloo (the rule picks NCCL "
+            f"only with a card a rank)")
+    log(f"tp phase: {time.perf_counter() - t0:.1f} s")
+    return counts, res
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -3261,7 +3908,8 @@ def trace_busy(prof, path: str):
 def phase_profile(torch, path: str, fuse: bool = False,
                   mode: str = "pallas"):
     """Where a decode step's time goes, over a warm greedy completion (one
-    64-row prefill block, then 64 decode steps; in `mode`, its matmuls
+    64-row prefill block, then PROFILE_STEPS decode steps; in `mode`, its
+    matmuls
     fused when `fuse`): first timed alone, then again under torch.profiler,
     read from its Chrome trace. Reports device time by kernel, kernels per
     forward pass, and the device's idle share: 1 - busy / wall, with the
@@ -3280,13 +3928,13 @@ def phase_profile(torch, path: str, fuse: bool = False,
     eng.generate(prompt, max_tokens=8)          # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = eng.generate(prompt, max_tokens=64)
+    plain = eng.generate(prompt, max_tokens=PROFILE_STEPS)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     calls = model.CALLS["forward"] + model.CALLS["decode_forward"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.generate(prompt, max_tokens=64)
+        eng.generate(prompt, max_tokens=PROFILE_STEPS)
         torch.cuda.synchronize()
     passes = model.CALLS["forward"] + model.CALLS["decode_forward"] - calls
     got = trace_busy(prof, path)
@@ -3350,8 +3998,8 @@ def phase_chunk_profile(torch, path: str, workdir: Path):
 def phase_serving_profile(torch, path: str, batch: int, seq_len: int):
     """Where a serving decode step's time goes: a BatchedEngine with the
     serve defaults but `batch` slots and a `seq_len` context (pallas-fast,
-    int8, fused), every slot admitted, one warm chunk, then one 32-step
-    chunk timed alone and one under torch.profiler. Reports wall and device
+    int8, fused), every slot admitted, one warm chunk, then one chunk of
+    PROFILE_STEPS steps timed alone and one under torch.profiler. Reports wall and device
     time per step, kernels per step and the device's idle share (busy from
     the trace, wall from the run without the profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -3361,7 +4009,7 @@ def phase_serving_profile(torch, path: str, batch: int, seq_len: int):
 
     eng = BatchedEngine(path, max_batch=batch, seq_len=seq_len,
                         mode="pallas-fast", kv_dtype="int8", temperature=0.0,
-                        device="cuda")
+                        decode_chunk=PROFILE_STEPS, device="cuda")
     for i in range(batch):
         eng.submit(Request(prompt=PROMPT[:60 + 25 * (i % 8)], seed=i,
                            max_tokens=400))
@@ -3424,7 +4072,7 @@ def matmul_entry(name, source, line, mine, per_pass, launches):
 
 def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
                   serve_err, int8_rows, fused_rows, kv_rows, untiled_rows,
-                  probe, counts, norm_rows):
+                  probe, counts, norm_rows, shard_rows):
     """Per kernel, one decoded token at the main path's shapes: the matmuls
     at b = 1 (4 stacked x 28 layers, 1 classifier), their launches over the
     path below depth 8192 and the fused and side path (phase 4e); flash
@@ -3446,8 +4094,21 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
     norm kernel, the port's own (the JAX package's norms are XLA, no Pallas
     kernel replaces it): per decoded token at b = 1 (4 x 28 + 1 rmsnorm
     calls), its launches (rmsnorm and rms_inv) over the path below depth
-    8192 and the fused and side path."""
+    8192 and the fused and side path. The tensor-parallel path (phase 4f,
+    rank 0's counts) adds its launches to the kernels it runs (the q8q8,
+    fast and batched decode kernels and the norms), and each matmul kernel
+    also carries `tp2_ms`/`tp2_bound_ms`: a decoded token's launches at one
+    tp = 2 rank's qwen3-0.6b shard shapes (phase_shard_kernels, b = 1)."""
     out = []
+
+    def tp2(kind, stacked):
+        mine = [r for r in shard_rows if r.get("preset") == "qwen3-0.6b"
+                and r["kernel"] == kind and r["b"] == 1
+                and (r["matrix"] != "classifier") == stacked]
+        k = L if stacked else 1
+        return {"tp2_ms": k * sum(r["kernel_ms"] for r in mine),
+                "tp2_bound_ms": k * sum(r["bound_ms"] for r in mine)}
+
     for kind, source_line in (("stacked", 419), ("tiled", 314)):
         mine = [r for r in rows if r["kernel"] == kind]
         dec = [r for r in mine if r["b"] == 1]
@@ -3458,7 +4119,8 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "route": "cuda",
             "source": "qwen3_tpu_torch/csrc/q8_matmul.cu",
             "replaces": f"qwen3_tpu/ops/pallas/q8_matmul.py:{source_line}",
-            "launches": counts["short"][kind] + counts["fused"][kind],
+            "launches": (counts["short"][kind] + counts["fused"][kind]
+                         + counts["tp"][kind]),
             "max_abs_err": max(r["max_abs_diff"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in dec) * per_token,
             "plain_ms": sum(r["plain_ms"] for r in dec) * per_token,
@@ -3466,6 +4128,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in dec) else "operations",
             "library_ms": sum(r["library_ms"] for r in dec) * per_token,
+            **tp2("q8q8", kind == "stacked"),
         })
     for kind, source_line, t in (("flash_decode", 115, 1),
                                  ("flash_prefill", 391, 512)):
@@ -3497,7 +4160,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "route": "cuda",
             "source": "qwen3_tpu_torch/csrc/q8_matmul.cu",
             "replaces": f"qwen3_tpu/ops/pallas/q8_matmul.py:{source_line}",
-            "launches": counts["serve"][kind],
+            "launches": counts["serve"][kind] + counts["tp"][kind],
             "max_abs_err": max(r["max_abs_diff"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in step) * per_step,
             "plain_ms": sum(r["plain_ms"] for r in step) * per_step,
@@ -3505,6 +4168,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in step) else "operations",
             "library_ms": sum(r["library_ms"] for r in step) * per_step,
+            **tp2("fast", kind == "stacked_fast"),
         })
     for name, count, src, line, pick in (
             ("batched_decode_partial", "batched_decode_partial",
@@ -3519,7 +4183,8 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "route": "cuda",
             "source": f"qwen3_tpu_torch/csrc/{src}",
             "replaces": f"qwen3_tpu/ops/pallas/{line}",
-            "launches": counts["serve"][count] + counts["fused"][count],
+            "launches": (counts["serve"][count] + counts["fused"][count]
+                         + counts["tp"][count]),
             "max_abs_err": serve_err[name],
             "ms": r["kernel_ms"] * L,
             "plain_ms": r["plain_ms"] * L,
@@ -3533,10 +4198,13 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
         out.append(matmul_entry(
             f"q8i8_matmul_{kind.split('_')[0]}", "q8i8_matmul.cu", line, mine,
             [(r, k) for r in mine if r["b"] == 1], counts["modes"][kind]))
+        out[-1].update(tp2("int8", kind == "stacked_int8"))
     out.append(matmul_entry(
         "q8_matmul_fused", "q8_fused.cu", 748, fused_rows,
         [(r, 1 if r["matrix"] == "classifier" else L) for r in fused_rows
          if r["b"] == 1 and r["exact"]], counts["modes"]["fused"]))
+    stacked, tiled = tp2("fused_exact", True), tp2("fused_exact", False)
+    out[-1].update({k: stacked[k] + tiled[k] for k in stacked})
 
     def on_paths(key):
         return sum(c[key] for name, c in counts.items() if name != "probe")
@@ -3569,7 +4237,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
         "name": "rmsnorm", "route": "cuda",
         "source": "qwen3_tpu_torch/csrc/rmsnorm.cu",
         "replaces": "qwen3_tpu/ops/norms.py:11", "pallas": None,
-        "launches": sum(counts[p][k] for p in ("short", "fused")
+        "launches": sum(counts[p][k] for p in ("short", "fused", "tp")
                         for k in ("rmsnorm", "rms_inv")),
         "max_abs_err": max(r["max_abs_diff"] for r in norm_rows),
         "ms": per_token("kernel_ms"), "plain_ms": per_token("plain_ms"),
@@ -3596,6 +4264,17 @@ def main() -> int:
     t_start = time.perf_counter()
     import torch
 
+    seconds: dict[str, float] = {}
+
+    def timed(name, fn, *args, **kw):
+        """fn(*args, **kw), its wall seconds kept under `name`."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            seconds[name] = round(seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0, 1)
+
     card, kind = phase_device(torch)
     # the paths below set QWEN3_TPU_FUSE themselves where they run fused
     os.environ.pop("QWEN3_TPU_FUSE", None)
@@ -3604,24 +4283,25 @@ def main() -> int:
         import qwen3_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port's package is not next to this script: {e}")
-    phase_build()
-    rows = phase_kernels(torch)
-    flash_rows, flash_err = phase_flash_kernels(torch)
-    fast_rows = phase_fast_kernels(torch)
-    serve_rows, serve_err = phase_batched_kernels(torch)
-    int8_rows = phase_int8_kernels(torch)
-    fused_rows = phase_fused_kernels(torch)
-    norm_rows = phase_norm_kernel(torch)
-    kv_rows = phase_kv_write(torch)
-    untiled_rows = phase_untiled_kernels(torch)
-    check_sampler(torch)
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, torch)
+    flash_rows, flash_err = timed("flash", phase_flash_kernels, torch)
+    fast_rows = timed("fast", phase_fast_kernels, torch)
+    serve_rows, serve_err = timed("batched", phase_batched_kernels, torch)
+    int8_rows = timed("int8", phase_int8_kernels, torch)
+    fused_rows = timed("fused", phase_fused_kernels, torch)
+    norm_rows = timed("norm", phase_norm_kernel, torch)
+    kv_rows = timed("kv_write", phase_kv_write, torch)
+    untiled_rows = timed("untiled", phase_untiled_kernels, torch)
+    shard_rows = timed("shard", phase_shard_kernels, torch)
+    timed("sampler", check_sampler, torch)
     workdir = HERE / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
     try:
-        path = write_checkpoint(workdir)
-        counts, _ = phase_end_to_end(torch, path)
+        path = timed("checkpoint", write_checkpoint, workdir)
+        counts, _ = timed("end_to_end", phase_end_to_end, torch, path)
         reset_counts()
-        phase_serving(torch, path, workdir)
+        timed("serving", phase_serving, torch, path, workdir)
         counts["serve"] = read_counts()
         log(f"serving path launches (the runs above): {counts['serve']}")
         if min(counts["serve"][k] for k in (
@@ -3629,7 +4309,7 @@ def main() -> int:
                 "flash_decode_two_segment", "rmsnorm")) == 0:
             fail("a kernel of the serving path was never launched")
         reset_counts()
-        phase_modes(torch, path, workdir)
+        timed("modes", phase_modes, torch, path, workdir)
         counts["modes"] = read_counts()
         log(f"modes path launches (the runs above): {counts['modes']}")
         if min(counts["modes"][k] for k in (
@@ -3637,10 +4317,10 @@ def main() -> int:
                 "rms_inv")) == 0:
             fail("a kernel of the modes path was never launched")
         t4e = time.perf_counter()
-        phase_chunk_checks(torch, path)
+        timed("chunk_checks", phase_chunk_checks, torch, path)
         reset_counts()
-        phase_decode_programs(torch, path)
-        tok_s_4b, _ = phase_fused_4b(torch, card, workdir)
+        timed("decode_programs", phase_decode_programs, torch, path)
+        tok_s_4b, _ = timed("fused_4b", phase_fused_4b, torch, card, workdir)
         counts["fused"] = read_counts()
         log(f"fused and side path launches (the runs above): "
             f"{counts['fused']}; qwen3-4b tok/s {tok_s_4b} ({card}); "
@@ -3649,27 +4329,31 @@ def main() -> int:
                 "stacked", "tiled", "flash_decode",
                 "flash_decode_two_segment", "rmsnorm")) == 0:
             fail("a kernel of the fused and side path was never launched")
-        phase_quality(torch, path)
-        phase_host_tools(torch, path, workdir)
-        probe = phase_probe(torch)
+        counts["tp"], tp_res = timed("tp", phase_tp_paths, torch, path,
+                                     workdir, card)
+        timed("quality", phase_quality, torch, path)
+        timed("host_tools", phase_host_tools, torch, path, workdir)
+        probe = timed("probe", phase_probe, torch)
         counts["probe"] = probe[1]
-        phase_plain_path(torch, path)
-        phase_plain_depth(torch, path)
-        phase_serving_plain(torch, path)
-        phase_plain_int8(torch, path)
-        phase_profile(torch, path)
-        phase_profile(torch, path, fuse=True)
-        phase_profile(torch, path, mode="pallas-int8")
-        phase_chunk_profile(torch, path, workdir)
-        phase_serving_profile(torch, path, 8, 1024)
-        phase_serving_profile(torch, path, 64, 512)
+        timed("plain_path", phase_plain_path, torch, path)
+        timed("plain_depth", phase_plain_depth, torch, path)
+        timed("serving_plain", phase_serving_plain, torch, path)
+        timed("plain_int8", phase_plain_int8, torch, path)
+        timed("profile", phase_profile, torch, path)
+        timed("profile", phase_profile, torch, path, fuse=True)
+        timed("profile", phase_profile, torch, path, mode="pallas-int8")
+        timed("profile", phase_chunk_profile, torch, path, workdir)
+        timed("profile", phase_serving_profile, torch, path, 8, 1024)
+        timed("profile", phase_serving_profile, torch, path, 64, 512)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+        log(f"phase seconds {json.dumps(seconds)}")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     report = kernel_report(
         rows, flash_rows, flash_err, fast_rows, serve_rows, serve_err,
         int8_rows, fused_rows, kv_rows, untiled_rows, probe, counts,
-        norm_rows)
+        norm_rows, shard_rows)
+    log("tp results " + json.dumps(tp_res))
     for e in report:
         if e["name"] in BEFORE_MS:
             log(f"redesigned {e['name']}: {e['ms']:.4f} ms, recorded "

@@ -23,8 +23,13 @@ Usage:  python -m qwen3_tpu_torch.cli <checkpoint.bin> [options]
                versions)
   --profile DIR
                trace the run with torch.profiler into DIR (a Chrome trace)
-  --tp, --coordinator/--num-processes/--process-id
-               accepted for compatibility; not ported yet (they raise)
+  --tp N       tensor-parallel ranks (pallas modes): N processes, rank 0
+               this one, ranks 1.. spawned; rank r runs on card
+               r % the host's cards (parallel/launch.py). Rank 0 owns stdin,
+               stdout and stderr; the exit code is the worst rank's
+  --coordinator ADDR:PORT --num-processes P --process-id i
+               join P processes started by hand (one a rank, P = --tp)
+               through tcp://ADDR:PORT; completion only (chat: rc 1)
 
 QWEN3_TPU_FUSE=1 in the environment runs the matmuls of modes pallas and
 pallas-fast through the prologue-fused kernel, as it does in the JAX package
@@ -41,11 +46,14 @@ import contextlib
 import sys
 import time
 
+import torch.distributed as dist
+
 from qwen3_tpu_torch.config import (
     fuse_from_env,
     native_tokenizer_from_env,
     quiet_from_env,
 )
+from qwen3_tpu_torch.parallel import launch, multihost
 from qwen3_tpu_torch.runtime.chat import ChatSession
 from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig
 from qwen3_tpu_torch.utils.logging import set_quiet
@@ -54,6 +62,22 @@ from qwen3_tpu_torch.utils.logging import set_quiet
 def _stdout_bytes(piece: bytes) -> None:
     sys.stdout.buffer.write(piece)
     sys.stdout.flush()
+
+
+def _read_line() -> str | None:
+    """The next chat input line (None at EOF): rank 0 reads stdin, and a
+    tensor-parallel run broadcasts the line to the other ranks."""
+    line = None
+    if multihost.is_primary():
+        try:
+            line = input("\n> ")
+        except EOFError:
+            pass
+    if dist.is_initialized():
+        box = [line]
+        dist.broadcast_object_list(box, 0)
+        line = box[0]
+    return line
 
 
 def build_engine(args) -> Engine:
@@ -91,6 +115,9 @@ def run_completion(eng: Engine, args) -> None:
         raise SystemExit(1)
     res = eng.generate(args.i, stream_cb=_stdout_bytes,
                        max_tokens=args.max_tokens)
+    if not launch.ranks_agree(res.ids):
+        raise RuntimeError("the tensor-parallel ranks generated different "
+                           "ids")
     print()
     print(f"\n[pp {res.prompt_ms:.0f}ms] [tg {res.generate_ms:.0f}ms] "
           f"[t/ms {res.ms_per_token:.3f}] "
@@ -101,10 +128,7 @@ def run_completion(eng: Engine, args) -> None:
 def run_chat(eng: Engine, args) -> None:
     session = ChatSession(eng, system_prompt=args.y)
     while True:
-        try:
-            user = input("\n> ")
-        except EOFError:
-            break
+        user = _read_line()
         if not user:
             break
         for _ in session.stream(user, stream_cb=_stdout_bytes):
@@ -147,12 +171,50 @@ def main(argv=None) -> int:
 
     if (args.coordinator is not None or args.num_processes is not None
             or args.process_id is not None):
-        raise NotImplementedError("multi-host (--coordinator) is not ported "
-                                  "yet")
+        if args.m == "chat":
+            # the chat REPL reads stdin, which only process 0 has; the other
+            # processes would EOF out and strand process 0's collectives
+            print("[Chat] Error: the interactive REPL is single-host; "
+                  "use -m completion with --coordinator.", file=sys.stderr)
+            return 1
+        if None in (args.coordinator, args.num_processes, args.process_id):
+            print("[CLI] Error: --coordinator, --num-processes and "
+                  "--process-id go together.", file=sys.stderr)
+            return 2
+        if args.num_processes != args.tp:
+            # a process here drives one card, where a JAX process drives
+            # every device of its host
+            print(f"[CLI] Error: --num-processes ({args.num_processes}) must "
+                  f"equal --tp ({args.tp}): the port runs one process a "
+                  f"tensor-parallel rank.", file=sys.stderr)
+            return 2
+        if args.process_id:
+            launch.silence()
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id, device=args.device)
+        try:
+            # the default seed is the time, per process: agree on one
+            args.s = multihost.agree_seed(args.s if args.s else
+                                          int(time.time()))
+            return _run(args.process_id, args)
+        finally:
+            dist.destroy_process_group()
+    if args.tp > 1:
+        # one seed for every rank, and the kernels built once
+        args.s = args.s if args.s else int(time.time())
+        launch.prepare(args.device)
+        return launch.run_ranks(_run, args.tp, (args,), device=args.device)
+    return _run(0, args)
 
+
+def _run(rank: int, args) -> int:
+    """The CLI's run on one rank (rank 0 alone at --tp 1). Only rank 0
+    writes (and profiles): the others' stdout and stderr go nowhere."""
+    if rank:
+        launch.silence()
     eng = build_engine(args)
     ctx = contextlib.nullcontext()
-    if args.profile:
+    if args.profile and rank == 0:
         from qwen3_tpu_torch.utils.profiling import profile_trace
 
         print(f"[Profile] tracing to {args.profile}", file=sys.stderr)

@@ -83,6 +83,11 @@ from qwen3_tpu_torch.ops.quant_matmul import (
     q8_matmul_exact,
 )
 from qwen3_tpu_torch.ops.rope import apply_rope, rope_tables
+from qwen3_tpu_torch.parallel.shard_layout import (
+    TP_SHARDED_KEYS,
+    local_config,
+    tp_shard_params,
+)
 from qwen3_tpu_torch.runtime import kvcache as kvc
 
 Params = dict[str, Any]
@@ -211,18 +216,29 @@ def init_params(w: Q8Weights, mode: str = "pallas",
 
 
 def load_params(path: str, mode: str = "pallas",
-                max_seq_len: int | None = None,
-                device="cuda") -> tuple[ModelConfig, Params]:
+                max_seq_len: int | None = None, device="cuda", *,
+                tp: int = 1, rank: int = 0) -> tuple[ModelConfig, Params]:
     """Read a checkpoint into device parameters of `mode`. Returns
     (ModelConfig, Params). The layouts need no repack, so there is no disk
-    cache."""
+    cache.
+
+    `tp` > 1 reads tensor-parallel rank `rank`'s shard of the pallas layout
+    (parallel/shard_layout.py::tp_shard_params) straight from the
+    checkpoint: only the shard reaches the device. The ModelConfig
+    returned is the global one. As in the JAX package, tp > 1 takes a
+    pallas mode (exact and bf16 shard a full parameter dict by
+    parallel.sharding.shard_params)."""
     check_mode(mode)
+    if tp > 1 and not mode.startswith("pallas"):
+        raise ValueError(
+            "tp>1 requires a pallas mode (exact/bf16 shard via "
+            "parallel.sharding.shard_params instead)")
     dev = resolve_device(device)
     w = load_checkpoint(path)
     if max_seq_len is None:
         max_seq_len = w.config.seq_len
-    return w.config, _to_device(_host_params(w, mode), w.config, max_seq_len,
-                                dev)
+    host = tp_shard_params(_host_params(w, mode), w.config, tp, rank)
+    return w.config, _to_device(host, w.config, max_seq_len, dev)
 
 
 def untile(a, d: int) -> np.ndarray:
@@ -235,14 +251,25 @@ def untile(a, d: int) -> np.ndarray:
 
 
 def params_from_jax(jax_params: dict, cfg: ModelConfig, *,
-                    device) -> Params:
+                    device, rank: int = 0) -> Params:
     """The port's parameters from qwen3_tpu's pytree of any mode, each leaf
     a numpy array. A pallas pytree (every pallas mode packs the same
     tensors) is un-tiled from the [L, J, n, td] / [J, n, td] repack back to
     row-major [.., d, n], without the classifier's zero padding; the exact
     pytree's row-major tensors and the bf16 pytree's [.., in, out] bf16
-    tensors carry over as they are."""
+    tensors carry over as they are.
+
+    qwen3_tpu's tensor-parallel pytree (parallel/tp.py::tp_host_params, the
+    sharded leaves under a leading [tp, ...] axis) gives tensor-parallel
+    rank `rank` its shard: the rank's slice of each sharded leaf, un-tiled
+    at the shard's dims (the classifier's vocab/tp rows, padding rows
+    included)."""
     dev = resolve_device(device)
+    if "wqkv_q" in jax_params and np.asarray(jax_params["wqkv_q"]).ndim == 5:
+        tp = np.asarray(jax_params["wqkv_q"]).shape[0]
+        shard = {k: (np.asarray(v)[rank] if k in TP_SHARDED_KEYS else v)
+                 for k, v in jax_params.items()}
+        return params_from_jax(shard, local_config(cfg, tp), device=dev)
     host = {k: np.asarray(jax_params[k]) for k in (
         "att_norm", "ffn_norm", "out_norm", "q_norm", "k_norm",
         "emb_q", "emb_s")}
@@ -343,13 +370,21 @@ def _check_attn(attn: str) -> None:
             f"attn={attn!r} is not ported yet (the port runs {ATTN})")
 
 
+def _reduce(group, y: torch.Tensor) -> torch.Tensor:
+    """The tensor-parallel sum of a row-parallel matmul's partials over
+    `group` (parallel/comm.py: in rank order); y itself without one."""
+    return y if group is None else group.sum(y)
+
+
 def _layer(p: Params, cfg: ModelConfig, x: torch.Tensor, l: int, cos, sin,
-           write_kv, attend, mode: str, fuse: bool) -> torch.Tensor:
+           write_kv, attend, mode: str, fuse: bool,
+           group=None) -> torch.Tensor:
     """One transformer layer on x [B, T, dim]; `write_kv(l, k, v)` stores
     the new rows, `attend(l, q)` returns attention [B, T, H, D]. Modes exact
     and bf16 run separate q/k/v and w1/w3 products on one normed h (the JAX
     package's unfused layout); `fuse` (pallas modes only) runs the
-    prologue-fused kernel."""
+    prologue-fused kernel. Under tensor parallelism (`group`, cfg the
+    shard's) the layer's two reductions follow wo and w2."""
     B, T = x.shape[:2]
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     split = mode not in ("exact", "bf16")
@@ -371,10 +406,10 @@ def _layer(p: Params, cfg: ModelConfig, x: torch.Tensor, l: int, cos, sin,
     write_kv(l, k, v)
     att = attend(l, q).reshape(B, T, H * D)
     if fuse:
-        x = x + _fused(p, cfg, att, "wo", l, mode, "none")
+        x = x + _reduce(group, _fused(p, cfg, att, "wo", l, mode, "none"))
         gu = _fused(p, cfg, x, "w13", l, mode, "norm", p["ffn_norm"][l])
-        return x + _fused(p, cfg, gu, "w2", l, mode, "swiglu")
-    x = x + _linear(p, cfg, att, "wo", l, mode)
+        return x + _reduce(group, _fused(p, cfg, gu, "w2", l, mode, "swiglu"))
+    x = x + _reduce(group, _linear(p, cfg, att, "wo", l, mode))
     h = rmsnorm(x, p["ffn_norm"][l])
     if split:
         gu = _linear(p, cfg, h, "w13", l, mode)
@@ -382,22 +417,33 @@ def _layer(p: Params, cfg: ModelConfig, x: torch.Tensor, l: int, cos, sin,
     else:
         gate = _linear(p, cfg, h, "w1", l, mode)
         up = _linear(p, cfg, h, "w3", l, mode)
-    return x + _linear(p, cfg, swiglu(gate, up), "w2", l, mode)
+    return x + _reduce(group, _linear(p, cfg, swiglu(gate, up), "w2", l,
+                                      mode))
 
 
 def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor,
-            mode: str, fuse: bool) -> torch.Tensor:
+            mode: str, fuse: bool, group=None,
+            out_vocab: int | None = None) -> torch.Tensor:
+    """The classifier's logits; under tensor parallelism the vocab-sharded
+    segments all-gathered in rank order and sliced to `out_vocab` (the
+    global vocab: the padding sits after the last segment)."""
     if fuse:
         out = _fused(p, cfg, x, "cls", None, mode, "norm", p["out_norm"])
     else:
         out = _linear(p, cfg, rmsnorm(x, p["out_norm"]), "cls", None, mode)
-    return out[..., :cfg.vocab_size]
+    out = out[..., :cfg.vocab_size]
+    if group is not None:
+        out = group.cat(out, -1)
+        if out_vocab is not None:
+            out = out[..., :out_vocab]
+    return out
 
 
 def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
             v_cache, start_pos, *, mode: str = "pallas",
             all_logits: bool = False, attn: str = "dense", last_pos=None,
-            fuse: bool = False, live: int | None = None):
+            fuse: bool = False, live: int | None = None, group=None,
+            out_vocab: int | None = None):
     """Run a [B, T] block of tokens starting at absolute position `start_pos`.
 
     `last_pos` (optional): position within the block whose logits to return
@@ -421,6 +467,13 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
     dense attention with bf16 dot operands, as the JAX package does.
     `fuse`: the prologue-fused matmuls in modes pallas and pallas-fast
     (ignored in the others, see the module docstring).
+
+    `group` (qwen3_tpu's `axis_name`): running tensor-parallel on one
+    rank's shard (parallel/tp.py), the tp axis's parallel.comm.Group; `cfg`
+    then holds the shard's dims (n_heads/tp, n_kv_heads/tp, hidden/tp,
+    vocab/tp). The only collectives are one sum after each row-parallel
+    matmul (wo, w2) and one all-gather of the vocab-sharded logits, sliced
+    to `out_vocab` (the global vocab). None (the default) at tp = 1.
 
     Returns (logits [B, T, V] or [B, 1, V], k_cache, v_cache)."""
     check_mode(mode)
@@ -492,7 +545,8 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
                              live=live, fast=fast)
 
     for l in range(cfg.n_layers):
-        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse)
+        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse,
+                   group)
 
     if not all_logits:
         if isinstance(last_pos, torch.Tensor) and last_pos.dim() == 1:
@@ -501,14 +555,16 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
         else:
             i = T - 1 if last_pos is None else int(last_pos)
             x = x[:, i:i + 1]
-    return _logits(p, cfg, x, mode, fuse), k_cache, v_cache
+    return (_logits(p, cfg, x, mode, fuse, group, out_vocab), k_cache,
+            v_cache)
 
 
 def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    k_cache, v_cache, positions: torch.Tensor, *,
                    mode: str = "pallas", attn: str = "dense",
                    live: int | None = None, side=None,
-                   attn_bucket: int | None = None, fuse: bool = False):
+                   attn_bucket: int | None = None, fuse: bool = False,
+                   group=None, out_vocab: int | None = None):
     """Batched single-token decode with per-slot positions.
 
     tokens: [B] int, positions: [B] int (each stream at its own absolute
@@ -533,7 +589,7 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     Modes pallas-fast and pallas-int8 take bf16 dot operands in the dense
     and fused attention (the flash kernels stay fp32, as in the JAX
-    package). `fuse` as in `forward`."""
+    package). `fuse`, `group` and `out_vocab` as in `forward`."""
     check_mode(mode)
     _check_attn(attn)
     if attn == "fused" and side is None:
@@ -551,7 +607,7 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if side is not None:
         return _decode_side(p, cfg, x, cos, sin, k_vals, v_vals, k_sc, v_sc,
                             positions, side, mode, attn, live, attn_bucket,
-                            fuse)
+                            fuse, group, out_vocab)
     slots = torch.arange(B, device=x.device)
     if live is None:
         live = int(positions.max()) + 1
@@ -579,12 +635,14 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                       fast=fast)[:, None]
 
     for l in range(cfg.n_layers):
-        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse)
-    return _logits(p, cfg, x, mode, fuse)[:, 0], k_cache, v_cache
+        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse,
+                   group)
+    return (_logits(p, cfg, x, mode, fuse, group, out_vocab)[:, 0], k_cache,
+            v_cache)
 
 
 def _decode_side(p, cfg, x, cos, sin, k_vals, v_vals, k_sc, v_sc, positions,
-                 side, mode, attn, live, attn_bucket, fuse):
+                 side, mode, attn, live, attn_bucket, fuse, group, out_vocab):
     """decode_forward's side-buffer form (see there)."""
     fast = mode in FAST_ATTN_MODES
     k_side, v_side, base_pos, step = side
@@ -628,5 +686,7 @@ def _decode_side(p, cfg, x, cos, sin, k_vals, v_vals, k_sc, v_sc, positions,
             off32, kms, vms, kss, vss, fast=fast, live=live)[:, None]
 
     for l in range(cfg.n_layers):
-        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse)
-    return _logits(p, cfg, x, mode, fuse)[:, 0], k_side, v_side
+        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse,
+                   group)
+    return (_logits(p, cfg, x, mode, fuse, group, out_vocab)[:, 0], k_side,
+            v_side)

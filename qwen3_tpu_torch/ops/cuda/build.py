@@ -1,18 +1,21 @@
 """Build and load the port's CUDA kernels.
 
-Every `*.cu` under `qwen3_tpu_torch/csrc/` compiles with nvcc (one process per
-source, all started together) into an object, and the objects link into one
-shared library with a plain C interface,
+Every `*.cu` under `qwen3_tpu_torch/csrc/` compiles with nvcc (one process
+per source, all started together) into an object, and the objects link into
+one shared library with a plain C interface,
 `build/qwen3_tpu_torch/libqwen3_kernels.so` under the repository root. It is
 loaded with ctypes. The build runs at first use and again whenever a source
-is newer than the library; it never includes PyTorch's headers, so it takes
-seconds. nvcc is `$CUDA_HOME/bin/nvcc` (default `/usr/local/cuda`) or the
-first `nvcc` on PATH.
+is newer than the library, under an exclusive lock on
+`build/qwen3_tpu_torch/build.lock` (a flock, released when its process
+ends), so that ranks started together build it once; it never includes
+PyTorch's headers, so it takes seconds. nvcc is `$CUDA_HOME/bin/nvcc`
+(default `/usr/local/cuda`) or the first `nvcc` on PATH.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -122,12 +125,21 @@ def build(verbose: bool = False) -> float:
     return time.perf_counter() - t0
 
 
+def ensure_built() -> None:
+    """Build the library if it is missing or stale, holding the build lock:
+    a process that waited for another's build finds it fresh."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if stale():
+            build()
+
+
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built first if missing or stale."""
     global _lib
     if _lib is None:
-        if stale():
-            build()
+        ensure_built()
         lib = ctypes.CDLL(str(LIB))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

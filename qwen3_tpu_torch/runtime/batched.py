@@ -19,14 +19,19 @@ streams through one shared [L, B, S, KV, HD] KV cache:
 Token streams do not depend on batch-mates: the only interaction between
 slots is batching of identical per-row math. On the card the matmul kernels
 and the attention kernels compute every row the same way at any batch size
-(csrc/q8_matmul.cu, csrc/batched_decode.cu).
+(csrc/q8_matmul.cu, csrc/batched_decode.cu). The sampler's softmax sum is a
+PyTorch reduction whose order on the card follows the number of rows, so a
+seeded (not a greedy) stream can change with the slot count: a dp rank
+samples its own share of the slots (ROADMAP Queue C #7).
 
 The JAX package compiles each chunk into one device program; here the host
-runs the loop and queues each step's kernels. `tp`/`dp` > 1 (the mesh
-programs) and `aot_dir` (the TPU's compiled-executable cache) are not
-ported yet and raise. The env-gated QWEN3_TPU_STATIC_BUCKET probe of the
-JAX engine is not ported: the port's dense attention always reads the live
-prefix, and the fused attention always takes a host-chosen bucket.
+runs the loop and queues each step's kernels. `tp`/`dp` > 1 serves on a (dp,
+tp) mesh of ranks (parallel/tp.py's programs): one process a rank, each
+running this same host scheduler on the same requests. `aot_dir` (the TPU's
+compiled-executable cache) is not ported and raises. The env-gated
+QWEN3_TPU_STATIC_BUCKET probe of the JAX engine is not ported: the port's
+dense attention always reads the live prefix, and the fused attention always
+takes a host-chosen bucket.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ from qwen3_tpu_torch.models.qwen3 import (
     load_params,
     resolve_device,
 )
+from qwen3_tpu_torch.parallel.shard_layout import local_config
+from qwen3_tpu_torch.parallel.sharding import make_mesh
 from qwen3_tpu_torch.runtime import kvcache
 from qwen3_tpu_torch.runtime.decode_loop import (
     GREEDY_EPS,
@@ -87,37 +94,48 @@ def _slot_rows(cache, slots: list[int]):
     """The cache's rows of `slots` ([L, N, ...] per tensor): a view when the
     slots are consecutive (writes land in the cache), else a gathered copy
     (put back by _put_rows)."""
-    vals, sc = kvcache.split(cache)
     s0 = slots[0]
-    if slots == list(range(s0, s0 + len(slots))):
-        take = (lambda t: t[:, s0:s0 + len(slots)])
-    else:
-        idx = torch.tensor(slots, device=vals.device)
-        take = (lambda t: t[:, idx])
+    if slots != list(range(s0, s0 + len(slots))):
+        return _gather_rows(cache, slots)
+    vals, sc = kvcache.split(cache)
+    take = (lambda t: t[:, s0:s0 + len(slots)])
     return kvcache.join(take(vals), None if sc is None else take(sc))
 
 
-def _put_rows(cache, rows, slots: list[int]) -> None:
-    """Scatter gathered slot rows back (a no-op for _slot_rows' views)."""
+def _gather_rows(cache, slots: list[int]):
+    """A gathered copy of the cache's rows of `slots`, never a view."""
+    vals, sc = kvcache.split(cache)
+    idx = torch.tensor(slots, device=vals.device)
+    return kvcache.join(vals[:, idx], None if sc is None else sc[:, idx])
+
+
+def _put_rows(cache, rows, slots: list[int], valid=None) -> None:
+    """Scatter gathered slot rows back (a no-op for _slot_rows' views);
+    with `valid`, only the valid rows (their copy must be gathered)."""
+    keep = None if valid is None else [i for i, ok in enumerate(valid) if ok]
     for full, part in zip(kvcache.tensors(cache), kvcache.tensors(rows)):
-        if part.data_ptr() != full[:, slots[0]].data_ptr():
+        if keep is not None:
+            full[:, [slots[i] for i in keep]] = part[:, keep]
+        elif part.data_ptr() != full[:, slots[0]].data_ptr():
             full[:, slots] = part
 
 
 def prefill_slot_chunk(params, cfg, k_cache, v_cache, tokens: list[int],
                        slot: int, start_pos: int, last_pos: int, *,
-                       mode: str, fuse: bool = False):
+                       mode: str, fuse: bool = False, group=None,
+                       out_vocab: int | None = None):
     """One prompt chunk into cache slot `slot`: the same [1, T] forward the
     single-stream engine's prefill dispatches, on the slot's rows in place.
     tokens: [T] padded per decode_loop.prefill_blocks (padded rows only
-    write cache rows the decode loop overwrites before reading). Returns
+    write cache rows the decode loop overwrites before reading). `group`/
+    `out_vocab`: tensor parallelism (models.qwen3.forward). Returns
     (last-valid-position logits [V], k, v)."""
     kr, vr = _slot_rows(k_cache, [slot]), _slot_rows(v_cache, [slot])
     dev = params["emb_q"].device
     logits, kr, vr = forward(params, cfg,
                              torch.tensor([tokens], device=dev), kr, vr,
                              start_pos, mode=mode, last_pos=last_pos,
-                             fuse=fuse)
+                             fuse=fuse, group=group, out_vocab=out_vocab)
     _put_rows(k_cache, kr, [slot])
     _put_rows(v_cache, vr, [slot])
     return logits[0, 0], k_cache, v_cache
@@ -126,23 +144,94 @@ def prefill_slot_chunk(params, cfg, k_cache, v_cache, tokens: list[int],
 def prefill_slots_chunk(params, cfg, k_cache, v_cache,
                         tokens: list[list[int]], slots: list[int],
                         start_pos: int, last_pos: list[int], *, mode: str,
-                        fuse: bool = False):
+                        fuse: bool = False, valid: list[bool] | None = None,
+                        group=None, out_vocab: int | None = None):
     """One prompt chunk for N requests at once: one [N, C] forward over the
     N slots' rows (a view when the slots are consecutive, else gathered and
     scattered back). Per-row math does not depend on the batch size, so each
     stream equals its serial admission. tokens: [N][C] padded blocks;
     start_pos: the shared block start (batched admission serves fresh
     start_pos=0 requests); last_pos: per-row last valid index in the block.
-    Returns (logits [N, V], k, v)."""
-    kr, vr = _slot_rows(k_cache, slots), _slot_rows(v_cache, slots)
+    `valid` (the mesh's padding rows, parallel/tp.py): the rows' copies are
+    gathered and only the valid rows' cache writes are kept. `group`/
+    `out_vocab`: tensor parallelism (models.qwen3.forward). Returns
+    (logits [N, V], k, v)."""
+    if valid is None:
+        kr, vr = _slot_rows(k_cache, slots), _slot_rows(v_cache, slots)
+    else:
+        kr, vr = _gather_rows(k_cache, slots), _gather_rows(v_cache, slots)
     dev = params["emb_q"].device
     logits, kr, vr = forward(params, cfg, torch.tensor(tokens, device=dev),
                              kr, vr, start_pos, mode=mode,
                              last_pos=torch.tensor(last_pos, device=dev),
-                             fuse=fuse)
-    _put_rows(k_cache, kr, slots)
-    _put_rows(v_cache, vr, slots)
+                             fuse=fuse, group=group, out_vocab=out_vocab)
+    _put_rows(k_cache, kr, slots, valid)
+    _put_rows(v_cache, vr, slots, valid)
     return logits[:, 0], k_cache, v_cache
+
+
+def _slots_of(cache) -> int:
+    """The cache slots this rank holds (its dp share of the batch)."""
+    return kvcache.split(cache)[0].shape[1]
+
+
+def mesh_prefill_slot_chunk(mesh, params, cfg, k_cache, v_cache,
+                            tokens: list[int], slot: int, start_pos: int,
+                            last_pos: int, *, mode: str, fuse: bool = False,
+                            out_vocab: int):
+    """prefill_slot_chunk on a (dp, tp) mesh (parallel/sharding.py::Mesh;
+    `cfg` the shard's dims, `slot` global). Each dp shard holds B/dp slots
+    and the owner of `slot` is slot // (B/dp): only the owner's tp group
+    runs the forward and writes its cache rows (a continuation chunk reads
+    rows only the owner holds); the owner's logits are then broadcast over
+    dp, so that no other shard's values can reach them. At dp = 1 this is
+    prefill_slot_chunk over the tp group."""
+    owner, local = divmod(slot, _slots_of(k_cache))
+    if mesh.dp_idx == owner:
+        logits, k_cache, v_cache = prefill_slot_chunk(
+            params, cfg, k_cache, v_cache, tokens, local, start_pos,
+            last_pos, mode=mode, fuse=fuse, group=mesh.tp_group,
+            out_vocab=out_vocab)
+    else:
+        logits = torch.empty(out_vocab, dtype=torch.float32,
+                             device=params["emb_q"].device)
+    if mesh.dp_group is not None:
+        logits = mesh.dp_group.broadcast(logits, owner)
+    return logits, k_cache, v_cache
+
+
+def mesh_prefill_slots_chunk(mesh, params, cfg, k_cache, v_cache,
+                             tokens: list[list[int]], slots: list[int],
+                             valid: list[bool], start_pos: int,
+                             last_pos: list[int], *, mode: str,
+                             fuse: bool = False, out_vocab: int):
+    """prefill_slots_chunk on a (dp, tp) mesh (`cfg` the shard's dims,
+    `slots` global). The host has routed each request's row to the dp
+    shard that owns its slot and padded every shard to the same row count
+    M = N / dp (rows [d*M, (d+1)*M) go to shard d); padding rows are marked
+    invalid, and their cache writes are dropped, so a padding row may name
+    any local slot. The M slots of a shard must be distinct and its own.
+    Each shard runs one [M, C] forward; the logits are all-gathered over dp
+    (rows of invalid entries are garbage). Returns (logits [N, V], k, v)."""
+    bl, n = _slots_of(k_cache), len(slots)
+    if n % mesh.dp:
+        raise ValueError(f"{n} rows do not split over dp={mesh.dp}")
+    m = n // mesh.dp
+    mine = range(mesh.dp_idx * m, (mesh.dp_idx + 1) * m)
+    lslots = [slots[i] - mesh.dp_idx * bl for i in mine]
+    if any(not 0 <= s < bl for s in lslots) or len(set(lslots)) != m:
+        raise ValueError(f"rows {list(mine)} name slots "
+                         f"{[slots[i] for i in mine]}: shard {mesh.dp_idx} "
+                         f"needs {m} distinct slots of its own")
+    ok = [bool(valid[i]) for i in mine]
+    logits, k_cache, v_cache = prefill_slots_chunk(
+        params, cfg, k_cache, v_cache, [tokens[i] for i in mine], lslots,
+        start_pos, [last_pos[i] for i in mine], mode=mode, fuse=fuse,
+        valid=None if all(ok) else ok, group=mesh.tp_group,
+        out_vocab=out_vocab)
+    if mesh.dp_group is not None:
+        logits = mesh.dp_group.cat(logits, 0)
+    return logits, k_cache, v_cache
 
 
 def first_tokens_batch(logits: torch.Tensor, rng: list[int], temp, topp, *,
@@ -219,26 +308,44 @@ class BatchedEngine:
         card it raises) or "cpu" (the kernels' plain versions). `fuse`: the
         prologue-fused matmuls in modes pallas and pallas-fast (ignored in
         the others). `native_tokenizer`: encode through the native C++
-        core."""
+        core.
+
+        `tp`/`dp` > 1 serves on a (dp, tp) mesh (parallel/sharding.py::
+        make_mesh): this process is one rank of a torch.distributed world
+        of at least dp * tp ranks (started by serve.py's --tp/--dp or
+        parallel/launch.py), and every rank builds the engine and serves
+        the same requests. Weights are tensor-parallel (pallas modes; the
+        rank reads its own shard, parallel/tp.py), the KV cache holds the
+        rank's kv heads and its dp share of the slots (max_batch % dp == 0),
+        and the per-slot state stays whole on every rank's host. Injected
+        `params` are then the rank's shard."""
         check_mode(mode)
-        if tp > 1 or dp > 1:
-            raise NotImplementedError("tp/dp > 1 serving is not ported yet")
         if aot_dir is not None:
             raise NotImplementedError(
                 "aot_dir (the TPU's compiled-executable cache) is not ported")
         if attn not in ("auto", "dense", "flash", "fused"):
             raise NotImplementedError(f"attn={attn!r} is not ported yet")
+        if max_batch % dp:
+            raise ValueError(f"max_batch={max_batch} must divide over "
+                             f"dp={dp}")
+        if tp * dp > 1 and not mode.startswith("pallas"):
+            # the mesh programs take the tensor-parallel pallas pack
+            # (parallel/shard_layout.py), as the JAX package's shard_map
+            # programs
+            raise ValueError("tp/dp>1 serving requires a pallas mode")
         self.device = resolve_device(device)
+        self._mesh = make_mesh(dp=dp, tp=tp, device=self.device)
         self.tokenizer = Tokenizer.from_file(path, native_tokenizer)
         if params is not None:
             if model_cfg is None:
                 raise ValueError("params injection needs model_cfg")
             mc, self.params = model_cfg, params
         else:
-            mc, self.params = load_params(path, mode=mode,
-                                          max_seq_len=seq_len,
-                                          device=self.device)
+            mc, self.params = load_params(
+                path, mode=mode, max_seq_len=seq_len, device=self.device,
+                tp=tp, rank=self._mesh.tp_idx)
         self.cfg: ModelConfig = mc.with_seq_len(seq_len)
+        self._loc = local_config(self.cfg, tp)     # the shard's dims
         self.mode = mode
         self.fuse = fuse
         if attn == "auto":
@@ -269,7 +376,7 @@ class BatchedEngine:
         cache_rows = kvcache.pad_rows(
             self.cfg.seq_len + (decode_chunk if side_buffer else 0),
             quantum=128 if self.attn in ("dense", "fused") else 256)
-        self._kv = init_kv_cache(self.cfg, B, cache_rows, kv_dtype,
+        self._kv = init_kv_cache(self._loc, B // dp, cache_rows, kv_dtype,
                                  self.device)
         # per-slot sampler params (engine defaults until a request
         # overrides), and the slots' state, all on the host
@@ -374,8 +481,11 @@ class BatchedEngine:
             # cap N by ADMIT_ROWS and ADMIT_KV_BYTES
             widest = max(size for _, size in plan)
             cap_n = max(2, ADMIT_ROWS // max(widest, 1))
+            # bytes a slot of the whole cache holds (a rank's cache holds
+            # 1 / (tp * dp) of them)
             per_row = (sum(t.numel() * t.element_size()
                            for side in self._kv for t in kvcache.tensors(side))
+                       * self._mesh.tp * self._mesh.dp
                        // max(self.max_batch, 1))
             cap_n = max(1, min(cap_n, ADMIT_KV_BYTES // max(2 * per_row, 1)))
             while len(items) > 1:
@@ -395,19 +505,24 @@ class BatchedEngine:
             req.prompt_ids = ids
             temps.append(r_temp)
             topps.append(r_topp)
-        slots = [b for b, _, _ in items]
+        rows, item_row = self._dp_rows(items)
+        slots = [slot for slot, _ in rows]
+        valid = [ids is not None for _, ids in rows]
         k, v = self._kv
         logits = None
         for off, size in plan:
             blocks, lasts = [], []
-            for _, _, ids in items:
-                blk = ids[off:off + size]
-                lasts.append(len(blk) - 1)
+            for _, ids in rows:
+                blk = [] if ids is None else ids[off:off + size]
+                lasts.append(max(len(blk) - 1, 0))
                 blocks.append(blk + [0] * (size - len(blk)))
-            logits, k, v = prefill_slots_chunk(self.params, self.cfg, k, v,
-                                               blocks, slots, off, lasts,
-                                               mode=self.mode, fuse=self.fuse)
+            logits, k, v = mesh_prefill_slots_chunk(
+                self._mesh, self.params, self._loc, k, v, blocks, slots,
+                valid, off, lasts, mode=self.mode, fuse=self.fuse,
+                out_vocab=self.cfg.vocab_size)
         self._kv = (k, v)
+        if item_row is not None:
+            logits = logits[torch.tensor(item_row, device=logits.device)]
         seeds = [req.seed & _M64 for _, req, _ in items]
         toks, rngs = first_tokens_batch(logits, seeds, temps, topps,
                                         top_k=self.top_k)
@@ -416,6 +531,34 @@ class BatchedEngine:
             req.prompt_ms = (now - t0) * 1e3
             req._t_admit = now
             self._start(b, req, tok, len(ids), rng)
+
+    def _dp_rows(self, items: list):
+        """Batched admission's rows on the mesh: each request's row goes to
+        the dp shard that owns its slot, and every shard is padded to a
+        common row count M with rows of its free slots (ids None: their
+        cache writes are dropped). Returns ([(slot, ids | None)] in shard
+        order, the row of each item); at dp = 1 the items' own rows, in
+        order, and None."""
+        dp = self._mesh.dp
+        if dp == 1:
+            return [(b, ids) for b, _, ids in items], None
+        bl = self.max_batch // dp
+        per: list[list[int]] = [[] for _ in range(dp)]
+        for i, (b, _, _) in enumerate(items):
+            per[b // bl].append(i)
+        M = max(len(g) for g in per)
+        rows: list[tuple[int, Optional[list]]] = []
+        item_row = [0] * len(items)
+        for d, g in enumerate(per):
+            used = {items[i][0] for i in g}
+            free = iter(s for s in range(d * bl, (d + 1) * bl)
+                        if s not in used)
+            for i in g:
+                item_row[i] = len(rows)
+                rows.append((items[i][0], items[i][2]))
+            for _ in range(M - len(g)):
+                rows.append((next(free), None))
+        return rows, item_row
 
     def _admit_into(self, b: int, req: Request) -> None:
         t0 = time.perf_counter()
@@ -433,9 +576,10 @@ class BatchedEngine:
         logits = None
         for off, block, n_valid in prefill_blocks(
                 ids, req.start_pos, self.prefill_bucket, self.cfg.seq_len):
-            logits, k, v = prefill_slot_chunk(
-                self.params, self.cfg, k, v, block, b, req.start_pos + off,
-                n_valid - 1, mode=self.mode, fuse=self.fuse)
+            logits, k, v = mesh_prefill_slot_chunk(
+                self._mesh, self.params, self._loc, k, v, block, b,
+                req.start_pos + off, n_valid - 1, mode=self.mode,
+                fuse=self.fuse, out_vocab=self.cfg.vocab_size)
         self._kv = (k, v)
 
         rng = req.seed & _M64 if req.rng is None else req.rng
@@ -464,12 +608,14 @@ class BatchedEngine:
         all_greedy = bool((self._temp <= GREEDY_EPS).all())
         k, v = self._kv
         packed, k, v, tok, pos, done, rng = batched_decode_chunk(
-            self.params, self.cfg, k, v, self._token, self._pos,
+            self.params, self._loc, k, v, self._token, self._pos,
             self._limit, self._done, self._rng, self._temp, self._topp,
             self._emit, chunk=self.decode_chunk, greedy=all_greedy,
             bos=self.tokenizer.special.bos, eos=self.tokenizer.special.eos,
             top_k=self.top_k, attn=self.attn, mode=self.mode,
-            use_side=self.side_buffer, bucket=self._bucket(), fuse=self.fuse)
+            use_side=self.side_buffer, bucket=self._bucket(), fuse=self.fuse,
+            group=self._mesh.tp_group, dp_group=self._mesh.dp_group,
+            out_vocab=self.cfg.vocab_size)
         self._kv = (k, v)
         self._token, self._pos, self._done, self._rng = tok, pos, done, rng
         finished = []

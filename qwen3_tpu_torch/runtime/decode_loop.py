@@ -100,7 +100,8 @@ def decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit, rng_hi,
                  rng_lo, *, mode: str, chunk: int, temperature: float,
                  top_p: float, greedy: bool, bos: int, eos: int,
                  emit_at_limit: bool = False, top_k: int = 0,
-                 attn: str = "dense", fuse: bool = False):
+                 attn: str = "dense", fuse: bool = False, group=None,
+                 out_vocab: int | None = None):
     """Up to `chunk` decode steps of one stream (B = 1), the JAX package's
     decode_chunk.
 
@@ -109,7 +110,8 @@ def decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit, rng_hi,
     step): the next forward's position and the exclusive position bound.
     rng_hi, rng_lo: the xorshift64* state as 0-dim int64 device tensors
     (xorshift.to_device_state). temperature/top_p: clamped host floats.
-    `attn` "dense" or "flash" (flash decode at T = 1); `fuse` as in
+    `attn` "dense" or "flash" (flash decode at T = 1); `fuse`, and `group`
+    and `out_vocab` (tensor parallelism, parallel/tp.py), as in
     models.qwen3.forward.
 
     The host queues chunk_steps(pos, limit, chunk) steps and reads nothing
@@ -145,7 +147,8 @@ def decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit, rng_hi,
         logits, k_cache, v_cache = forward(
             params, cfg, tok[None], k_cache, v_cache,
             pos_t.clamp(max=rows - 1), mode=mode, attn=attn,
-            live=min(pos0 + i + 1, rows), fuse=fuse)
+            live=min(pos0 + i + 1, rows), fuse=fuse, group=group,
+            out_vocab=out_vocab)
         nhi, nlo, coin = xorshift_coin_device(hi, lo)
         nxt = sample_tokens(logits[:, 0], coin.reshape(1), temperature,
                             top_p, greedy=greedy, top_k_hint=top_k)
@@ -205,7 +208,8 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
                          greedy: bool, bos: int, eos: int, top_k: int = 0,
                          attn: str = "dense", mode: str = "pallas",
                          use_side: bool = False, bucket: int | None = None,
-                         fuse: bool = False):
+                         fuse: bool = False, group=None,
+                         out_vocab: int | None = None, dp_group=None):
     """Up to `chunk` decode steps over all live slots.
 
     token/pos/limit/done/rng/temp/topp/emit_lim: per-slot [B] host arrays
@@ -219,7 +223,14 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
     position after the loop (the cache needs `chunk` rows past the last
     position, which BatchedEngine allocates). `bucket`: the fused
     attention's rows (host-chosen, >= every slot's position). `fuse`: the
-    prologue-fused matmuls (models.qwen3.forward).
+    prologue-fused matmuls (models.qwen3.forward). `group`/`out_vocab`:
+    tensor parallelism, as in models.qwen3.forward.
+
+    `dp_group` (data parallelism, parallel/tp.py::make_tp_batched_chunk):
+    the host arrays stay whole [B] on every rank, the caches hold this
+    rank's share of the slots, [index * b, (index + 1) * b) for the cache's
+    b rows, and each step's sampled ids are all-gathered over the group
+    before the host reads them, so every rank steps the same state.
 
     Returns (packed int32 [B, chunk + 2] = (tokens.., pos, done) with -1
     padding, k, v, token, pos, done, rng)."""
@@ -231,14 +242,16 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
     rng = list(rng)
     B = token.shape[0]
     dev = params["emb_q"].device
-    rows = split(k_cache)[0].shape[2]
-    temp_t = torch.tensor(np.asarray(temp, np.float32), device=dev)
-    topp_t = torch.tensor(np.asarray(topp, np.float32), device=dev)
+    bl, rows = split(k_cache)[0].shape[1:3]
+    lo = 0 if dp_group is None else dp_group.index * bl
+    mine = slice(lo, lo + bl)
+    temp_t = torch.tensor(np.asarray(temp, np.float32)[mine], device=dev)
+    topp_t = torch.tensor(np.asarray(topp, np.float32)[mine], device=dev)
     g = True if greedy else temp_t <= GREEDY_EPS
     out = np.full((B, chunk), -1, np.int32)
     if use_side:
         base_pos = pos.copy()        # frozen for the chunk
-        base_t = torch.from_numpy(base_pos).to(dev)
+        base_t = torch.from_numpy(base_pos[mine]).to(dev)
         side_k, side_v = make_side(k_cache, chunk), make_side(v_cache, chunk)
     step = 0
     while step < chunk and not done.all():
@@ -250,25 +263,30 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
         # the coins depend on no device data: upload them before the
         # forward is queued, so the upload does not wait for it
         draws = [xorshift_float(s) for s in rng]
-        coin = torch.tensor([c for _, c in draws], dtype=torch.float32,
+        coin = torch.tensor([c for _, c in draws[mine]], dtype=torch.float32,
                             device=dev)
-        tok_t = torch.from_numpy(token).to(dev)
+        tok_t = torch.from_numpy(token[mine]).to(dev)
         if use_side:
             logits, side_k, side_v = decode_forward(
                 params, cfg, tok_t, k_cache, v_cache,
-                torch.from_numpy(pos).to(dev), mode=mode, attn=attn,
+                torch.from_numpy(pos[mine]).to(dev), mode=mode, attn=attn,
                 side=(side_k, side_v, base_t, step),
-                live=int(base_pos.max()), attn_bucket=bucket, fuse=fuse)
+                live=int(base_pos.max()), attn_bucket=bucket, fuse=fuse,
+                group=group, out_vocab=out_vocab)
         else:
             # done slots still run (their rows are wasted work); their
             # write position is clamped into the cache
             write_pos = np.minimum(pos, rows - 1)
             logits, k_cache, v_cache = decode_forward(
                 params, cfg, tok_t, k_cache, v_cache,
-                torch.from_numpy(write_pos).to(dev), mode=mode, attn=attn,
-                live=int(write_pos.max()) + 1, fuse=fuse)
+                torch.from_numpy(write_pos[mine]).to(dev), mode=mode,
+                attn=attn, live=int(write_pos.max()) + 1, fuse=fuse,
+                group=group, out_vocab=out_vocab)
         nxt = sample_tokens(logits, coin, temp_t, topp_t, greedy=g,
-                            top_k_hint=top_k).cpu().numpy()
+                            top_k_hint=top_k)
+        if dp_group is not None:
+            nxt = dp_group.cat(nxt, 0)
+        nxt = nxt.cpu().numpy()
         live = ~newly_done
         token = np.where(live, nxt, token)
         pos = np.where(live, pos + 1, pos)
@@ -281,8 +299,9 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
         # garbage that nothing reads before it is rewritten
         for main, buf in ((k_cache, side_k), (v_cache, side_v)):
             for m, sb in zip(tensors(main), tensors(buf)):
-                for b in range(B):
-                    m[:, b, base_pos[b]:base_pos[b] + chunk] = sb[:, b]
+                for j in range(bl):
+                    at = base_pos[lo + j]
+                    m[:, j, at:at + chunk] = sb[:, j]
     packed = np.concatenate(
         [out, pos[:, None].astype(np.int32), done[:, None].astype(np.int32)],
         axis=1)

@@ -11,7 +11,13 @@ loop (src/completion.c:24-84), with qwen3_tpu/runtime/engine.py's contract:
   chunk side buffer ("side"), or the B=1 chunk whose loop stays on the
   device ("fused", runtime/decode_loop.py::decode_chunk);
 - the xorshift64* state carries across chunks and chat turns, so seeded
-  streams reproduce the C engine token for token.
+  streams reproduce the C engine token for token;
+- the engine runs on a (1, tp) mesh (parallel/sharding.py), (1, 1) by
+  default. At `tp` > 1 this process is one rank of a torch.distributed
+  world (the CLI's --tp starts the ranks), the weights and the KV cache are
+  the rank's shard, every forward reduces over the mesh's tp group, and
+  decode always runs the fused chunk, as in the JAX engine. Every rank
+  samples the same ids from the same logits.
 
 The engine runs on `EngineConfig.device`, "cuda" by default; asking for CUDA
 without a card raises.
@@ -34,6 +40,8 @@ from qwen3_tpu_torch.models.qwen3 import (
     load_params,
     resolve_device,
 )
+from qwen3_tpu_torch.parallel.shard_layout import local_config
+from qwen3_tpu_torch.parallel.sharding import make_mesh
 from qwen3_tpu_torch.runtime.decode_loop import (
     GREEDY_EPS,
     batched_decode_chunk,
@@ -70,7 +78,7 @@ class EngineConfig:
     decode_chunk: int = 32         # tokens generated per decode chunk
     top_k: int = 64                # top-k fast path for nucleus sampling (0=off)
     batch: int = 1                 # KV cache rows reset() allocates by default
-    tp: int = 1                    # tensor parallelism: not ported yet
+    tp: int = 1                    # tensor parallelism (one process a rank)
     device: str = "cuda"
     fuse: bool = False             # prologue-fused matmuls (pallas modes)
     native_tokenizer: bool = True  # encode with the native C++ core
@@ -103,8 +111,6 @@ class GenerationResult:
 
 def _not_ported(cfg: EngineConfig) -> None:
     check_mode(cfg.mode)
-    if cfg.tp != 1:
-        raise NotImplementedError("tp > 1 is not ported yet")
     if cfg.decode_impl not in DECODE_IMPLS:
         raise ValueError(f"decode_impl={cfg.decode_impl!r}: one of "
                          f"{DECODE_IMPLS}")
@@ -123,9 +129,13 @@ class Engine:
         seq_len = cfg.seq_len if cfg.seq_len > 0 else MAX_SEQ_LEN
         self.model_cfg: ModelConfig = read_header(cfg.path).with_seq_len(
             seq_len)
-        _, self.params = load_params(cfg.path, mode=cfg.mode,
-                                     max_seq_len=self.model_cfg.seq_len,
-                                     device=self.device)
+        self._mesh = make_mesh(dp=1, tp=cfg.tp, device=self.device)
+        self._loc = local_config(self.model_cfg, cfg.tp)  # the shard's dims
+        _, self.params = load_params(
+            cfg.path, mode=cfg.mode, max_seq_len=self.model_cfg.seq_len,
+            device=self.device, tp=cfg.tp, rank=self._mesh.tp_idx)
+        # tp > 1 decodes through the fused chunk (the JAX engine's rule)
+        self._decode_impl = "fused" if cfg.tp > 1 else cfg.decode_impl
         self.sampler = Sampler(self.tokenizer.vocab_size, cfg.temperature,
                                cfg.top_p, cfg.seed)
         # greedy shortcut: at the epsilon temperature the reference's top-p
@@ -142,10 +152,11 @@ class Engine:
         """A fresh KV cache of `batch` rows (default `EngineConfig.batch`).
         The side program merges a whole chunk window past a stream's last
         position, so its cache has `decode_chunk` rows more; every cache is
-        padded to the flash kernels' 256-row tile."""
-        extra = self.cfg.decode_chunk if self.cfg.decode_impl == "side" else 0
+        padded to the flash kernels' 256-row tile. At tp > 1 the cache is
+        the rank's kv heads."""
+        extra = self.cfg.decode_chunk if self._decode_impl == "side" else 0
         self._kv = init_kv_cache(
-            self.model_cfg, self.cfg.batch if batch is None else batch,
+            self._loc, self.cfg.batch if batch is None else batch,
             pad_rows(self.model_cfg.seq_len + extra), self.kv_dtype,
             self.device)
 
@@ -175,10 +186,12 @@ class Engine:
                                                   cfg.seq_len):
             toks = torch.tensor([block], dtype=torch.int64,
                                 device=self.device)
-            lg, k, v = forward(self.params, cfg, toks, k, v, start_pos + off,
-                               mode=self.cfg.mode,
+            lg, k, v = forward(self.params, self._loc, toks, k, v,
+                               start_pos + off, mode=self.cfg.mode,
                                attn=self._attn_for(start_pos + off),
-                               last_pos=n_valid - 1, fuse=self.cfg.fuse)
+                               last_pos=n_valid - 1, fuse=self.cfg.fuse,
+                               group=self._mesh.tp_group,
+                               out_vocab=cfg.vocab_size)
             logits = lg[:, 0]
         self._kv = (k, v)
         return logits  # [1, V]
@@ -194,8 +207,9 @@ class Engine:
     def _decode_chunks(self, token: int, pos: int, limit: int,
                        emit_at_limit: bool):
         """Yield (np_tokens, done) per decode chunk until stop/limit, in the
-        program `decode_impl` names."""
-        if self.cfg.decode_impl == "fused":
+        program `decode_impl` names; at tp > 1 always the fused chunk on the
+        mesh (the JAX engine's rule)."""
+        if self._decode_impl == "fused":
             yield from self._decode_chunks_fused(token, pos, limit,
                                                  emit_at_limit)
             return
@@ -207,13 +221,15 @@ class Engine:
         cur = pos                      # host-tracked depth for attn="auto"
         while not done:
             packed, k, v, tok_a, pos_a, done_a, rng = batched_decode_chunk(
-                self.params, self.model_cfg, k, v, state["token"],
+                self.params, self._loc, k, v, state["token"],
                 state["pos"], [limit], state["done"], state["rng"],
                 [self.sampler.temperature], [self.sampler.top_p],
                 [emit_at_limit], chunk=chunk, greedy=self.greedy,
                 bos=t.special.bos, eos=t.special.eos, top_k=self.cfg.top_k,
                 attn=self._attn_for(cur), mode=self.cfg.mode,
-                use_side=self.cfg.decode_impl == "side", fuse=self.cfg.fuse)
+                use_side=self._decode_impl == "side", fuse=self.cfg.fuse,
+                group=self._mesh.tp_group,
+                out_vocab=self.model_cfg.vocab_size)
             state = dict(token=tok_a, pos=pos_a, done=done_a, rng=rng)
             row = packed[0]
             cur = int(row[-2])
@@ -240,13 +256,15 @@ class Engine:
         hi, lo = to_device_state(self._rng, self.device)
         while True:
             packed, k, v, tok, _, hi, lo = decode_chunk(
-                self.params, self.model_cfg, k, v, tok, pos, limit, hi, lo,
+                self.params, self._loc, k, v, tok, pos, limit, hi, lo,
                 mode=self.cfg.mode, chunk=self.cfg.decode_chunk,
                 temperature=self.sampler.temperature,
                 top_p=self.sampler.top_p, greedy=self.greedy,
                 bos=t.special.bos, eos=t.special.eos,
                 emit_at_limit=emit_at_limit, top_k=self.cfg.top_k,
-                attn=self._attn_for(pos), fuse=self.cfg.fuse)
+                attn=self._attn_for(pos), fuse=self.cfg.fuse,
+                group=self._mesh.tp_group,
+                out_vocab=self.model_cfg.vocab_size)
             row = packed.cpu().numpy()     # the one host read a chunk
             n, done = int(row[-2]), bool(row[-1])
             pos = min(pos + n, limit)

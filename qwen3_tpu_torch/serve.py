@@ -21,8 +21,12 @@ Diagnostics go to stderr with [Component] prefixes (reference convention).
   --qmode/--kv-dtype/--attn/--no-side-buffer   engine knobs (every qmode
                     of the CLI; QWEN3_TPU_FUSE=1 runs the matmuls of pallas
                     and pallas-fast through the prologue-fused kernel)
-  --tp/--dp, --aot-dir   accepted for compatibility; not ported yet (> 1, or
-                    a directory, raises)
+  --tp/--dp         tensor- and data-parallel ranks (pallas modes): tp * dp
+                    processes, rank 0 this one (it reads the prompts and
+                    prints), ranks 1.. spawned; rank r runs on card
+                    r % the host's cards; --batch must divide over dp
+  --aot-dir         the TPU's compiled-executable cache: not ported (a
+                    directory raises)
   --device          torch device: cuda (default) or cpu (the kernels' plain
                     versions)
 """
@@ -67,12 +71,7 @@ def main(argv=None) -> int:
                     help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    from qwen3_tpu_torch.config import (
-        fuse_from_env,
-        native_tokenizer_from_env,
-        quiet_from_env,
-    )
-    from qwen3_tpu_torch.runtime.batched import BatchedEngine, Request
+    from qwen3_tpu_torch.config import quiet_from_env
     from qwen3_tpu_torch.utils.logging import set_quiet
 
     set_quiet(quiet_from_env())
@@ -85,6 +84,28 @@ def main(argv=None) -> int:
         return 1
 
     seed0 = args.s if args.s else int(time.time())
+    world = args.tp * args.dp
+    if world > 1:
+        from qwen3_tpu_torch.parallel import launch
+
+        launch.prepare(args.device)
+        return launch.run_ranks(_serve, world, (args, prompts, seed0),
+                                device=args.device)
+    return _serve(0, args, prompts, seed0)
+
+
+def _serve(rank: int, args, prompts: list[str], seed0: int) -> int:
+    """serve.py's run on one rank (rank 0 alone at tp = dp = 1): every rank
+    serves the same requests; rank 0 prints."""
+    from qwen3_tpu_torch.config import (
+        fuse_from_env,
+        native_tokenizer_from_env,
+    )
+    from qwen3_tpu_torch.parallel import launch
+    from qwen3_tpu_torch.runtime.batched import BatchedEngine, Request
+
+    if rank:
+        launch.silence()
     fuse = fuse_from_env()
     print(f"[Serve] loading {args.checkpoint} (mode={args.qmode}, "
           f"batch={args.batch}, tp={args.tp}, dp={args.dp}, "
@@ -112,6 +133,8 @@ def main(argv=None) -> int:
         reqs[r.rid] = (i, prompt)
     done = eng.run()
     dt = time.perf_counter() - t0
+    if not launch.ranks_agree([(r.rid, r.out_ids) for r in done]):
+        raise RuntimeError("the ranks served different streams")
 
     total = 0
     for r in done:

@@ -1,7 +1,9 @@
-"""The port stands alone: no module of `qwen3_tpu_torch/` (nor the root
-`chip_smoke.py`) imports JAX, ml_dtypes or the JAX package, importing every
-port module leaves JAX unloaded, and asking for the card where there is none
-raises instead of running on the CPU."""
+"""The port stands alone: no module of `qwen3_tpu_torch/` (its `parallel/`
+included), nor the root `chip_smoke.py`, nor the rank bodies the
+tensor-parallel tests spawn (`tests/torch_tp_ranks.py`) imports JAX,
+ml_dtypes or the JAX package; importing every port module, or running as a
+spawned rank, leaves JAX unloaded; and asking for the card where there is
+none raises instead of running on the CPU."""
 
 import ast
 import subprocess
@@ -17,8 +19,11 @@ PKG = REPO / "qwen3_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "qwen3_tpu")
 
 
+RANKS = REPO / "tests" / "torch_tp_ranks.py"
+
+
 def _port_sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", RANKS]
 
 
 def _module_names():
@@ -48,7 +53,7 @@ def test_no_jax_import_in_source(path):
 # the port's modules (packages included, __main__ excluded): a module that
 # disappears, or fails to be found, lowers the count and fails the check;
 # a new module raises it here
-N_MODULES = 49
+N_MODULES = 56
 
 
 def test_importing_every_port_module_leaves_jax_unloaded():
@@ -65,6 +70,35 @@ def test_importing_every_port_module_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_parallel_package_is_covered():
+    """parallel/'s modules are among those imported above."""
+    assert {m for m in _module_names() if ".parallel" in m} == {
+        "qwen3_tpu_torch.parallel", "qwen3_tpu_torch.parallel.comm",
+        "qwen3_tpu_torch.parallel.launch",
+        "qwen3_tpu_torch.parallel.multihost",
+        "qwen3_tpu_torch.parallel.shard_layout",
+        "qwen3_tpu_torch.parallel.sharding", "qwen3_tpu_torch.parallel.tp"}
+
+
+def test_spawned_rank_leaves_jax_unloaded(tmp_path):
+    """A rank spawned by parallel/launch.py (as the tensor-parallel tests
+    spawn theirs, from this process, which has JAX loaded) runs with
+    neither JAX nor the JAX package imported."""
+    import time
+
+    import torch_tp_ranks
+    from qwen3_tpu_torch.parallel import launch
+
+    ctx = launch.spawn_ranks(torch_tp_ranks.loaded_modules, 1,
+                             (str(tmp_path),), device="cpu")
+    t0 = time.monotonic()
+    while not ctx.join(timeout=1):
+        assert time.monotonic() - t0 < 120, "the rank did not finish"
+    roots = set((tmp_path / "modules.txt").read_text().split())
+    assert {"torch", "qwen3_tpu_torch", "torch_tp_ranks"} <= roots
+    assert not roots & set(FORBIDDEN)
 
 
 def test_cuda_engine_raises_without_a_card(tmp_path):

@@ -27,6 +27,7 @@ from qwen3_tpu.io.tokenizer_bin import write_tokenizer_bin  # noqa: E402
 from qwen3_tpu.serve import main as jax_serve  # noqa: E402
 from qwen3_tpu_torch.cli import main as cli  # noqa: E402
 from qwen3_tpu_torch.config import fuse_from_env  # noqa: E402
+from qwen3_tpu_torch.runtime.engine import Engine, EngineConfig  # noqa: E402
 from qwen3_tpu_torch.serve import main as serve  # noqa: E402
 
 PROMPT = "in the beginning"
@@ -128,14 +129,18 @@ def test_serve_with_fuse_prints_the_unfused_records(ckpt, tmp_path, capsys,
             for r in map(json.loads, out.splitlines())] == plain
 
 
-def test_cli_still_refuses_what_is_not_ported(ckpt):
+def test_cli_still_refuses_what_is_not_ported(ckpt, capsys):
+    """--tp and --coordinator run since they were ported
+    (tests/test_torch_multihost.py); what the CLI still refuses: a
+    --coordinator flag without its two partners (rc 2), and Engine(tp > 1)
+    outside a process group (one process a rank)."""
     base = [ckpt, "-m", "completion", "-i", "hi", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="tp > 1 is not ported"):
-        cli(base + ["--tp", "2"])
     for flag in (["--coordinator", "localhost:1234"], ["--num-processes", "2"],
                  ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError, match="multi-host"):
-            cli(base + flag)
+        assert cli(base + flag) == 2
+    assert capsys.readouterr().err.count("go together") == 3
+    with pytest.raises(RuntimeError, match="process group"):
+        Engine(EngineConfig(path=ckpt, mode="pallas", tp=2, device="cpu"))
 
 
 def test_fuse_is_read_as_the_jax_package_reads_it(monkeypatch):

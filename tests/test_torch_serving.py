@@ -156,8 +156,9 @@ def test_serve_prints_jax_serves_records(ckpt, tmp_path, capsys,
 
 
 def test_serve_refuses_what_is_not_ported(ckpt, tmp_path, capsys):
-    """--tp, --aot-dir and the card without one are refused; --qmode bf16
-    (refused before it was ported) runs."""
+    """--aot-dir and the card without one are refused; --qmode bf16
+    (refused before it was ported) runs, and so do --tp/--dp (ported later:
+    tests/test_torch_multihost.py runs them)."""
     pfile = tmp_path / "p.txt"
     pfile.write_text("the cat\n")
     base = [ckpt, "--prompts", str(pfile), "--device", "cpu"]
@@ -165,8 +166,6 @@ def test_serve_refuses_what_is_not_ported(ckpt, tmp_path, capsys):
                          "4"]) == 0
     (rec,) = map(json.loads, capsys.readouterr().out.splitlines())
     assert rec["prompt"] == "the cat" and 0 <= rec["n_tokens"] <= 4
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve(base + ["--tp", "2"])
     with pytest.raises(NotImplementedError, match="not ported"):
         serve(base + ["--aot-dir", str(tmp_path)])
     if not torch.cuda.is_available():

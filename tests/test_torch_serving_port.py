@@ -242,7 +242,8 @@ def test_more_requests_than_slots_all_finish(ckpt):
 def test_engine_resolves_attention_as_the_jax_engine_does(ckpt, tmp_path):
     """auto: fused with the side buffer, dense without; flash only for one
     slot at a context of 8192 or more. fused without the side buffer and
-    the mesh/compile-cache knobs are refused; mode bf16 runs."""
+    the compile-cache knob are refused, and the mesh without a process
+    group; mode bf16 runs."""
     import dataclasses
 
     assert _engine(ckpt).attn == "fused"
@@ -256,9 +257,17 @@ def test_engine_resolves_attention_as_the_jax_engine_does(ckpt, tmp_path):
     assert eng.attn == "flash" and eng._kv[0][0].shape[2] == 8448
     with pytest.raises(ValueError, match="side buffer"):
         _engine(ckpt, attn="fused", side_buffer=False)
-    for kw in (dict(tp=2), dict(dp=2), dict(aot_dir=str(tmp_path))):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        _engine(ckpt, aot_dir=str(tmp_path))
+    # tp/dp > 1 run one process a rank: without a process group they raise
+    # (tests/test_torch_tp.py runs them), and keep the JAX engine's checks
+    for kw in (dict(tp=2), dict(dp=2, max_batch=4)):
+        with pytest.raises(RuntimeError, match="process group"):
             _engine(ckpt, **kw)
+    with pytest.raises(ValueError, match="divide over dp"):
+        _engine(ckpt, max_batch=3, dp=2)
+    with pytest.raises(ValueError, match="pallas"):
+        _engine(ckpt, mode="bf16", tp=2)
     # mode bf16, refused before it was ported, runs
     eng = _engine(ckpt, mode="bf16")
     req = eng.submit(Request(prompt="the cat", seed=1, max_tokens=4))
