@@ -38,8 +38,16 @@ final line:
    call; every matmul kernel of the tensor-parallel paths at one tp = 2
    rank's shard shapes of qwen3-0.6b and qwen3-4b, bit for bit (qwen3-4b's
    w2 at 76 groups a k-tile), and the decode attention kernels at 4 and 1
-   kv heads a rank (see phase_shard_kernels); then the sampler on the card
-   against its CPU run at the vocabulary of qwen3-0.6b (see check_sampler);
+   kv heads a rank (see phase_shard_kernels); every matmul kernel the 8B's
+   paths can run at deepseek-r1-qwen3-8b's widths, b = 1 and 512, bit for
+   bit, the layer matrices read at the last of 36 layers (see
+   phase_8b_kernels); the sampler's fixed-order sums (softmax sum, prefix
+   sum) at V 512 and 151936 and B 1, 4, 8, 64, bit-equal to their ordered
+   plain versions and a row's bits the same at every B, then a row's token
+   and sums in sample_tokens alone against in batches of 8 and 64, gated
+   (see phase_sampler_kernel, sampler_batch_check); then the sampler on the
+   card against its CPU run at the vocabulary of qwen3-0.6b (see
+   check_sampler);
 4. end to end: a synthetic qwen3-0.6b checkpoint (full width and depth,
    random weights from a seed) through the port's CLI main() with its
    defaults (--qmode pallas --kv-dtype int8 --attn auto --device cuda):
@@ -52,10 +60,11 @@ final line:
    the CLI with --qmode exact, bf16 and pallas-int8, the CLI and serve.py
    with QWEN3_TPU_FUSE=1 (the same tokens as without), serve.py --qmode
    pallas-int8; after each run the kernels' launch counts must equal what
-   its forward passes need; 4b. the quality table on the same checkpoint at
-   -c 1024 (see phase_quality); 4c. the host tools (model_check,
-   tokenizer_check, the native encode against the Python one on every
-   prompt, the CLI with --profile, see phase_host_tools); 4d. the DMA
+   its forward passes need (the sampler's kernels once a sampled call);
+   4b. the quality table on the same checkpoint at -c 1024, and at depths
+   8192 and 16384 through tools/quality_depth.py, gated (see
+   phase_quality); 4c. the host tools (model_check, tokenizer_check, the
+   native encode against the Python one on every prompt, the CLI with --profile, see phase_host_tools); 4d. the DMA
    probe at qwen3-4b's full width (tools/probe_dma.py: the Q8_0 GEMV
    against the pure-read kernels, their checksums against the plain
    version, no rate past 1.05 x 3.35 TB/s; see phase_probe); 4e. the B = 1
@@ -70,8 +79,14 @@ final line:
    data-parallel paths, their ranks processes on this card over gloo (or
    NCCL with a card a rank): the CLI at --tp 2 (greedy, seeded twice, the
    prefill's logits against tp = 1), the fused chunk at qwen3-4b's full
-   width at tp = 2, serve.py at --tp 2 and --dp 2, the CLI through
-   --coordinator in two processes (see phase_tp_paths);
+   width at tp = 2, serve.py at --tp 2 and --dp 2 (greedy and seeded,
+   every record equal to the single-rank server's), the CLI through
+   --coordinator in two processes (see phase_tp_paths); 4g. counted as a
+   path of its own, deepseek-r1-qwen3-8b end to end through
+   tools/e2e_8b.py: its 8.1 GiB .bin generated from a seed, read back past
+   4 GiB, served by serve.py (--batch 1, pallas, int8 KV, --attn flash,
+   -c 32768, 96 greedy tokens) with the launch counts of 36 layers, stage
+   times and peak device memory logged (see phase_e2e_8b);
 5. the path against its plain version, step by step with the card's
    rounding decisions forced on the CPU (every op within 1e-5 of its max,
    every rounding step bit for bit, logits and argmax): a 64-token prefill
@@ -94,6 +109,7 @@ The last two lines are a JSON object of per-kernel numbers and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -155,10 +171,10 @@ TILE_BEFORE_US = {
     "classifier": {64: 348.6, 256: 1331.9, 512: 2640.9}}
 REPS, WARMUP = 20, 3
 # the depth of the earlier paths, cut to leave the run room for the tensor-
-# parallel paths (phase 4f): tokens of the CLI's completions below depth
-# 8192, of each request of the 16-prompt serving runs, and decode steps a
-# profile covers (the CLI and the serving profiles)
-E2E_TOKENS = 48
+# parallel paths (phase 4f) and the 8B path (phase 4g): tokens of the CLI's
+# completions below depth 8192, of each request of the 16-prompt serving
+# runs, and decode steps a profile covers (the CLI and the serving profiles)
+E2E_TOKENS = 32
 SERVE_TOKENS = 32
 PROFILE_STEPS = 16
 SLEEP_CYCLES = 4_000_000       # a ~2 ms device spin queued before each timed run
@@ -1294,6 +1310,89 @@ def phase_norm_kernel(torch):
     return rows_out
 
 
+SAMPLER_VOCABS = (512, 151936)     # the tests' vocabulary and qwen3-0.6b's
+SAMPLER_BATCHES = (1, 4, 8, 64)    # decode, a dp rank's share, B = 8, B = 64
+SAMPLER_K = 64                     # the engines' top_k_hint
+
+
+def sampler_bound_ms(rows, n, scan):
+    """The least time for a sampler sum: the fp32 row read once and the sums
+    written once (one a row, or n a row for the prefix sum), over the
+    memory rate."""
+    return 1e3 * 4 * (rows * n + (rows * n if scan else rows)) \
+        / HBM_BYTES_PER_S
+
+
+def phase_sampler_kernel(torch):
+    """The sampler's fixed-order sums (the port's own kernels: the JAX
+    package's sampler sums are XLA) at V in SAMPLER_VOCABS and B in
+    SAMPLER_BATCHES, on softmax numerators and on their sorted
+    probabilities, as sample_tokens gives them: softmax_sum and prefix_sum
+    one launch a call, bit-equal to softmax_sum_ordered and cumsum_ordered
+    (their order in plain ops), every row the same bits at every B, the
+    prefix sum's first SAMPLER_K entries equal to the SAMPLER_K-value
+    scan's; a difference fails the run. Times: the kernel, its plain
+    version, as the library yardstick torch.sum / torch.cumsum, and the
+    byte bound. Then sampler_batch_check (gated). Returns (rows, the batch
+    check)."""
+    from qwen3_tpu_torch.ops.cuda import sampler as cs
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    rows_out = []
+    for vocab in SAMPLER_VOCABS:
+        x = 2.0 * torch.randn(max(SAMPLER_BATCHES), vocab, device="cuda",
+                              generator=gen) / 0.8
+        e = torch.exp(x - x.amax(-1, keepdim=True))
+        sp = torch.sort(e / e.sum(-1, keepdim=True), dim=-1,
+                        descending=True, stable=True)[0]
+        wide = {"softmax_sum": cs.softmax_sum(e),
+                "prefix_sum": cs.prefix_sum(sp)}
+        k_scan = cs.prefix_sum(sp[:, :SAMPLER_K].contiguous())
+        if not torch.equal(k_scan, wide["prefix_sum"][:, :SAMPLER_K]):
+            fail(f"sampler V={vocab}: the first {SAMPLER_K} sums of the "
+                 f"full scan differ from the {SAMPLER_K}-value scan's")
+        for b in SAMPLER_BATCHES:
+            for kind, data, kernel, plain, lib in (
+                    ("softmax_sum", e[:b].contiguous(), cs.softmax_sum,
+                     cs.softmax_sum_ordered,
+                     lambda t: torch.sum(t, dim=-1)),
+                    ("prefix_sum", sp[:b].contiguous(), cs.prefix_sum,
+                     cs.cumsum_ordered, lambda t: torch.cumsum(t, dim=-1))):
+                tag = f"sampler {kind} V={vocab} b={b}"
+                cs.reset_launches()
+                got = kernel(data)
+                torch.cuda.synchronize()
+                if cs.LAUNCHES[kind] != 1 or sum(cs.LAUNCHES.values()) != 1:
+                    fail(f"{tag}: launches {cs.LAUNCHES}, want one")
+                if not torch.isfinite(got).all():
+                    fail(f"{tag}: non-finite kernel output")
+                want = plain(data)
+                if not torch.equal(got, want):
+                    fail(f"{tag}: kernel != its ordered plain version "
+                         f"({(got - want).abs().max().item():.3e})")
+                if not torch.equal(got, wide[kind][:b]):
+                    fail(f"{tag}: rows differ from the same rows at "
+                         f"b={max(SAMPLER_BATCHES)}")
+                ref = lib(data)
+                row = dict(
+                    kernel=kind, vocab=vocab, b=b,
+                    max_abs_diff=(got - want).abs().max().item(),
+                    max_abs_diff_library=(got - ref).abs().max().item(),
+                    kernel_ms=device_ms(torch, lambda i: kernel(data)),
+                    plain_ms=device_ms(torch, lambda i: plain(data), reps=5),
+                    library_ms=device_ms(torch, lambda i: lib(data)),
+                    bound_ms=sampler_bound_ms(b, vocab,
+                                              kind == "prefix_sum"),
+                    bound_by="bytes")
+                rows_out.append(row)
+                log("sampler kernel " + json.dumps(row))
+    log("sampler kernels: bit-equal to their ordered plain versions, a "
+        "row's bits the same at b = 1, 4, 8 and 64, the top-64 scan the "
+        "full scan's prefix; library_ms = torch.sum / torch.cumsum")
+    return rows_out, sampler_batch_check(torch)
+
+
 KV_CACHE = (28, 64, 512, 8, 128)   # qwen3-0.6b's cache at serve --batch 64 -c 512
 
 
@@ -1805,12 +1904,13 @@ def launch_modules():
     from qwen3_tpu_torch.ops.cuda import kv_write as kw
     from qwen3_tpu_torch.ops.cuda import norms as nm
     from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+    from qwen3_tpu_torch.ops.cuda import sampler as sm
     from qwen3_tpu_torch.tools import probe_dma as pd
 
-    return qm, fd, bd, kw, pd, nm
+    return qm, fd, bd, kw, pd, nm, sm
 
 
-def want_launches(calls):
+def want_launches(calls, layers=L):
     """What the forward passes counted in `calls` (models.qwen3.CALLS
     deltas) must launch: every pass 4 x 28 layer matmuls and 1 classifier
     matmul of its route's kernels (mode pallas the q8q8 kernels,
@@ -1825,7 +1925,11 @@ def want_launches(calls):
     after q and k, before w13 (or w1 and w3) and before the classifier;
     fused, rmsnorm after q and k, and rms_inv for the three norm prologues;
     no pass launches the kernels that only the tests and the probe call
-    (the KV row write, the untiled matmuls, the pure reads)."""
+    (the KV row write, the untiled matmuls, the pure reads); every
+    sample_tokens call that sampled (runtime/sampler.py's CALLS, in
+    `calls` as "sampled") one launch of each sampler kernel. `layers`: the
+    model's (qwen3-0.6b's 28 by default)."""
+    L = layers
     mm = {route: calls["mm_" + route] for route in (
         "pallas", "pallas-fast", "pallas-int8", "fused")}
     passes = (calls["forward"] + calls["decode_forward"]
@@ -1846,26 +1950,35 @@ def want_launches(calls):
                 L * calls["decode_forward_two_segment"],
             "batched_decode_partial": L * calls["decode_forward_fused"],
             "kv_write": 0, "q8q8_pallas": 0, "pallas": 0,
-            "pure_read_stacked": 0, "pure_read_manual": 0}
+            "pure_read_stacked": 0, "pure_read_manual": 0,
+            "softmax_sum": calls["sampled"], "prefix_sum": calls["sampled"]}
 
 
-def checked(torch, label, fn):
-    """Run fn() with the launch-count check (want_launches); returns
-    (fn's result, {blocks, steps, launches, calls, wall})."""
+def all_calls():
+    """The forward passes (models.qwen3.CALLS) and the sampler's calls
+    (runtime/sampler.py's CALLS) counted so far, one dict."""
     from qwen3_tpu_torch.models import qwen3 as model
+    from qwen3_tpu_torch.runtime import sampler
 
-    before, calls0 = read_counts(), dict(model.CALLS)
+    return {**model.CALLS, **sampler.CALLS}
+
+
+def checked(torch, label, fn, layers=L):
+    """Run fn() with the launch-count check (want_launches for a model of
+    `layers` layers); returns (fn's result, {blocks, steps, launches,
+    calls, wall})."""
+    before, calls0 = read_counts(), all_calls()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: c - before[k] for k, c in read_counts().items()}
-    calls = {k: model.CALLS[k] - calls0[k] for k in model.CALLS}
+    calls = {k: c - calls0[k] for k, c in all_calls().items()}
     blocks = calls["forward"]
     steps = calls["decode_forward"] + calls["forward_step"]
     if steps == 0 or blocks == 0:
         fail(f"{label}: no prefill block or no decode step ran")
-    want = want_launches(calls)
+    want = want_launches(calls, layers)
     if launches != want:
         fail(f"{label}: launches {launches} for passes {calls}; want {want}")
     return result, dict(blocks=blocks, steps=steps, launches=launches,
@@ -1942,7 +2055,8 @@ def phase_end_to_end(torch, path: str):
     counts = {"short": read_counts()}
     log(f"main path launches below depth 8192 (the runs above): "
         f"{counts['short']}")
-    if min(counts["short"][k] for k in ("stacked", "tiled", "rmsnorm")) == 0:
+    if min(counts["short"][k] for k in ("stacked", "tiled", "rmsnorm",
+                                        "softmax_sum", "prefix_sum")) == 0:
         fail("a kernel of the path was never launched")
 
     reset_counts()
@@ -1951,7 +2065,8 @@ def phase_end_to_end(torch, path: str):
     log(f"main path launches at long context (the runs above): "
         f"{counts['long']}")
     if min(counts["long"][k] for k in ("stacked", "tiled", "flash_decode",
-                                       "flash_prefill", "rmsnorm")) == 0:
+                                       "flash_prefill", "rmsnorm",
+                                       "softmax_sum", "prefix_sum")) == 0:
         fail("a kernel of the long-context path was never launched")
     return counts, runs
 
@@ -2314,13 +2429,19 @@ def phase_modes(torch, path: str, workdir: Path):
     return runs
 
 
-def phase_quality(torch, path: str):
+QUALITY_DEPTHS = (8192, 16384)  # the depth rows phase 4b runs
+
+
+def phase_quality(torch, path: str, workdir: Path):
     """Phase 4b: the port's quality table on the synthetic qwen3-0.6b at
     -c 1024, in two calls: the default modes (exact, pallas, pallas-fast,
     bf16) and the pallas+int8kv row, whose gate must pass; then exact and
     pallas-int8 (the JAX package's unadopted experiment), whose row is
-    logged whether or not it passes. Returns both JSON objects."""
-    from qwen3_tpu_torch.tools import quality_table
+    logged whether or not it passes. Then the table at depth
+    (tools/quality_depth.py, exact, pallas and pallas+int8kv) at each of
+    QUALITY_DEPTHS on the same checkpoint (its header allows 40960
+    positions), whose gate must pass. Returns the JSON objects."""
+    from qwen3_tpu_torch.tools import quality_depth, quality_table
 
     results = {}
     for label, extra, must_pass in (
@@ -2340,6 +2461,22 @@ def phase_quality(torch, path: str):
             fail(f"quality table, {label}: the gate failed:\n"
                  f"{err.getvalue()}")
         results[label] = res
+    out_json = workdir / "quality_depth.json"
+    for ctx in QUALITY_DEPTHS:
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = quality_depth.main([path, str(ctx), "--out", str(out_json),
+                                     "--preset", "qwen3-0.6b", "--device",
+                                     "cuda"])
+        table = json.loads(out_json.read_text())["tables"][
+            f"qwen3-0.6b@{ctx}"]
+        log(f"quality at depth, qwen3-0.6b@{ctx}: rc {rc}, "
+            f"{time.perf_counter() - t0:.1f} s: {json.dumps(table)}")
+        if rc != 0 or not table["pass"]:
+            fail(f"quality at depth {ctx}: the gate failed:\n"
+                 f"{err.getvalue()[-3000:]}")
+        results[f"qwen3-0.6b@{ctx}"] = table
     return results
 
 
@@ -2478,8 +2615,8 @@ CHUNK_SEED = 7                 # the seeded runs' RNG seed
 DEEP_TOKENS = FLASH_DEPTH      # the side program's deep prompt: its prefill
                                # blocks start below 8192, its decode at it
 L4B = 36                       # qwen3-4b's layers
-# bench.py's headline settings (its 256 tokens cut to 128 for time)
-BENCH_4B = dict(ctx=1024, chunk=32, tokens=128,
+# bench.py's headline settings (its 256 tokens cut to 64 for time)
+BENCH_4B = dict(ctx=1024, chunk=32, tokens=64,
                 deep_rows=32768, depth=8192, deep_chunks=2)
 
 
@@ -2817,9 +2954,9 @@ SHARD_BATCHES = (1, 8, 512)    # decode, serving's B = 8, a prefill block
 # heads over 4 kv heads) and qwen3-4b at tp = 8 (4 heads over 1)
 SHARD_ATTN = ((8, 4), (4, 1))
 SHARD_ROWS = 8448              # a cache past depth 8192, in 256-row tiles
-TP_TOKENS = 16                 # tokens a tp CLI run generates (-c 4096)
-TP_SERVE_TOKENS = 16           # tokens a tp serve.py request generates
-TP_4B_TOKENS = 64              # qwen3-4b's timed tokens at tp = 2
+TP_TOKENS = 8                  # tokens a tp CLI run generates (-c 4096)
+TP_SERVE_TOKENS = 8            # tokens a tp serve.py request generates
+TP_4B_TOKENS = 32              # qwen3-4b's timed tokens at tp = 2
 # the prefill's last logits at tp = 2 against tp = 1 (826 tokens, 28
 # layers): within TP_LOGIT_TOL * max|logits|. The wo and w2 sums run in two
 # chains, so an fp32 ulp can move a Q8 activation a step (a rounding flip,
@@ -3054,6 +3191,114 @@ def phase_shard_kernels(torch):
     return rows
 
 
+# deepseek-r1-qwen3-8b (PRESETS): dim 4096, hidden 12288, 36 layers, 32/8
+# heads of 128, vocab 151936, an untied classifier
+L8B = 36
+MATRICES_8B = {        # name: (n = in, d = out)
+    "wqkv": (4096, 6144),
+    "wo": (4096, 4096),
+    "w13": (4096, 24576),
+    "w2": (12288, 4096),
+    "classifier": (4096, 151936),
+}
+BATCHES_8B = (1, 512)  # decode, a prefill block
+
+
+def phase_8b_kernels(torch):
+    """Every matmul kernel the 8B's paths can run, at its widths, b in
+    BATCHES_8B, bit for bit against its plain version: the Q8_0 x Q8_0 GEMV
+    and tile path (rows 1, 1b, 2) and the fused kernel exact with each
+    matrix's prologue (11) of mode pallas, and the pallas-fast kernels
+    (6-7). The layer matrices are whole [36, d, n] stacks and the kernels
+    read the last layer, whose offset lies past 2^31 values in w13 and w2;
+    w2 contracts over 12288 (192 groups, 24 k-tiles of 8). Each shape's
+    time (CUDA events, weights in L2 after the first of 10 runs) beside its
+    bound, and their sums over one decoded token (b = 1: 4 x 36 layer
+    matmuls and the classifier). Returns the rows."""
+    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+    from qwen3_tpu_torch.ops.norms import rms_inv
+    from qwen3_tpu_torch.ops.q8 import quantize_act
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    rows = []
+    for name, (n, d) in MATRICES_8B.items():
+        stacked = name != "classifier"
+        lead = (L8B,) if stacked else ()
+        w_q = torch.randint(-127, 128, lead + (d, n), dtype=torch.int8,
+                            device="cuda", generator=gen)
+        w_s = 0.02 / 127 * (0.5 + torch.rand(lead + (d, n // G),
+                                             device="cuda", generator=gen))
+        last = L8B - 1
+        wl, sl = (w_q[last], w_s[last]) if stacked else (w_q, w_s)
+        prologue = FUSED_PROLOGUES[name]
+        width = 2 * n if prologue == "swiglu" else n
+        x_all = torch.randn(max(BATCHES_8B), width, device="cuda",
+                            generator=gen)
+        nw = 1 + 0.1 * torch.randn(n, device="cuda", generator=gen)
+        for b in BATCHES_8B:
+            xr = x_all[:b].contiguous()
+            x = xr[:, :n].contiguous()
+            xq, xs = quantize_act(x, G)
+            xb = x.to(torch.bfloat16)
+            inv = rms_inv(xr) if prologue == "norm" else None
+            if stacked:
+                q8q8 = lambda: qm.q8_q8_matmul_stacked(          # noqa: E731
+                    xq, xs, w_q, w_s, last, G)
+                fast = lambda: qm.q8_matmul_stacked_fast(        # noqa: E731
+                    xb, w_q, w_s, last, G)
+            else:
+                q8q8 = lambda: qm.q8_q8_matmul_tiled(            # noqa: E731
+                    xq, xs, w_q, w_s, G)
+                fast = lambda: qm.q8_matmul_tiled_fast(          # noqa: E731
+                    xb, w_q, w_s, G)
+            cases = (
+                ("q8q8", q8q8, lambda: qm.q8q8_matmul_plain(
+                    xq, xs, wl, sl, G), bound_ms(b, n, d)),
+                ("fast", fast, lambda: qm.q8_fast_matmul_plain(
+                    xb, wl, sl, G), fast_bound_ms(b, n, d)),
+                ("fused_exact", lambda: qm.q8_matmul_fused(
+                    xr, wl, sl, G, inv, nw, prologue=prologue, exact=True),
+                 lambda: qm.q8_fused_matmul_plain(
+                     xr, wl, sl, G, inv, nw, prologue=prologue, exact=True),
+                 fused_bound_ms(b, n, d, prologue, True)))
+            for kind, kernel, plain, (bnd, by) in cases:
+                label = f"8b {name} {kind} b={b} n={n} d={d}"
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    fail(f"{label}: non-finite kernel output")
+                diff = (got - want).abs().max().item()
+                if not torch.equal(got, want):
+                    fail(f"{label}: kernel != plain (max_abs_diff "
+                         f"{diff:.3e})")
+                del got, want
+                row = dict(matrix=name, kernel=kind, b=b, n=n, d=d,
+                           layer=last if stacked else None,
+                           groups_per_tile=qm.groups_per_tile(n, G),
+                           max_abs_diff=diff,
+                           kernel_ms=device_ms(torch, lambda i: kernel(),
+                                               reps=10),
+                           bound_ms=bnd, bound_by=by)
+                if kind == "q8q8" and b > 1:
+                    shape, splits = qm.plan_q8q8(b, n, d, G)
+                    row.update(tile_rows=qm.TILE_ROWS[shape],
+                               k_splits=splits)
+                rows.append(row)
+                log("8b kernel " + json.dumps(row))
+        del w_q, w_s, wl, sl
+        torch.cuda.empty_cache()
+    for kind in ("q8q8", "fast", "fused_exact"):
+        token = {k: sum(r[k] * (1 if r["matrix"] == "classifier" else L8B)
+                        for r in rows if r["kernel"] == kind and r["b"] == 1)
+                 for k in ("kernel_ms", "bound_ms")}
+        log("8b token " + json.dumps(dict(kernel=kind, b=1, **token)))
+    log(f"8b kernels: every matmul bit-equal to its plain version at the "
+        f"8B's widths, in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def prefill_logits(torch, params, cfg, mode, ids, mesh):
     """The last prompt position's logits after the prompt's prefill on the
     CLI's block plan (chunk 64) in a 4096-row int8 cache, through the tp
@@ -3217,30 +3462,59 @@ def rank_fused_4b_tp(rank, out, workdir):
 
 
 def sampler_batch_check(torch, vocab=151936, seed=0):
-    """Whether a row's sampled token and softmax bits follow its batch on
-    the card: sample_tokens over 8 rows against the same first 4 rows
-    alone (seeded at t 0.8, top-p 0.9, top-k hint 64, as serve.py), on 200
-    draws of flat random logits. Reported, not gated: a dp rank samples its
-    own share of the slots."""
-    from qwen3_tpu_torch.runtime.sampler import sample_tokens
+    """Whether a row's sampled token and sums follow its batch on the card:
+    sample_tokens (seeded at t 0.8, top-p 0.9, top-k hint 64, as serve.py)
+    over 8 rows against the same first 4 rows alone, on 200 draws of flat
+    random logits, and over 64 rows against each of rows 0, 31 and 63
+    alone, on 10 draws; the softmax sums (row_sum) and the prefix sums of
+    the sorted probabilities (cumsum_last) compared the same way. Any
+    difference fails the run: a dp rank samples its own share of the slots,
+    and a serving slot's batch-mates come and go."""
+    from qwen3_tpu_torch.runtime.sampler import (
+        cumsum_last,
+        row_sum,
+        sample_tokens,
+    )
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    tok_diff = prob_diff = 0
-    for _ in range(200):
-        lg = 2.0 * torch.randn(8, vocab, device="cuda", generator=gen)
-        coin = torch.rand(8, device="cuda", generator=gen)
-        t8 = sample_tokens(lg, coin, 0.8, 0.9, top_k_hint=64)
-        t4 = sample_tokens(lg[:4].contiguous(), coin[:4].contiguous(), 0.8,
-                           0.9, top_k_hint=64)
-        tok_diff += int((t8[:4] != t4).sum())
+    diff = dict(tokens_differ=0, softmax_sums_differ=0,
+                prefix_sums_differ=0)
+
+    def sums(lg):
         x = lg / 0.8
         e = torch.exp(x - x.amax(-1, keepdim=True))
-        s8, s4 = e.sum(-1), e[:4].contiguous().sum(-1)
-        prob_diff += int((s8[:4] != s4).sum())
-    out = dict(draws=200, rows=800, tokens_differ=tok_diff,
-               softmax_sums_differ=prob_diff)
+        s = row_sum(e)
+        sp = torch.sort(e / s[:, None], dim=-1, descending=True,
+                        stable=True)[0]
+        return s, cumsum_last(sp)
+
+    def compare(lg, coin, pick):
+        wide_t = sample_tokens(lg, coin, 0.8, 0.9, top_k_hint=SAMPLER_K)
+        wide_s, wide_c = sums(lg)
+        sub = lg[pick].contiguous()
+        t = sample_tokens(sub, coin[pick].contiguous(), 0.8, 0.9,
+                          top_k_hint=SAMPLER_K)
+        s, c = sums(sub)
+        diff["tokens_differ"] += int((wide_t[pick] != t).sum())
+        diff["softmax_sums_differ"] += int((wide_s[pick] != s).sum())
+        diff["prefix_sums_differ"] += int(
+            (wide_c[pick] != c).any(-1).sum())
+
+    for _ in range(200):
+        lg = 2.0 * torch.randn(8, vocab, device="cuda", generator=gen)
+        compare(lg, torch.rand(8, device="cuda", generator=gen),
+                slice(0, 4))
+    for _ in range(10):
+        lg = 2.0 * torch.randn(64, vocab, device="cuda", generator=gen)
+        coin = torch.rand(64, device="cuda", generator=gen)
+        for r in (0, 31, 63):
+            compare(lg, coin, slice(r, r + 1))
+    out = dict(draws_8_vs_4=200, rows_8_vs_4=800, draws_64_vs_1=10,
+               rows_64_vs_1=30, **diff)
     log("sampler batch " + json.dumps(out))
+    if any(diff.values()):
+        fail(f"sampler batch: a row's token or sums follow its batch: {out}")
     return out
 
 
@@ -3267,11 +3541,10 @@ def phase_tp_paths(torch, path: str, workdir: Path, card: str):
     modes pallas and pallas-fast (TP_LOGIT_TOL, TP_LAYER_TOL); (c) the
     fused chunk at qwen3-4b's full width at tp = 2 (rank_fused_4b_tp); (d)
     serve.py at --tp 2 (B = 8, -c 1024, greedy; the requests whose stream
-    leaves tp = 1's, not gated) and at --dp 2, greedy (records equal to the
-    single-rank server's, gated) and seeded (the ids of the requests whose
-    record differs from the single-rank server's, reported, not gated: a
-    rank samples its own share of the rows, and the sampler's sums follow
-    the batch, ROADMAP Queue C #7, measured by sampler_batch_check). Then,
+    leaves tp = 1's, not gated) and at --dp 2, greedy and seeded, every
+    record equal to the single-rank server's (gated: a rank samples its own
+    share of the rows, and the sampler's fixed-order sums do not follow
+    them, see sampler_batch_check). Then,
     not counted (processes of their own): (e) the CLI through
     --coordinator in two processes (process 0 prints the spawned --tp 2
     run's bytes, process 1 nothing; chat returns rc 1). The backend is the rule's (checked on the [Mesh] line): on a host
@@ -3386,17 +3659,17 @@ def phase_tp_paths(torch, path: str, workdir: Path, card: str):
     diverged = by_id_diff(recs, one_seeded)
     res["serve_dp_seeded_diverged"] = diverged
     log(f"serve --dp 2 seeded against the single-rank server: requests "
-        f"whose record differs {diverged} of {len(prompts)} (not gated: "
-        f"the sampler's softmax sum follows the rank's row count, ROADMAP "
-        f"Queue C #7; sampler batch below)")
-    res["sampler_batch"] = sampler_batch_check(torch)
+        f"whose record differs {diverged} of {len(prompts)}")
+    if diverged:
+        fail(f"serve --dp 2 seeded: the records of requests {diverged} "
+             f"differ from the single-rank server's")
     counts = read_counts()
     coll = dict(comm.COUNTS)
     log(f"tp path launches (rank 0, the runs above): {counts}; collectives "
         f"{coll}")
     if min(counts[k] for k in ("stacked", "tiled", "stacked_fast",
                                "tiled_fast", "batched_decode_partial",
-                               "rmsnorm")) == 0:
+                               "rmsnorm", "softmax_sum", "prefix_sum")) == 0:
         fail("a kernel of the tp path was never launched")
 
     # (e) processes joined through --coordinator, outside the count
@@ -3432,6 +3705,85 @@ def phase_tp_paths(torch, path: str, workdir: Path, card: str):
             f"card, so the ranks shared it over gloo (the rule picks NCCL "
             f"only with a card a rank)")
     log(f"tp phase: {time.perf_counter() - t0:.1f} s")
+    return counts, res
+
+
+# -- phase 4g: deepseek-r1-qwen3-8b end to end from its .bin -------------------
+
+E2E_8B_TOKENS = 96             # the JAX tool's default
+
+
+def phase_e2e_8b(torch, workdir: Path, card: str):
+    """Phase 4g, counted as a path of its own (launch counts set to 0
+    before, read after): the port's tools/e2e_8b.py in this process on the
+    card: deepseek-r1-qwen3-8b's .bin (8.1 GiB, seed 0, header seq_len
+    32768) generated into the work directory, read back through
+    io/checkpoint.py (the file's size against the header's arithmetic; the
+    last layer's w2 and the classifier, past 4 GiB, against the generator's
+    digests), then served by serve.py --batch 1 --qmode pallas --kv-dtype
+    int8 --attn flash -c 32768 greedy (-s 3), E2E_8B_TOKENS tokens, with the
+    launch-count check for 36 layers (want_launches). Logs every stage's
+    time, the serving metrics and the peak device memory; deletes the .bin.
+    Returns (the path's counts, the tool's record)."""
+    from qwen3_tpu_torch.config import PRESETS
+    from qwen3_tpu_torch.tools import e2e_8b
+
+    t0 = time.perf_counter()
+    cache = workdir / "e2e_8b"
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    argv = ["--cache-dir", str(cache), "--out", str(workdir / "e2e_8b.json"),
+            "--ctx", "32768", "--max-tokens", str(E2E_8B_TOKENS),
+            "--device", "cuda"]
+
+    def run():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = e2e_8b.main(argv)
+        return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+    reset_counts()
+    try:
+        (rc, res), run_info = checked(torch, "8b serve", run, layers=L8B)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    counts = read_counts()
+    rb, srv = res["readback"], res["serve"]
+    cfg = dataclasses.replace(PRESETS["deepseek-r1-qwen3-8b"], seq_len=32768)
+    calls = run_info["calls"]
+    log(f"8b: rc {rc}; generated in {res['gen_s']} s (arrays "
+        f"{res.get('gen_arrays_s')} s), {res['bin_gib']} GiB; readback "
+        f"{json.dumps(rb)}; serve {json.dumps({k: v for k, v in srv.items() if k not in ('stdout', 'stderr_tail')})}; "
+        f"peak device memory {srv['peak_device_gb']} GB (of which "
+        f"{base_gb:.3f} GB held before the phase); passes {calls}; "
+        f"launches { {k: n for k, n in counts.items() if n} } ({card})")
+    if rc != 0 or not res["ok"] or srv["rc"] != 0:
+        fail(f"8b: the tool failed: rc {rc}\n{srv.get('stderr_tail')}")
+    if res["gen_s"] is None:
+        fail("8b: the .bin was not generated in this run")
+    if not (rb["size_ok"] and rb["bytes"] == e2e_8b.checkpoint_bytes(cfg)
+            and rb["bytes"] > 2**32):
+        fail(f"8b: the .bin's size {rb['bytes']} is not the header's "
+             f"{e2e_8b.checkpoint_bytes(cfg)}")
+    if rb["digests_ok"] is not True:
+        fail("8b: the tensors past 4 GiB differ from the generator's")
+    rec = json.loads(srv["stdout"].strip().splitlines()[-1])
+    if not 0 < rec["n_tokens"] <= E2E_8B_TOKENS:
+        fail(f"8b: {rec['n_tokens']} tokens served")
+    if rec["n_tokens"] < E2E_8B_TOKENS:
+        log(f"8b: the stream stopped after {rec['n_tokens']} tokens (a "
+            f"stop token)")
+    if calls["mm_pallas"] != run_info["blocks"] + run_info["steps"]:
+        fail(f"8b: passes {calls}: want every pass in mode pallas")
+    if min(counts[k] for k in ("stacked", "tiled", "rmsnorm")) == 0 or not (
+            counts["flash_decode"] or counts["flash_decode_two_segment"]):
+        fail("8b: a kernel of the path was never launched")
+    log(f"8b: attention kernels by the counts: flash prefill "
+        f"{counts['flash_prefill']} (serve.py's prefill is dense), flash "
+        f"decode {counts['flash_decode']}, two-segment flash "
+        f"{counts['flash_decode_two_segment']}; sampler "
+        f"{counts['softmax_sum']} (greedy: argmax)")
+    log(f"8b phase: {time.perf_counter() - t0:.1f} s")
     return counts, res
 
 
@@ -4072,7 +4424,8 @@ def matmul_entry(name, source, line, mine, per_pass, launches):
 
 def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
                   serve_err, int8_rows, fused_rows, kv_rows, untiled_rows,
-                  probe, counts, norm_rows, shard_rows):
+                  probe, counts, norm_rows, shard_rows, sampler_rows,
+                  rows_8b):
     """Per kernel, one decoded token at the main path's shapes: the matmuls
     at b = 1 (4 stacked x 28 layers, 1 classifier), their launches over the
     path below depth 8192 and the fused and side path (phase 4e); flash
@@ -4098,8 +4451,21 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
     rank 0's counts) adds its launches to the kernels it runs (the q8q8,
     fast and batched decode kernels and the norms), and each matmul kernel
     also carries `tp2_ms`/`tp2_bound_ms`: a decoded token's launches at one
-    tp = 2 rank's qwen3-0.6b shard shapes (phase_shard_kernels, b = 1)."""
+    tp = 2 rank's qwen3-0.6b shard shapes (phase_shard_kernels, b = 1).
+    The 8B path (phase 4g) adds its launches to the kernels it runs, and
+    the matmul kernels it can run carry `8b_ms`/`8b_bound_ms`: a decoded
+    token's launches at its widths (phase_8b_kernels, b = 1). The
+    sampler's two kernels, the port's own (the JAX package's sampler sums
+    are XLA): one call at b = 1 at vocabulary 151936, their launches over
+    every path."""
     out = []
+
+    def e8b(kind, stacked):
+        mine = [r for r in rows_8b if r["kernel"] == kind and r["b"] == 1
+                and (r["matrix"] != "classifier") == stacked]
+        k = L8B if stacked else 1
+        return {"8b_ms": k * sum(r["kernel_ms"] for r in mine),
+                "8b_bound_ms": k * sum(r["bound_ms"] for r in mine)}
 
     def tp2(kind, stacked):
         mine = [r for r in shard_rows if r.get("preset") == "qwen3-0.6b"
@@ -4120,7 +4486,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "source": "qwen3_tpu_torch/csrc/q8_matmul.cu",
             "replaces": f"qwen3_tpu/ops/pallas/q8_matmul.py:{source_line}",
             "launches": (counts["short"][kind] + counts["fused"][kind]
-                         + counts["tp"][kind]),
+                         + counts["tp"][kind] + counts["e2e_8b"][kind]),
             "max_abs_err": max(r["max_abs_diff"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in dec) * per_token,
             "plain_ms": sum(r["plain_ms"] for r in dec) * per_token,
@@ -4129,6 +4495,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
                                        for r in dec) else "operations",
             "library_ms": sum(r["library_ms"] for r in dec) * per_token,
             **tp2("q8q8", kind == "stacked"),
+            **e8b("q8q8", kind == "stacked"),
         })
     for kind, source_line, t in (("flash_decode", 115, 1),
                                  ("flash_prefill", 391, 512)):
@@ -4139,7 +4506,8 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "route": "cuda",
             "source": "qwen3_tpu_torch/csrc/flash_decode.cu",
             "replaces": f"qwen3_tpu/ops/pallas/flash_decode.py:{source_line}",
-            "launches": counts["long"][kind] + counts["fused"][kind],
+            "launches": (counts["long"][kind] + counts["fused"][kind]
+                         + counts["e2e_8b"][kind]),
             "max_abs_err": flash_err[kind],
             "ms": r["kernel_ms"] * L,
             "plain_ms": r["plain_ms"] * L,
@@ -4169,6 +4537,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
                                        for r in step) else "operations",
             "library_ms": sum(r["library_ms"] for r in step) * per_step,
             **tp2("fast", kind == "stacked_fast"),
+            **e8b("fast", kind == "stacked_fast"),
         })
     for name, count, src, line, pick in (
             ("batched_decode_partial", "batched_decode_partial",
@@ -4184,7 +4553,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             "source": f"qwen3_tpu_torch/csrc/{src}",
             "replaces": f"qwen3_tpu/ops/pallas/{line}",
             "launches": (counts["serve"][count] + counts["fused"][count]
-                         + counts["tp"][count]),
+                         + counts["tp"][count] + counts["e2e_8b"][count]),
             "max_abs_err": serve_err[name],
             "ms": r["kernel_ms"] * L,
             "plain_ms": r["plain_ms"] * L,
@@ -4204,6 +4573,8 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
         [(r, 1 if r["matrix"] == "classifier" else L) for r in fused_rows
          if r["b"] == 1 and r["exact"]], counts["modes"]["fused"]))
     stacked, tiled = tp2("fused_exact", True), tp2("fused_exact", False)
+    out[-1].update({k: stacked[k] + tiled[k] for k in stacked})
+    stacked, tiled = e8b("fused_exact", True), e8b("fused_exact", False)
     out[-1].update({k: stacked[k] + tiled[k] for k in stacked})
 
     def on_paths(key):
@@ -4237,12 +4608,25 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
         "name": "rmsnorm", "route": "cuda",
         "source": "qwen3_tpu_torch/csrc/rmsnorm.cu",
         "replaces": "qwen3_tpu/ops/norms.py:11", "pallas": None,
-        "launches": sum(counts[p][k] for p in ("short", "fused", "tp")
+        "launches": sum(counts[p][k] for p in ("short", "fused", "tp",
+                                                "e2e_8b")
                         for k in ("rmsnorm", "rms_inv")),
         "max_abs_err": max(r["max_abs_diff"] for r in norm_rows),
         "ms": per_token("kernel_ms"), "plain_ms": per_token("plain_ms"),
         "bound_ms": per_token("bound_ms"), "bound_by": "bytes",
         "library_ms": per_token("library_ms")})
+    for kind, line in (("softmax_sum", 149), ("prefix_sum", 104)):
+        mine = [r for r in sampler_rows if r["kernel"] == kind]
+        r = next(r for r in mine if r["vocab"] == 151936 and r["b"] == 1)
+        out.append({
+            "name": f"sampler_{kind}", "route": "cuda",
+            "source": "qwen3_tpu_torch/csrc/sampler.cu",
+            "replaces": f"qwen3_tpu/runtime/sampler.py:{line}",
+            "pallas": None, "launches": on_paths(kind),
+            "max_abs_err": max(r_["max_abs_diff"] for r_ in mine),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     probe_rows, probe_counts, plain_ms, nbytes = probe
     bound = 1e3 * (nbytes + 4 * 8 * 1024) / HBM_BYTES_PER_S
     for name, line, labels in (
@@ -4294,6 +4678,8 @@ def main() -> int:
     kv_rows = timed("kv_write", phase_kv_write, torch)
     untiled_rows = timed("untiled", phase_untiled_kernels, torch)
     shard_rows = timed("shard", phase_shard_kernels, torch)
+    rows_8b = timed("8b_kernels", phase_8b_kernels, torch)
+    sampler_rows, _ = timed("sampler", phase_sampler_kernel, torch)
     timed("sampler", check_sampler, torch)
     workdir = HERE / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
@@ -4306,7 +4692,8 @@ def main() -> int:
         log(f"serving path launches (the runs above): {counts['serve']}")
         if min(counts["serve"][k] for k in (
                 "stacked_fast", "tiled_fast", "batched_decode_partial",
-                "flash_decode_two_segment", "rmsnorm")) == 0:
+                "flash_decode_two_segment", "rmsnorm", "softmax_sum",
+                "prefix_sum")) == 0:
             fail("a kernel of the serving path was never launched")
         reset_counts()
         timed("modes", phase_modes, torch, path, workdir)
@@ -4314,7 +4701,7 @@ def main() -> int:
         log(f"modes path launches (the runs above): {counts['modes']}")
         if min(counts["modes"][k] for k in (
                 "stacked_int8", "tiled_int8", "fused", "rmsnorm",
-                "rms_inv")) == 0:
+                "rms_inv", "softmax_sum", "prefix_sum")) == 0:
             fail("a kernel of the modes path was never launched")
         t4e = time.perf_counter()
         timed("chunk_checks", phase_chunk_checks, torch, path)
@@ -4327,11 +4714,15 @@ def main() -> int:
             f"{time.perf_counter() - t4e:.1f} s")
         if min(counts["fused"][k] for k in (
                 "stacked", "tiled", "flash_decode",
-                "flash_decode_two_segment", "rmsnorm")) == 0:
+                "flash_decode_two_segment", "rmsnorm", "softmax_sum",
+                "prefix_sum")) == 0:
             fail("a kernel of the fused and side path was never launched")
         counts["tp"], tp_res = timed("tp", phase_tp_paths, torch, path,
                                      workdir, card)
-        timed("quality", phase_quality, torch, path)
+        counts["e2e_8b"], _ = timed("e2e_8b", phase_e2e_8b, torch, workdir,
+                                    card)
+        log(f"8b path launches (the run above): {counts['e2e_8b']}")
+        timed("quality", phase_quality, torch, path, workdir)
         timed("host_tools", phase_host_tools, torch, path, workdir)
         probe = timed("probe", phase_probe, torch)
         counts["probe"] = probe[1]
@@ -4352,7 +4743,7 @@ def main() -> int:
     report = kernel_report(
         rows, flash_rows, flash_err, fast_rows, serve_rows, serve_err,
         int8_rows, fused_rows, kv_rows, untiled_rows, probe, counts,
-        norm_rows, shard_rows)
+        norm_rows, shard_rows, sampler_rows, rows_8b)
     log("tp results " + json.dumps(tp_res))
     for e in report:
         if e["name"] in BEFORE_MS:

@@ -14,7 +14,10 @@ top_p -> [1e-6, 1.0] (NaN/+inf -> 1.0), temperature -> [1e-6, inf)
 Two implementations with identical semantics:
 - `Sampler.sample_host`: numpy, the parity oracle;
 - `sample_tokens`: batched PyTorch on the logits' device; nothing is read
-  back to the host inside it.
+  back to the host inside it. On the card its two sums (the softmax
+  denominator and the prefix sum of the sorted probabilities) run the
+  port's fixed-order kernels (csrc/sampler.cu), so a row's token does not
+  follow the rows sampled with it.
 
 Ties sort by lower token id first (a stable descending sort), as the
 reference's qsort does in practice and as jax.lax.top_k / a stable argsort do
@@ -23,17 +26,20 @@ in the JAX package; torch.topk promises no tie order, so it is not used.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
 import torch
 
+from qwen3_tpu_torch.ops.cuda import sampler as _cuda
 from qwen3_tpu_torch.ops.q8 import const
 from qwen3_tpu_torch.runtime.xorshift import XorshiftRng
 
 _EPS = 1e-6
 _HEAL_EPS = 1e-3
+# sample_tokens calls that sampled (not greedy as a python bool): each runs
+# row_sum and cumsum_last once, on the card one launch of each kernel
+CALLS = {"sampled": 0}
 
 
 def clamp_top_p(top_p: float) -> float:
@@ -92,41 +98,32 @@ class Sampler:
         return sample_from_probs_host(probs, coin, self.top_p)
 
 
-_SCAN_BLOCK = 512
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether x's sums take the fixed-order kernels: a CUDA tensor."""
+    return x.device.type == "cuda"
 
 
-@functools.lru_cache(maxsize=None)
-def _ones_upper(n: int, strict: bool, device: torch.device) -> torch.Tensor:
-    """[n, n] float32 0/1 matrix with m[i, j] = 1 where i <= j (i < j when
-    strict)."""
-    return torch.ones(n, n, device=device).triu(1 if strict else 0)
-
-
-def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive fp32 prefix sum over the last axis of x [B, n], as two
-    products with 0/1 triangular matrices: within blocks of 512, then the
-    block totals across blocks. A product runs the same way on every call,
-    so the result has the same bits on every run."""
-    b, n = x.shape
-    c = _SCAN_BLOCK
-    nb = -(-n // c)
-    xb = torch.nn.functional.pad(x.float(), (0, nb * c - n)).reshape(b, nb, c)
-    within = xb @ _ones_upper(c, False, x.device)            # [B, nb, c]
-    offsets = within[..., -1] @ _ones_upper(nb, True, x.device)
-    return (within + offsets[..., None]).reshape(b, nb * c)[:, :n]
+def row_sum(e: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of e [B, n] (fp32, [B]): on a CUDA tensor the
+    fixed-order kernel (ops/cuda/sampler.py), whose order depends on n
+    alone, so a row's softmax denominator does not follow the rows sampled
+    with it; torch.sum picks its order by the row count there. On the CPU
+    torch.sum, the order the JAX package's CPU streams are held to."""
+    if _on_card(e):
+        return _cuda.softmax_sum(e.contiguous())
+    return torch.sum(e, dim=-1)
 
 
 def cumsum_last(x: torch.Tensor) -> torch.Tensor:
     """Inclusive fp32 prefix sum over the last axis of x [B, n].
 
-    torch.cumsum on a CUDA float tensor is not deterministic (PyTorch's
-    use_deterministic_algorithms documentation lists it), so a seeded
-    stream could differ from run to run where a coin falls within an ulp of
-    a cumulative bound; the card takes blocked_cumsum instead. On the CPU
-    torch.cumsum is sequential, the order the JAX package's CPU streams are
-    held to."""
-    if x.device.type == "cuda":
-        return blocked_cumsum(x)
+    On a CUDA tensor the fixed-order kernel (ops/cuda/sampler.py): a
+    row's order depends on n alone and its first k sums do not depend on n,
+    and the same bits come on every run (torch.cumsum on a CUDA float
+    tensor is not deterministic). On the CPU torch.cumsum, which is
+    sequential, the order the JAX package's CPU streams are held to."""
+    if _on_card(x):
+        return _cuda.prefix_sum(x.float().contiguous())
     return torch.cumsum(x, dim=-1, dtype=torch.float32)
 
 
@@ -135,18 +132,18 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
     return torch.argmax(mask.to(torch.uint8), dim=-1)
 
 
-def _nucleus_pick(order: torch.Tensor, sp: torch.Tensor, coin: torch.Tensor,
+def _nucleus_pick(order: torch.Tensor, cum: torch.Tensor, coin: torch.Tensor,
                   top_p: torch.Tensor, default_idx: int) -> torch.Tensor:
-    """Truncation + inverse-CDF over descending (order, probs) [B, n]."""
-    cum = cumsum_last(sp)
+    """Truncation + inverse-CDF over descending `order` [B, n] and the
+    prefix sums `cum` [B, n] of its probabilities."""
     exceeded = cum > top_p[:, None]
     idx = torch.where(exceeded.any(dim=-1), _first_true(exceeded),
                       default_idx)
     mass = torch.gather(cum, -1, idx[:, None])[:, 0]
     mass = torch.where(mass < _HEAL_EPS, mass + mass, mass)
     r = coin.float() * mass
-    n = sp.shape[-1]
-    in_prefix = torch.arange(n, device=sp.device)[None, :] <= idx[:, None]
+    n = cum.shape[-1]
+    in_prefix = torch.arange(n, device=cum.device)[None, :] <= idx[:, None]
     hit = (r[:, None] < cum) & in_prefix
     pick = torch.where(hit.any(dim=-1), _first_true(hit), idx - 1) % n
     return torch.gather(order, -1, pick[:, None])[:, 0]
@@ -178,19 +175,24 @@ def sample_tokens(logits: torch.Tensor, coin: torch.Tensor, temperature,
     on the `covered` test takes one, so nothing is read back to the host."""
     if isinstance(greedy, bool) and greedy:
         return torch.argmax(logits, dim=-1)
+    CALLS["sampled"] += 1
     B, V = logits.shape
     temp = _per_row(temperature, logits)
     tp = _per_row(top_p, logits)
     x = logits.float() / temp[:, None]
     e = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
-    probs = e / torch.sum(e, dim=-1, keepdim=True)
+    probs = e / row_sum(e)[:, None]
     sp, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    sampled = _nucleus_pick(order, sp, coin, tp, V - 1)
+    cum = cumsum_last(sp)
+    sampled = _nucleus_pick(order, cum, coin, tp, V - 1)
     k = top_k_hint
     if k and k < V:
-        covered = torch.all(torch.sum(sp[:, :k], dim=-1)
-                            > torch.clamp(tp, min=_HEAL_EPS))
-        fast = _nucleus_pick(order[:, :k], sp[:, :k], coin, tp, k - 1)
+        # the top k's mass: on the card the ordered prefix at k - 1 (the
+        # k-candidate scan is the full scan's prefix); on the CPU torch.sum
+        top = (cum[:, k - 1] if _on_card(cum)
+               else torch.sum(sp[:, :k], dim=-1))
+        covered = torch.all(top > torch.clamp(tp, min=_HEAL_EPS))
+        fast = _nucleus_pick(order[:, :k], cum[:, :k], coin, tp, k - 1)
         sampled = torch.where(covered, fast, sampled)
     if isinstance(greedy, bool):
         return sampled

@@ -573,9 +573,9 @@ def test_forward_on_card_matches_cpu(dev, tmp_path, attn):
 
 
 def test_sampler_scan_repeats_on_card(dev):
-    """The sampler's prefix sum on the card gives the same bits on every
-    call (torch.cumsum on a CUDA float tensor need not), and agrees with the
-    CPU's sequential sum to float32 rounding."""
+    """The sampler's prefix sum on the card (the fixed-order kernel) gives
+    the same bits on every call (torch.cumsum on a CUDA float tensor need
+    not), and agrees with the CPU's sequential sum to float32 rounding."""
     from qwen3_tpu_torch.runtime.sampler import cumsum_last
 
     rng = np.random.default_rng(5)
@@ -585,6 +585,33 @@ def test_sampler_scan_repeats_on_card(dev):
     for _ in range(20):
         assert torch.equal(cumsum_last(x.to(dev)), first)
     assert (first.cpu() - torch.cumsum(x, dim=-1)).abs().max() <= 1e-6
+
+
+@pytest.mark.parametrize("n", [512, 4099, 151936])
+def test_sampler_order_kernels_match_plain(dev, n):
+    """The sampler's fixed-order sums (csrc/sampler.cu) bit for bit against
+    their plain versions in the same order, at B 1, 4, 8 and 64 (n 4099:
+    the scalar loads of a width that is not a multiple of 4), one launch a
+    call counted; each row the same bits at every B; the first 64 sums of
+    the full scan equal the 64-value scan's."""
+    from qwen3_tpu_torch.ops.cuda import sampler as cs
+
+    rng = np.random.default_rng(n)
+    p = rng.random((64, n)).astype(np.float32) ** 4
+    x = torch.from_numpy(p / p.sum(axis=-1, keepdims=True)).to(dev)
+    wide_sum, wide_scan = cs.softmax_sum(x), cs.prefix_sum(x)
+    for b in (1, 4, 8, 64):
+        xb = x[:b].contiguous()
+        cs.reset_launches()
+        got_sum, got_scan = cs.softmax_sum(xb), cs.prefix_sum(xb)
+        torch.cuda.synchronize()
+        assert cs.LAUNCHES == {"softmax_sum": 1, "prefix_sum": 1}
+        assert torch.equal(got_sum, cs.softmax_sum_ordered(xb))
+        assert torch.equal(got_scan, cs.cumsum_ordered(xb))
+        assert torch.equal(got_sum, wide_sum[:b])
+        assert torch.equal(got_scan, wide_scan[:b])
+    assert torch.equal(cs.prefix_sum(x[:, :64].contiguous()),
+                       wide_scan[:, :64])
 
 
 def test_sample_tokens_on_card_match_cpu(dev):

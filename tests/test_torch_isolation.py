@@ -53,7 +53,7 @@ def test_no_jax_import_in_source(path):
 # the port's modules (packages included, __main__ excluded): a module that
 # disappears, or fails to be found, lowers the count and fails the check;
 # a new module raises it here
-N_MODULES = 56
+N_MODULES = 59
 
 
 def test_importing_every_port_module_leaves_jax_unloaded():
@@ -80,6 +80,14 @@ def test_parallel_package_is_covered():
         "qwen3_tpu_torch.parallel.multihost",
         "qwen3_tpu_torch.parallel.shard_layout",
         "qwen3_tpu_torch.parallel.sharding", "qwen3_tpu_torch.parallel.tp"}
+
+
+def test_sampler_kernel_and_tools_are_covered():
+    """The sampler kernel's wrapper and the end-to-end and depth tools are
+    among the modules imported above."""
+    assert {"qwen3_tpu_torch.ops.cuda.sampler",
+            "qwen3_tpu_torch.tools.e2e_8b",
+            "qwen3_tpu_torch.tools.quality_depth"} <= set(_module_names())
 
 
 def test_spawned_rank_leaves_jax_unloaded(tmp_path):

@@ -129,18 +129,21 @@ def test_prefill_plan_matches_jax():
 
 @pytest.mark.parametrize("n", [1, 64, 511, 512, 1500, 151936])
 def test_blocked_cumsum_matches_sequential(n):
-    """The card's scan (two triangular products) against the float64 prefix
-    sum, across block edges and at the full vocabulary, and the same bits on
-    every call; on the CPU cumsum_last stays torch.cumsum itself."""
+    """The card's scan in its fixed tiled order (cumsum_ordered, the prefix
+    sum kernel's plain version) against the float64 prefix sum, across tile
+    edges and at the full vocabulary, and the same bits on every call; on
+    the CPU cumsum_last stays torch.cumsum itself."""
+    from qwen3_tpu_torch.ops.cuda import sampler as cs
+
     rng = np.random.default_rng(n)
     p = rng.random((2, n)).astype(np.float32)
     p /= p.sum(axis=-1, keepdims=True)
     x = torch.from_numpy(p)
-    got = tsamp.blocked_cumsum(x)
+    got = cs.cumsum_ordered(x)
     assert got.shape == x.shape and got.dtype == torch.float32
     want = np.cumsum(p.astype(np.float64), axis=-1)
     assert np.max(np.abs(got.numpy() - want)) <= 1e-6
-    assert torch.equal(got, tsamp.blocked_cumsum(x))
+    assert torch.equal(got, cs.cumsum_ordered(x))
     assert torch.equal(tsamp.cumsum_last(x), torch.cumsum(x, dim=-1))
 
 
