@@ -26,7 +26,10 @@ final line:
    (prologue, exact/fast) pair of the main path (b = 1, 8, 64, 512) against
    its plain version and the unfused kernel; the fixed-order norm kernel
    at qwen3-0.6b's norms (b = 1, 8, 512; bit-equal to its plain version in
-   its order, a row's bits the same at every b, see phase_norm_kernel);
+   its order, a row's bits the same at every b, see phase_norm_kernel) and
+   its folds, the residual add with the norm and the QK-norms with the rope
+   (widths 128-4096, f32 and bf16, q/k views; bit-equal to their chains on
+   the card, see phase_norm_folds);
    the KV row write at the B = 64 serving cache (f32, bf16; int32 and
    int64 positions; one kernel a call) and the untiled matmuls on [n, d]
    weights (b = 1, 8, 512; the exact one bit for bit, each row equal to
@@ -43,7 +46,8 @@ final line:
    bit, the layer matrices read at the last of 36 layers (see
    phase_8b_kernels); the sampler's fixed-order sums (softmax sum, prefix
    sum) at V 512 and 151936 and B 1, 4, 8, 64, bit-equal to their ordered
-   plain versions and a row's bits the same at every B, then a row's token
+   plain versions and a row's bits the same at every B, again on a second
+   stream and back to back (their counters reset), then a row's token
    and sums in sample_tokens alone against in batches of 8 and 64, gated
    (see phase_sampler_kernel, sampler_batch_check); then the sampler on the
    card against its CPU run at the vocabulary of qwen3-0.6b (see
@@ -160,7 +164,17 @@ BEFORE_MS = {"q8_q8_matmul_stacked": 1.349, "q8_q8_matmul_tiled": 0.138,
              "flash_decode_gqa_two_segment": 0.934,
              "batched_decode_partial": 1.080, "q8_matmul_fused": 7.454,
              "q8_matmul_pallas": 3.743, "q8_q8_matmul_pallas": 2.163,
-             "kv_write_rows": 0.0099}
+             "kv_write_rows": 0.0099, "sampler_softmax_sum": 0.0105,
+             "sampler_prefix_sum": 0.0087}
+# the profiles of PERF.md section 5 before the norm folds (NVIDIA H100 80GB
+# HBM3 at 700 W), logged beside this run's: PyTorch kernels and device-busy
+# ms a step, by profile
+PROFILE_BEFORE = {
+    "cli pallas": (3383.9, 6.20), "cli pallas fuse": (1832.5, 4.09),
+    "cli pallas-int8": (2140.9, 5.07),
+    "qwen3-0.6b fused chunk, ctx 1024": (2888.7, 5.21),
+    "qwen3-4b fused chunk, ctx 1024": (3689.4, 9.52),
+    "serving B=8": (2563.1, 6.13), "serving B=64": (2568.6, 12.44)}
 # the Q8_0 x Q8_0 tile path's first design (b > 1), us a launch, as PERF.md
 # records it (b = 64 / 256 / 512), logged beside this run's tile times
 TILE_BEFORE_US = {
@@ -1207,9 +1221,15 @@ NORM_BATCHES = (1, 8, 512)   # decode, serving's B = 8, a prefill block
 # qwen3-0.6b's norms a layer: (label, heads, width) of the rows a token gives
 # (the attention and ffn norms one row of dim, the QK-norms one row a head
 # of the qkv output, as its views), and how many of each a token's forward
-# pass runs unfused (4 x 28 + 1 in all)
+# pass ran before the folds (4 x 28 + 1 in all)
 NORM_SHAPES = (("dim", 1, 1024), ("q_heads", 16, 128), ("k_heads", 8, 128))
 NORM_PER_TOKEN = {"dim": 2 * L + 1, "q_heads": L, "k_heads": L}
+# the folds: add_rmsnorm's rows (the QK-norm's head, the model dims of
+# qwen3-0.6b, 4b and 8b) and qk_norm_rope's heads (qwen3's 128, heads of
+# 128 threads past 1024); a token's launches of each entry at qwen3-0.6b
+# (3 x 28 + 1), the rmsnorm rows of dim among them
+FOLD_WIDTHS = (128, 1024, 2560, 4096)
+FOLD_PER_TOKEN = {"rmsnorm": 2, "add_rmsnorm": 2 * L - 1, "qk_norm_rope": L}
 
 
 def norm_bound_ms(rows, n):
@@ -1228,8 +1248,8 @@ def phase_norm_kernel(torch):
     for bit; rmsnorm within 2 NORM_RTOL of the plain chain; every row at b =
     1 and 8 equal to the same row at b = 512 (a difference fails the run).
     Times: the kernel (rmsnorm), its plain chain, as the library yardstick
-    torch.nn.functional.rms_norm, and the byte bound; then their sums over
-    a decoded token's 113 norms (b = 1)."""
+    torch.nn.functional.rms_norm, and the byte bound (log_norm_tokens sums
+    them over a token beside the folds)."""
     import torch.nn.functional as F
 
     from qwen3_tpu_torch.config import RMS_EPS
@@ -1263,7 +1283,8 @@ def phase_norm_kernel(torch):
             inv = norms.rms_inv(x)
             out = norms.rmsnorm(x, w)
             torch.cuda.synchronize()
-            if nm.LAUNCHES != {"rmsnorm": 1, "rms_inv": 1}:
+            if nm.LAUNCHES != dict(dict.fromkeys(nm.LAUNCHES, 0), rmsnorm=1,
+                                   rms_inv=1):
                 fail(f"{tag}: launches {nm.LAUNCHES}, want one a call")
             if not (torch.isfinite(inv).all() and torch.isfinite(out).all()):
                 fail(f"{tag}: non-finite kernel output")
@@ -1297,17 +1318,227 @@ def phase_norm_kernel(torch):
                 bound_ms=norm_bound_ms(n_rows, n), bound_by="bytes")
             rows_out.append(row)
             log("norm " + json.dumps(row))
-    for b in NORM_BATCHES:
-        mine = [r for r in rows_out if r["b"] == b]
-        log("norm token " + json.dumps(dict(
-            b=b, launches=4 * L + 1, **{k: sum(
-                r[k] * NORM_PER_TOKEN[r["norm"]] for r in mine)
-                for k in ("kernel_ms", "plain_ms", "library_ms",
-                          "bound_ms")})))
     log("norm kernel: bit-equal to rms_inv_ordered, a row's bits the same at "
         "b = 1, 8 and 512, rmsnorm = w * (x * rms_inv(x)) bit for bit; "
         "library_ms = torch.nn.functional.rms_norm")
     return rows_out
+
+
+def fold_inputs(torch, gen, n, dtype):
+    """x, y [512, 1, n] (x of very different row scales) and w [n]."""
+    scale = torch.exp(8 * torch.rand(512, 1, 1, device="cuda",
+                                     generator=gen) - 4)
+    x = torch.randn(512, 1, n, device="cuda", generator=gen) * scale
+    y = torch.randn(512, 1, n, device="cuda", generator=gen) * scale
+    w = 1 + 0.1 * torch.randn(n, device="cuda", generator=gen)
+    return x.to(dtype), y.to(dtype), w
+
+
+def qk_inputs(torch, gen, d, b, layout, dtype):
+    """q and k as views of a [b, 1, (H + 2 KV) d] qkv output (qwen3-0.6b's
+    16 + 8 + 8 heads at d = 128, 2 + 1 + 1 past it), their norm weights,
+    and the rope tables as the model gathers them: decode, b slots at
+    positions 7 i ([b, 1, 1, half]); prefill, one block of b tokens from
+    position 3 ([b, 1, half], q [1, b, H, d])."""
+    from qwen3_tpu_torch.ops.rope import rope_tables
+
+    H, KV = (16, 8) if d == 128 else (2, 1)
+    qkv = (3 * torch.randn(b, 1, (H + 2 * KV) * d, device="cuda",
+                           generator=gen)).to(dtype)
+    if layout == "prefill":
+        qkv = qkv.reshape(1, b, -1)
+    B, T = qkv.shape[:2]
+    q = qkv[..., :H * d].reshape(B, T, H, d)
+    k = qkv[..., H * d:(H + KV) * d].reshape(B, T, KV, d)
+    cos, sin = rope_tables(d, 4096, device="cuda")
+    if layout == "prefill":
+        pos = torch.arange(3, 3 + b, device="cuda")
+        cos, sin = cos[pos][:, None, :], sin[pos][:, None, :]
+    else:
+        pos = 7 * torch.arange(b, device="cuda")
+        cos, sin = cos[pos][:, None, None, :], sin[pos][:, None, None, :]
+    ws = [1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+          for _ in range(2)]
+    return q, k, ws[0], ws[1], cos, sin
+
+
+def phase_norm_folds(torch):
+    """The norm folds (ops/norms.py: add_rmsnorm, add_rms_inv, qk_norm_rope;
+    csrc/rmsnorm.cu) at b in NORM_BATCHES, f32 and bf16: the add folds on
+    rows of FOLD_WIDTHS, qk_norm_rope on heads of FOLD_WIDTHS as views of a
+    qkv output and as contiguous heads, with the decode step's and the
+    prefill's rope tables. Each one launch a call and bit-equal to its chain
+    in plain ops on the card (x + y, then rmsnorm_ordered / rms_inv_ordered,
+    the norm kernel's order; rmsnorm_ordered, then apply_rope's ops), a
+    row's bits the same at every b; a difference fails the run. Times (f32; qk_norm_rope at qwen3's head of
+    128): the fold, its chain of the port's kernels (chain_ms), its plain
+    version (the torch.mean chain, plain_ms), as the library yardstick the
+    chain on torch.nn.functional.rms_norm (torch.add + F.rms_norm; F.rms_norm
+    twice + the rope ops) and the byte bound; then their sums over a decoded
+    token's 3 x 28 + 1 launches (b = 1) beside the 4 x 28 + 1 norms, adds
+    and ropes they replace."""
+    import torch.nn.functional as F
+
+    from qwen3_tpu_torch.config import RMS_EPS
+    from qwen3_tpu_torch.ops import norms
+    from qwen3_tpu_torch.ops.cuda import norms as nm
+    from qwen3_tpu_torch.ops.rope import apply_rope
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    rows_out = []
+
+    def one_launch(tag, key, fn):
+        nm.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        if nm.LAUNCHES != dict(dict.fromkeys(nm.LAUNCHES, 0), **{key: 1}):
+            fail(f"{tag}: launches {nm.LAUNCHES}, want one {key}")
+        for t in out:
+            if not torch.isfinite(t.float()).all():
+                fail(f"{tag}: non-finite kernel output")
+        return out
+
+    def rms(x, w):
+        return F.rms_norm(x, (x.shape[-1],), w, RMS_EPS)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        for n in FOLD_WIDTHS:
+            x_all, y_all, w = fold_inputs(torch, gen, n, dtype)
+            wide = None
+            for b in sorted(NORM_BATCHES, reverse=True):
+                x, y = x_all[:b], y_all[:b]
+                tag = f"fold add n={n} {dt} b={b}"
+                s, h = one_launch(tag, "add_rmsnorm",
+                                  lambda: norms.add_rmsnorm(x, y, w))
+                s2, inv = one_launch(tag, "add_rms_inv",
+                                     lambda: norms.add_rms_inv(x, y))
+                chain = x + y
+                if not (torch.equal(s, chain) and torch.equal(s2, chain)):
+                    fail(f"{tag}: the sum != x + y")
+                if not torch.equal(h, nm.rmsnorm_ordered(chain, w)):
+                    fail(f"{tag}: add_rmsnorm != rmsnorm_ordered(x + y)")
+                if not torch.equal(inv, nm.rms_inv_ordered(chain)):
+                    fail(f"{tag}: add_rms_inv != rms_inv_ordered(x + y)")
+                wide = wide or (h, inv)
+                if not (torch.equal(h, wide[0][:b])
+                        and torch.equal(inv, wide[1][:b])):
+                    fail(f"{tag}: rows differ from the same rows at b=512")
+                if dtype != torch.float32:
+                    continue
+                rows_out.append(dict(
+                    fold="add_rmsnorm", n=n, b=b, max_abs_diff=0.0,
+                    kernel_ms=device_ms(torch, lambda i: norms.add_rmsnorm(
+                        x, y, w)),
+                    add_rms_inv_ms=device_ms(
+                        torch, lambda i: norms.add_rms_inv(x, y)),
+                    add_rms_inv_chain_ms=device_ms(
+                        torch, lambda i: norms.rms_inv(x + y)),
+                    add_rms_inv_plain_ms=device_ms(
+                        torch, lambda i: norms.add_rms_inv_plain(x, y)),
+                    chain_ms=device_ms(torch, lambda i: norms.rmsnorm(
+                        x + y, w)),
+                    plain_ms=device_ms(torch, lambda i: norms.
+                                       add_rmsnorm_plain(x, y, w)),
+                    library_ms=device_ms(torch, lambda i: rms(x + y, w)),
+                    bound_ms=1e3 * 4 * (4 * b * n + n) / HBM_BYTES_PER_S,
+                    bound_by="bytes"))
+                log("fold " + json.dumps(rows_out[-1]))
+        for d in FOLD_WIDTHS:
+            for layout in ("decode", "prefill"):
+                q0, k0, wq, wk, cos0, sin0 = qk_inputs(
+                    torch, gen, d, max(NORM_BATCHES), layout, dtype)
+                wide = None
+                for b in sorted(NORM_BATCHES, reverse=True):
+                    tag = f"fold qk_norm_rope d={d} {dt} {layout} b={b}"
+                    if layout == "decode":       # the first b slots
+                        q, k = q0[:b], k0[:b]
+                    else:                        # the first b tokens
+                        q, k = q0[:, :b], k0[:, :b]
+                    cos, sin = cos0[:b], sin0[:b]
+                    for qq, kk in ((q, k), (q.contiguous(), k.contiguous())):
+                        gq, gk = one_launch(
+                            tag, "qk_norm_rope", lambda: norms.qk_norm_rope(
+                                qq, kk, wq, wk, cos, sin))
+                        if not (torch.equal(gq, apply_rope(
+                                nm.rmsnorm_ordered(qq, wq), cos, sin))
+                                and torch.equal(gk, apply_rope(
+                                    nm.rmsnorm_ordered(kk, wk), cos, sin))):
+                            fail(f"{tag}: != apply_rope(rmsnorm_ordered(.))"
+                                 f", the chain in plain ops on the card")
+                    wide = wide or (gq, gk)
+                    rows_b = (slice(None, b),) if layout == "decode" else (
+                        slice(None), slice(None, b))
+                    if not (torch.equal(gq, wide[0][rows_b])
+                            and torch.equal(gk, wide[1][rows_b])):
+                        fail(f"{tag}: heads differ from the same heads at "
+                             f"b={max(NORM_BATCHES)}")
+                    if dtype != torch.float32 or d != 128:
+                        continue
+                    rows_out.append(dict(
+                        fold="qk_norm_rope", n=d, b=b, layout=layout,
+                        max_abs_diff=0.0,
+                        kernel_ms=device_ms(torch, lambda i: norms.
+                                            qk_norm_rope(q, k, wq, wk, cos,
+                                                         sin)),
+                        chain_ms=device_ms(torch, lambda i: (
+                            apply_rope(norms.rmsnorm(q, wq), cos, sin),
+                            apply_rope(norms.rmsnorm(k, wk), cos, sin))),
+                        plain_ms=device_ms(torch, lambda i: norms.
+                                           qk_norm_rope_plain(q, k, wq, wk,
+                                                              cos, sin)),
+                        library_ms=device_ms(torch, lambda i: (
+                            apply_rope(rms(q, wq), cos, sin),
+                            apply_rope(rms(k, wk), cos, sin))),
+                        bound_ms=1e3 * 4 * (
+                            2 * (q.numel() + k.numel()) + 2 * d
+                            + cos.numel() + sin.numel()) / HBM_BYTES_PER_S,
+                        bound_by="bytes"))
+                    log("fold " + json.dumps(rows_out[-1]))
+    log("norm folds: one launch a call, bit-equal to their chains in plain "
+        "ops on the card, a row's bits the same at b = 1, 8 and 512; chain_ms = the "
+        "port's kernels unfolded, library_ms = the chain on F.rms_norm")
+    return rows_out
+
+
+def norm_token(norm_rows, fold_rows, b=1):
+    """A token's norm launches at qwen3-0.6b, b tokens a call (decode):
+    {entry: {key: the sum over its launches}} for the folded pass's entries
+    (FOLD_PER_TOKEN: rmsnorm on the rows of dim, add_rmsnorm at n = 1024,
+    qk_norm_rope on the 16 + 8 heads of 128), and under "before" the 4 x 28
+    + 1 rmsnorm launches of the unfolded pass (NORM_PER_TOKEN)."""
+    dim = next(r for r in norm_rows if r["norm"] == "dim" and r["b"] == b)
+    add = next(r for r in fold_rows if r["fold"] == "add_rmsnorm"
+               and r["n"] == 1024 and r["b"] == b)
+    qk = next(r for r in fold_rows if r["fold"] == "qk_norm_rope"
+              and r["layout"] == "decode" and r["b"] == b)
+    keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
+    out = {"rmsnorm": {k: FOLD_PER_TOKEN["rmsnorm"] * dim[k] for k in keys}}
+    for name, r in (("add_rmsnorm", add), ("qk_norm_rope", qk)):
+        out[name] = {k: FOLD_PER_TOKEN[name] * r[k]
+                     for k in keys + ("chain_ms",)}
+    out["rmsnorm"]["chain_ms"] = out["rmsnorm"]["kernel_ms"]
+    out["before"] = {k: sum(r[k] * NORM_PER_TOKEN[r["norm"]]
+                            for r in norm_rows if r["b"] == b)
+                     for k in ("kernel_ms", "plain_ms", "library_ms")}
+    return out
+
+
+def log_norm_tokens(norm_rows, fold_rows):
+    """The norm token lines: per b, the folded pass's 3 x 28 + 1 launches
+    (kernel, the chain of unfolded kernels they replace with its adds and
+    ropes, the plain versions, the F.rms_norm chain, the bound) beside the
+    unfolded pass's 4 x 28 + 1 rmsnorm launches alone."""
+    for b in NORM_BATCHES:
+        t = norm_token(norm_rows, fold_rows, b)
+        log("norm token " + json.dumps(dict(
+            b=b, launches=3 * L + 1, before_launches=4 * L + 1,
+            **{k: sum(t[e][k] for e in FOLD_PER_TOKEN)
+               for k in ("kernel_ms", "chain_ms", "plain_ms", "library_ms",
+                         "bound_ms")},
+            before_rmsnorm_ms=t["before"]["kernel_ms"],
+            by_entry={e: t[e]["kernel_ms"] for e in FOLD_PER_TOKEN})))
 
 
 SAMPLER_VOCABS = (512, 151936)     # the tests' vocabulary and qwen3-0.6b's
@@ -1374,6 +1605,15 @@ def phase_sampler_kernel(torch):
                 if not torch.equal(got, wide[kind][:b]):
                     fail(f"{tag}: rows differ from the same rows at "
                          f"b={max(SAMPLER_BATCHES)}")
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    other = kernel(data)
+                torch.cuda.current_stream().wait_stream(side)
+                if not (torch.equal(kernel(data), got)
+                        and torch.equal(other, got)):
+                    fail(f"{tag}: a second call, or a call on a second "
+                         f"stream, gives other bits")
                 ref = lib(data)
                 row = dict(
                     kernel=kind, vocab=vocab, b=b,
@@ -1388,8 +1628,9 @@ def phase_sampler_kernel(torch):
                 rows_out.append(row)
                 log("sampler kernel " + json.dumps(row))
     log("sampler kernels: bit-equal to their ordered plain versions, a "
-        "row's bits the same at b = 1, 4, 8 and 64, the top-64 scan the "
-        "full scan's prefix; library_ms = torch.sum / torch.cumsum")
+        "row's bits the same at b = 1, 4, 8 and 64, back to back and on a "
+        "second stream, the top-64 scan the full scan's prefix; library_ms "
+        "= torch.sum / torch.cumsum")
     return rows_out, sampler_batch_check(torch)
 
 
@@ -1910,6 +2151,19 @@ def launch_modules():
     return qm, fd, bd, kw, pd, nm, sm
 
 
+def norm_launches(passes, fused, layers=L):
+    """The norm kernel's launches, by entry, of `passes` forward passes of
+    which `fused` run the fused matmuls: a pass 2 plain norms (layer 0's
+    attention norm, the output norm), 2 L - 1 residual adds with their norm
+    (every ffn norm and every later layer's attention norm) and L QK-norm
+    ropes; rms_inv and add_rms_inv where fused, rmsnorm and add_rmsnorm
+    elsewhere."""
+    L, unfused = layers, passes - fused
+    return {"rmsnorm": 2 * unfused, "add_rmsnorm": (2 * L - 1) * unfused,
+            "rms_inv": 2 * fused, "add_rms_inv": (2 * L - 1) * fused,
+            "qk_norm_rope": L * passes}
+
+
 def want_launches(calls, layers=L):
     """What the forward passes counted in `calls` (models.qwen3.CALLS
     deltas) must launch: every pass 4 x 28 layer matmuls and 1 classifier
@@ -1920,11 +2174,13 @@ def want_launches(calls, layers=L):
     flash prefill; decode steps, the fused chunk's forward_step passes
     included, flash decode, or over the serving side buffer the
     two-segment flash or the batched decode kernel); no other
-    pass launches an attention kernel; every pass in every mode 4 x 28 + 1
-    norm kernel launches: unfused, rmsnorm before wqkv (or q, k and v),
-    after q and k, before w13 (or w1 and w3) and before the classifier;
-    fused, rmsnorm after q and k, and rms_inv for the three norm prologues;
-    no pass launches the kernels that only the tests and the probe call
+    pass launches an attention kernel; every pass in every mode 3 x 28 + 1
+    norm kernel launches (norm_launches): unfused, rmsnorm before layer 0's
+    wqkv (or q, k and v) and before the classifier, add_rmsnorm (the
+    residual add with the norm after it) before w13 (or w1 and w3) and
+    every later layer's wqkv, qk_norm_rope (the QK-norms and the rope) a
+    layer; fused, the same with rms_inv and add_rms_inv for the norm
+    prologues' row factors; no pass launches the kernels that only the tests and the probe call
     (the KV row write, the untiled matmuls, the pure reads); every
     sample_tokens call that sampled (runtime/sampler.py's CALLS, in
     `calls` as "sampled") one launch of each sampler kernel. `layers`: the
@@ -1934,9 +2190,7 @@ def want_launches(calls, layers=L):
         "pallas", "pallas-fast", "pallas-int8", "fused")}
     passes = (calls["forward"] + calls["decode_forward"]
               + calls["forward_step"])
-    return {"rmsnorm": (4 * L + 1) * (passes - mm["fused"])
-            + 2 * L * mm["fused"],
-            "rms_inv": (2 * L + 1) * mm["fused"],
+    return {**norm_launches(passes, mm["fused"], L),
             "stacked": 4 * L * mm["pallas"], "tiled": mm["pallas"],
             "stacked_fast": 4 * L * mm["pallas-fast"],
             "tiled_fast": mm["pallas-fast"],
@@ -2056,6 +2310,7 @@ def phase_end_to_end(torch, path: str):
     log(f"main path launches below depth 8192 (the runs above): "
         f"{counts['short']}")
     if min(counts["short"][k] for k in ("stacked", "tiled", "rmsnorm",
+                                        "add_rmsnorm", "qk_norm_rope",
                                         "softmax_sum", "prefix_sum")) == 0:
         fail("a kernel of the path was never launched")
 
@@ -2066,6 +2321,7 @@ def phase_end_to_end(torch, path: str):
         f"{counts['long']}")
     if min(counts["long"][k] for k in ("stacked", "tiled", "flash_decode",
                                        "flash_prefill", "rmsnorm",
+                                       "add_rmsnorm", "qk_norm_rope",
                                        "softmax_sum", "prefix_sum")) == 0:
         fail("a kernel of the long-context path was never launched")
     return counts, runs
@@ -2847,11 +3103,14 @@ def chunk_profile(torch, label: str, chunk_fn, steps: int, trace: str):
     matmul = sum(v for k, v in by_name.items()
                  if k.startswith(MATMUL_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    before = PROFILE_BEFORE.get(label, (None, None))
     out = dict(label=label, steps=steps, tokens=n, wall_ms=wall_ms,
                wall_ms_per_token=wall_ms / max(n, 1),
                device_busy_ms_per_step=busy / 1e3 / steps,
+               before_device_busy_ms_per_step=before[1],
                matmul_kernel_ms_per_step=matmul / 1e3 / steps,
                kernels_per_step=n_kernels / steps,
+               before_kernels_per_step=before[0],
                device_idle_share=1.0 - busy / 1e3 / wall_ms,
                profiled_idle_share=1.0 - busy / span,
                top_kernels_ms={k: v / 1e3 for k, v in top})
@@ -2867,7 +3126,7 @@ def phase_fused_4b(torch, card: str, workdir: Path):
     BENCH_4B["tokens"] tokens timed; then an int8 cache of 32768 rows (values 1, as
     bench.py fills it), flash decode from depth 8192, one warm chunk and two
     timed. Every step must launch 4 x 36 layer matmuls, 1 classifier matmul
-    and 4 x 36 + 1 norms (and at depth 36 flash decodes); a profile of one
+    and 3 x 36 + 1 norms (norm_launches; and at depth 36 flash decodes); a profile of one
     warm chunk at ctx 1024 (chunk_profile). Returns (tok/s by run,
     profile)."""
     from qwen3_tpu_torch.config import PRESETS
@@ -2919,7 +3178,7 @@ def phase_fused_4b(torch, card: str, workdir: Path):
         dt = time.perf_counter() - t1
         got = {k_: c - before[k_] for k_, c in read_counts().items()}
         want = {"stacked": 4 * L4B * steps, "tiled": steps,
-                "rmsnorm": (4 * L4B + 1) * steps,
+                **norm_launches(steps, 0, L4B),
                 "flash_decode": L4B * steps if attn == "flash" else 0}
         if any(got[k_] != n for k_, n in want.items()) or any(
                 c for k_, c in got.items() if k_ not in want):
@@ -3433,8 +3692,9 @@ def rank_fused_4b_tp(rank, out, workdir):
     got = {k_: c - before[k_] for k_, c in read_counts().items()
            if c != before[k_]}
     coll = {k_: c - coll0[k_] for k_, c in comm.COUNTS.items()}
-    want = {"stacked": 4 * L4B * steps, "tiled": steps,
-            "rmsnorm": (4 * L4B + 1) * steps}
+    want = {k_: n for k_, n in dict(
+        stacked=4 * L4B * steps, tiled=steps,
+        **norm_launches(steps, 0, L4B)).items() if n}
     if got != want or coll["calls"] != (2 * L4B + 1) * steps:
         raise RuntimeError(f"qwen3-4b tp: launches {got} and {coll['calls']} "
                            f"collectives for {steps} steps; want {want} and "
@@ -3669,7 +3929,8 @@ def phase_tp_paths(torch, path: str, workdir: Path, card: str):
         f"{coll}")
     if min(counts[k] for k in ("stacked", "tiled", "stacked_fast",
                                "tiled_fast", "batched_decode_partial",
-                               "rmsnorm", "softmax_sum", "prefix_sum")) == 0:
+                               "rmsnorm", "add_rmsnorm", "qk_norm_rope",
+                               "softmax_sum", "prefix_sum")) == 0:
         fail("a kernel of the tp path was never launched")
 
     # (e) processes joined through --coordinator, outside the count
@@ -3775,7 +4036,8 @@ def phase_e2e_8b(torch, workdir: Path, card: str):
             f"stop token)")
     if calls["mm_pallas"] != run_info["blocks"] + run_info["steps"]:
         fail(f"8b: passes {calls}: want every pass in mode pallas")
-    if min(counts[k] for k in ("stacked", "tiled", "rmsnorm")) == 0 or not (
+    if min(counts[k] for k in ("stacked", "tiled", "rmsnorm", "add_rmsnorm",
+                               "qk_norm_rope")) == 0 or not (
             counts["flash_decode"] or counts["flash_decode_two_segment"]):
         fail("8b: a kernel of the path was never launched")
     log(f"8b: attention kernels by the counts: flash prefill "
@@ -4298,11 +4560,18 @@ def phase_profile(torch, path: str, fuse: bool = False,
     matmul = sum(v for k, v in by_name.items()
                  if k.startswith(MATMUL_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    out = dict(mode=mode, fuse=fuse, wall_ms=wall_ms, n_generated=plain.n_generated,
+    label = f"cli {mode}" + (" fuse" if fuse else "")
+    before = PROFILE_BEFORE.get(label, (None, None))
+    out = dict(label=label, mode=mode, fuse=fuse, wall_ms=wall_ms,
+               n_generated=plain.n_generated,
                prompt_ms=plain.prompt_ms, generate_ms=plain.generate_ms,
                ms_per_token=plain.ms_per_token, forward_passes=passes,
                kernels=n_kernels, kernels_per_pass=n_kernels / passes,
-               device_busy_ms=busy / 1e3, matmul_kernel_ms=matmul / 1e3,
+               before_kernels_per_pass=before[0],
+               device_busy_ms=busy / 1e3,
+               device_busy_ms_per_pass=busy / 1e3 / passes,
+               before_device_busy_ms_per_pass=before[1],
+               matmul_kernel_ms=matmul / 1e3,
                device_idle_share=1.0 - busy / 1e3 / wall_ms,
                profiled_span_ms=span / 1e3,
                profiled_idle_share=1.0 - busy / span,
@@ -4387,13 +4656,16 @@ def phase_serving_profile(torch, path: str, batch: int, seq_len: int):
     matmul = sum(v for k, v in by_name.items()
                  if k.startswith(MATMUL_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    before = PROFILE_BEFORE.get(f"serving B={batch}", (None, None))
     out = dict(batch=batch, seq_len=seq_len, steps=steps,
                wall_ms_per_step=wall_ms / steps,
                device_busy_ms_per_step=busy / 1e3 / steps,
+               before_device_busy_ms_per_step=before[1],
                matmul_kernel_ms_per_step=matmul / 1e3 / steps,
                device_idle_share=1.0 - busy / 1e3 / wall_ms,
                profiled_idle_share=1.0 - busy / span,
                kernels_per_step=n_kernels / steps,
+               before_kernels_per_step=before[0],
                tok_s=batch * steps / wall_ms * 1e3,
                top_kernels_ms={k: v / 1e3 for k, v in top})
     log("serving profile " + json.dumps(out))
@@ -4422,10 +4694,59 @@ def matmul_entry(name, source, line, mine, per_pass, launches):
     }
 
 
+def norm_entries(norm_rows, fold_rows, on_paths):
+    """The kernels line's entries of the norm kernel's four entry points:
+    per decoded token at b = 1 (norm_token), their launches by
+    on_paths(key)."""
+    token = norm_token(norm_rows, fold_rows)
+    out = []
+
+    def norm_entry(name, replaces, keys, err, per_token):
+        return {"name": name, "route": "cuda",
+                "source": "qwen3_tpu_torch/csrc/rmsnorm.cu",
+                "replaces": replaces, "pallas": None,
+                "launches": sum(on_paths(k) for k in keys),
+                "max_abs_err": err, **per_token, "bound_by": "bytes"}
+
+    def fold_err(fold):
+        return max(r["max_abs_diff"] for r in fold_rows if r["fold"] == fold)
+
+    t = token["rmsnorm"]
+    out.append(norm_entry(
+        "rmsnorm", "qwen3_tpu/ops/norms.py:11", ("rmsnorm", "rms_inv"),
+        max(r["max_abs_diff"] for r in norm_rows),
+        {k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                           "library_ms")}))
+    add = next(r for r in fold_rows if r["fold"] == "add_rmsnorm"
+               and r["n"] == 1024 and r["b"] == 1)
+    k_add = FOLD_PER_TOKEN["add_rmsnorm"]
+    out.append(norm_entry(
+        "add_rmsnorm", "qwen3_tpu/ops/norms.py:11", ("add_rmsnorm",),
+        fold_err("add_rmsnorm"),
+        {k: k_add * add[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                     "library_ms")}))
+    out.append(norm_entry(
+        "add_rms_inv", "qwen3_tpu/ops/norms.py:18", ("add_rms_inv",),
+        fold_err("add_rmsnorm"),
+        {"kernel_ms": k_add * add["add_rms_inv_ms"],
+         "plain_ms": k_add * add["add_rms_inv_plain_ms"],
+         "bound_ms": k_add * 1e3 * 4 * (3 * 1024 + 1) / HBM_BYTES_PER_S,
+         "library_ms": None}))
+    t = token["qk_norm_rope"]
+    out.append(norm_entry(
+        "qk_norm_rope", "qwen3_tpu/ops/rope.py:32", ("qk_norm_rope",),
+        fold_err("qk_norm_rope"),
+        {k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                           "library_ms")}))
+    for e in out:
+        e["ms"] = e.pop("kernel_ms")
+    return out
+
+
 def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
                   serve_err, int8_rows, fused_rows, kv_rows, untiled_rows,
                   probe, counts, norm_rows, shard_rows, sampler_rows,
-                  rows_8b):
+                  rows_8b, fold_rows):
     """Per kernel, one decoded token at the main path's shapes: the matmuls
     at b = 1 (4 stacked x 28 layers, 1 classifier), their launches over the
     path below depth 8192 and the fused and side path (phase 4e); flash
@@ -4444,10 +4765,11 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
     decoded token at b = 1 (q8_matmul_pallas in the JAX defaults, f32
     pre-scaled). The pure reads per layer of qwen3-4b's w13 (the manual
     ring at its fastest n_buf), their launches over the probe path. The
-    norm kernel, the port's own (the JAX package's norms are XLA, no Pallas
-    kernel replaces it): per decoded token at b = 1 (4 x 28 + 1 rmsnorm
-    calls), its launches (rmsnorm and rms_inv) over the path below depth
-    8192 and the fused and side path. The tensor-parallel path (phase 4f,
+    norm kernel's four entries, the port's own (the JAX package's norms and
+    rope are XLA, no Pallas kernel replaces them): per decoded token at b =
+    1 (2 rmsnorm, 2 x 28 - 1 add_rmsnorm or add_rms_inv, 28 qk_norm_rope
+    launches, norm_token), their launches over every path but the probe's
+    (rmsnorm's with rms_inv's). The tensor-parallel path (phase 4f,
     rank 0's counts) adds its launches to the kernels it runs (the q8q8,
     fast and batched decode kernels and the norms), and each matmul kernel
     also carries `tp2_ms`/`tp2_bound_ms`: a decoded token's launches at one
@@ -4600,21 +4922,7 @@ def kernel_report(rows, flash_rows, flash_err, fast_rows, serve_rows,
             [(r, 1 if r["matrix"] == "classifier" else L)
              for r in mine if r["b"] == 1 and r["kernel"] == kind],
             on_paths(count)))
-    def per_token(key):
-        return sum(r[key] * NORM_PER_TOKEN[r["norm"]] for r in norm_rows
-                   if r["b"] == 1)
-
-    out.append({
-        "name": "rmsnorm", "route": "cuda",
-        "source": "qwen3_tpu_torch/csrc/rmsnorm.cu",
-        "replaces": "qwen3_tpu/ops/norms.py:11", "pallas": None,
-        "launches": sum(counts[p][k] for p in ("short", "fused", "tp",
-                                                "e2e_8b")
-                        for k in ("rmsnorm", "rms_inv")),
-        "max_abs_err": max(r["max_abs_diff"] for r in norm_rows),
-        "ms": per_token("kernel_ms"), "plain_ms": per_token("plain_ms"),
-        "bound_ms": per_token("bound_ms"), "bound_by": "bytes",
-        "library_ms": per_token("library_ms")})
+    out += norm_entries(norm_rows, fold_rows, on_paths)
     for kind, line in (("softmax_sum", 149), ("prefix_sum", 104)):
         mine = [r for r in sampler_rows if r["kernel"] == kind]
         r = next(r for r in mine if r["vocab"] == 151936 and r["b"] == 1)
@@ -4675,6 +4983,8 @@ def main() -> int:
     int8_rows = timed("int8", phase_int8_kernels, torch)
     fused_rows = timed("fused", phase_fused_kernels, torch)
     norm_rows = timed("norm", phase_norm_kernel, torch)
+    fold_rows = timed("norm", phase_norm_folds, torch)
+    log_norm_tokens(norm_rows, fold_rows)
     kv_rows = timed("kv_write", phase_kv_write, torch)
     untiled_rows = timed("untiled", phase_untiled_kernels, torch)
     shard_rows = timed("shard", phase_shard_kernels, torch)
@@ -4692,8 +5002,8 @@ def main() -> int:
         log(f"serving path launches (the runs above): {counts['serve']}")
         if min(counts["serve"][k] for k in (
                 "stacked_fast", "tiled_fast", "batched_decode_partial",
-                "flash_decode_two_segment", "rmsnorm", "softmax_sum",
-                "prefix_sum")) == 0:
+                "flash_decode_two_segment", "rmsnorm", "add_rmsnorm",
+                "qk_norm_rope", "softmax_sum", "prefix_sum")) == 0:
             fail("a kernel of the serving path was never launched")
         reset_counts()
         timed("modes", phase_modes, torch, path, workdir)
@@ -4701,7 +5011,8 @@ def main() -> int:
         log(f"modes path launches (the runs above): {counts['modes']}")
         if min(counts["modes"][k] for k in (
                 "stacked_int8", "tiled_int8", "fused", "rmsnorm",
-                "rms_inv", "softmax_sum", "prefix_sum")) == 0:
+                "add_rmsnorm", "rms_inv", "add_rms_inv", "qk_norm_rope",
+                "softmax_sum", "prefix_sum")) == 0:
             fail("a kernel of the modes path was never launched")
         t4e = time.perf_counter()
         timed("chunk_checks", phase_chunk_checks, torch, path)
@@ -4714,8 +5025,8 @@ def main() -> int:
             f"{time.perf_counter() - t4e:.1f} s")
         if min(counts["fused"][k] for k in (
                 "stacked", "tiled", "flash_decode",
-                "flash_decode_two_segment", "rmsnorm", "softmax_sum",
-                "prefix_sum")) == 0:
+                "flash_decode_two_segment", "rmsnorm", "add_rmsnorm",
+                "qk_norm_rope", "softmax_sum", "prefix_sum")) == 0:
             fail("a kernel of the fused and side path was never launched")
         counts["tp"], tp_res = timed("tp", phase_tp_paths, torch, path,
                                      workdir, card)
@@ -4743,7 +5054,7 @@ def main() -> int:
     report = kernel_report(
         rows, flash_rows, flash_err, fast_rows, serve_rows, serve_err,
         int8_rows, fused_rows, kv_rows, untiled_rows, probe, counts,
-        norm_rows, shard_rows, sampler_rows, rows_8b)
+        norm_rows, shard_rows, sampler_rows, rows_8b, fold_rows)
     log("tp results " + json.dumps(tp_res))
     for e in report:
         if e["name"] in BEFORE_MS:

@@ -75,14 +75,20 @@ from qwen3_tpu_torch.ops.cuda.q8_matmul import (
     q8i8_matmul_stacked,
     q8i8_matmul_tiled,
 )
-from qwen3_tpu_torch.ops.norms import rms_inv, rmsnorm
+from qwen3_tpu_torch.ops.norms import (
+    add_rms_inv,
+    add_rmsnorm,
+    qk_norm_rope,
+    rms_inv,
+    rmsnorm,
+)
 from qwen3_tpu_torch.ops.q8 import dequantize, quantize_act, round_bf16
 from qwen3_tpu_torch.ops.quant_matmul import (
     dequant_weights_bf16,
     q8_matmul_bf16,
     q8_matmul_exact,
 )
-from qwen3_tpu_torch.ops.rope import apply_rope, rope_tables
+from qwen3_tpu_torch.ops.rope import rope_tables
 from qwen3_tpu_torch.parallel.shard_layout import (
     TP_SHARDED_KEYS,
     local_config,
@@ -342,14 +348,17 @@ def _linear(p: Params, cfg: ModelConfig, x: torch.Tensor, name: str,
 
 def _fused(p: Params, cfg: ModelConfig, x: torch.Tensor, name: str,
            layer: int | None, mode: str, prologue: str,
-           nw: torch.Tensor | None = None) -> torch.Tensor:
+           nw: torch.Tensor | None = None,
+           inv: torch.Tensor | None = None) -> torch.Tensor:
     """qwen3_tpu's _make_fused_linear: the prologue-fused kernel against
     layer `layer`'s weights (the classifier's for None); exact in mode
-    pallas, bf16 in pallas-fast. "norm" takes x's rms_inv and `nw`."""
+    pallas, bf16 in pallas-fast. "norm" takes x's rms_inv (`inv`, or
+    computed here) and `nw`."""
     w_q, w_s = p[name + "_q"], p[name + "_s"]
     if layer is not None:
         w_q, w_s = w_q[layer], w_s[layer]
-    inv = rms_inv(x) if prologue == "norm" else None
+    if prologue == "norm" and inv is None:
+        inv = rms_inv(x)
     return q8_matmul_fused(x, w_q, w_s, cfg.group_size, inv, nw,
                            prologue=prologue, exact=mode == "pallas")
 
@@ -376,49 +385,81 @@ def _reduce(group, y: torch.Tensor) -> torch.Tensor:
     return y if group is None else group.sum(y)
 
 
-def _layer(p: Params, cfg: ModelConfig, x: torch.Tensor, l: int, cos, sin,
-           write_kv, attend, mode: str, fuse: bool,
-           group=None) -> torch.Tensor:
-    """One transformer layer on x [B, T, dim]; `write_kv(l, k, v)` stores
-    the new rows, `attend(l, q)` returns attention [B, T, H, D]. Modes exact
-    and bf16 run separate q/k/v and w1/w3 products on one normed h (the JAX
-    package's unfused layout); `fuse` (pallas modes only) runs the
-    prologue-fused kernel. Under tensor parallelism (`group`, cfg the
-    shard's) the layer's two reductions follow wo and w2."""
+def _add_norm(x: torch.Tensor, d: torch.Tensor | None,
+              w: torch.Tensor | None):
+    """The residual stream x + d and its norm in one launch: (x + d,
+    rmsnorm(x + d, w)), or (x + d, rms_inv(x + d)) for w None (the fused
+    matmul's prologue); x itself where there is no d to add."""
+    if d is None:
+        return x, (rms_inv(x) if w is None else rmsnorm(x, w))
+    return add_rms_inv(x, d) if w is None else add_rmsnorm(x, d, w)
+
+
+def _layer(p: Params, cfg: ModelConfig, x: torch.Tensor,
+           d: torch.Tensor | None, l: int, cos, sin, write_kv, attend,
+           mode: str, fuse: bool, group=None):
+    """One transformer layer on the residual stream x + d, x [B, T, dim] and
+    d the previous layer's w2 delta (None at layer 0): the attention norm
+    adds it in its own launch (ops/norms.py's folds). Returns (the stream
+    after the attention's residual add, this layer's w2 delta, not yet
+    added): the next layer's attention norm, or the caller before the
+    classifier, adds it. `write_kv(l, k, v)` stores the new rows,
+    `attend(l, q)` returns attention [B, T, H, D]. Modes exact and bf16 run
+    separate q/k/v and w1/w3 products on one normed h (the JAX package's
+    unfused layout); `fuse` (pallas modes only) runs the prologue-fused
+    kernel, its norm's row factor from the same folds. Under tensor
+    parallelism (`group`, cfg the shard's) the layer's two reductions
+    follow wo and w2, and the adds take the reduced deltas."""
     B, T = x.shape[:2]
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     split = mode not in ("exact", "bf16")
     if fuse:
-        qkv = _fused(p, cfg, x, "wqkv", l, mode, "norm", p["att_norm"][l])
-    elif split:
-        qkv = _linear(p, cfg, rmsnorm(x, p["att_norm"][l]), "wqkv", l, mode)
+        x, inv = _add_norm(x, d, None)
+        qkv = _fused(p, cfg, x, "wqkv", l, mode, "norm", p["att_norm"][l],
+                     inv)
+    else:
+        x, h = _add_norm(x, d, p["att_norm"][l])
     if split:
+        if not fuse:
+            qkv = _linear(p, cfg, h, "wqkv", l, mode)
         q = qkv[..., :H * D].reshape(B, T, H, D)
         k = qkv[..., H * D:(H + KV) * D].reshape(B, T, KV, D)
         v = qkv[..., (H + KV) * D:(H + 2 * KV) * D].reshape(B, T, KV, D)
     else:
-        h = rmsnorm(x, p["att_norm"][l])
         q = _linear(p, cfg, h, "wq", l, mode).reshape(B, T, H, D)
         k = _linear(p, cfg, h, "wk", l, mode).reshape(B, T, KV, D)
         v = _linear(p, cfg, h, "wv", l, mode).reshape(B, T, KV, D)
-    q = apply_rope(rmsnorm(q, p["q_norm"][l]), cos, sin)
-    k = apply_rope(rmsnorm(k, p["k_norm"][l]), cos, sin)
+    q, k = qk_norm_rope(q, k, p["q_norm"][l], p["k_norm"][l], cos, sin)
     write_kv(l, k, v)
     att = attend(l, q).reshape(B, T, H * D)
     if fuse:
-        x = x + _reduce(group, _fused(p, cfg, att, "wo", l, mode, "none"))
-        gu = _fused(p, cfg, x, "w13", l, mode, "norm", p["ffn_norm"][l])
-        return x + _reduce(group, _fused(p, cfg, gu, "w2", l, mode, "swiglu"))
-    x = x + _reduce(group, _linear(p, cfg, att, "wo", l, mode))
-    h = rmsnorm(x, p["ffn_norm"][l])
+        x, inv = _add_norm(
+            x, _reduce(group, _fused(p, cfg, att, "wo", l, mode, "none")),
+            None)
+        gu = _fused(p, cfg, x, "w13", l, mode, "norm", p["ffn_norm"][l], inv)
+        return x, _reduce(group, _fused(p, cfg, gu, "w2", l, mode, "swiglu"))
+    x, h = _add_norm(x, _reduce(group, _linear(p, cfg, att, "wo", l, mode)),
+                     p["ffn_norm"][l])
     if split:
         gu = _linear(p, cfg, h, "w13", l, mode)
         gate, up = gu[..., :cfg.hidden_dim], gu[..., cfg.hidden_dim:]
     else:
         gate = _linear(p, cfg, h, "w1", l, mode)
         up = _linear(p, cfg, h, "w3", l, mode)
-    return x + _reduce(group, _linear(p, cfg, swiglu(gate, up), "w2", l,
-                                      mode))
+    return x, _reduce(group, _linear(p, cfg, swiglu(gate, up), "w2", l,
+                                     mode))
+
+
+def _layers(p: Params, cfg: ModelConfig, x: torch.Tensor, cos, sin,
+            write_kv, attend, mode: str, fuse: bool,
+            group=None) -> torch.Tensor:
+    """Every layer over x [B, T, dim]; the last layer's w2 delta added
+    plainly at the end (one PyTorch add a pass)."""
+    d = None
+    for l in range(cfg.n_layers):
+        x, d = _layer(p, cfg, x, d, l, cos, sin, write_kv, attend, mode,
+                      fuse, group)
+    return x + d
 
 
 def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -544,9 +585,7 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
         return gqa_attention(q, k_vals[l], v_vals[l], positions, ks, vs,
                              live=live, fast=fast)
 
-    for l in range(cfg.n_layers):
-        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse,
-                   group)
+    x = _layers(p, cfg, x, cos, sin, write_kv, attend, mode, fuse, group)
 
     if not all_logits:
         if isinstance(last_pos, torch.Tensor) and last_pos.dim() == 1:
@@ -634,9 +673,7 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                       positions, ks, vs, live=live,
                                       fast=fast)[:, None]
 
-    for l in range(cfg.n_layers):
-        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse,
-                   group)
+    x = _layers(p, cfg, x, cos, sin, write_kv, attend, mode, fuse, group)
     return (_logits(p, cfg, x, mode, fuse, group, out_vocab)[:, 0], k_cache,
             v_cache)
 
@@ -685,8 +722,6 @@ def _decode_side(p, cfg, x, cos, sin, k_vals, v_vals, k_sc, v_sc, positions,
             q[:, 0], k_vals[l], v_vals[l], sk[l], sv[l], base_pos,
             off32, kms, vms, kss, vss, fast=fast, live=live)[:, None]
 
-    for l in range(cfg.n_layers):
-        x = _layer(p, cfg, x, l, cos, sin, write_kv, attend, mode, fuse,
-                   group)
+    x = _layers(p, cfg, x, cos, sin, write_kv, attend, mode, fuse, group)
     return (_logits(p, cfg, x, mode, fuse, group, out_vocab)[:, 0], k_side,
             v_side)

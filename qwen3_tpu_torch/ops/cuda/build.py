@@ -54,7 +54,10 @@ SIGNATURES = {
     "q8q8_untiled": [_P] * 6 + [_I] * 8 + [_P],
     "q8_untiled": [_P] * 6 + [_I] * 10 + [_P],
     "rmsnorm": [_P] * 4 + [_I] * 3 + [_L] * 2 + [_I] * 2 + [_F, _P],
-    "softmax_sum": [_P, _P] + [_I] * 3 + [_P],
+    "add_rmsnorm": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "qk_norm_rope": [_P] * 8 + [_I, _I, _L, _L, _I] * 2 + [_I, _L, _L]
+                    + [_I] * 3 + [_F, _P],
+    "softmax_sum": [_P] * 4 + [_I] * 3 + [_P],
     "prefix_sum": [_P] * 3 + [_I] * 3 + [_P],
     "pure_read_stacked": [_P, _I, _P] + [_I] * 5 + [_P],
     "pure_read_manual": [_P, _I, _P] + [_I] * 6 + [_P],

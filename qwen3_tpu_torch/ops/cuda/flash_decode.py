@@ -316,12 +316,13 @@ _COUNTERS: dict = {}
 
 
 def decode_counters(device, n: int) -> torch.Tensor:
-    """The decode kernel's completion counters for the current stream of
-    `device` (`cuda` means the current device): int32 zeros, at least n of
-    them, one buffer per (device, stream), allocated on that stream at first
-    use (and again only to grow). The kernel's combining blocks reset each
-    counter they use to 0, so every call on a stream finds them zero, and
-    calls on two streams at once never share a counter."""
+    """The completion counters for the current stream of `device` (`cuda`
+    means the current device): int32 zeros, at least n of them, one buffer
+    per (device, stream), allocated on that stream at first use (and again
+    only to grow). The kernels that take them (decode attention, the
+    untiled matmul's split, the sampler's sums) reset each counter they use
+    to 0, so every call on a stream finds them zero, and calls on two
+    streams at once never share a counter."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())

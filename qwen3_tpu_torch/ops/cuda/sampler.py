@@ -16,9 +16,16 @@ rows beside it; and a prefix sum's first k entries do not depend on n, so
 the sampler's top-k candidates' sums are the full scan's first k. On the
 card the plain versions equal the kernels bit for bit.
 
+On the card each is one launch a call that spreads a row over the SMs in
+that order: softmax_sum's 32 warps are one-warp blocks, the row's last one
+to finish adding their sums (a completion counter a row,
+flash_decode.decode_counters); prefix_sum's blocks take their tiles from
+their row's ticket and read the earlier tiles' totals as those publish
+them, so the row is read once (its tickets, counters and tile words in the
+same buffers). Both leave their counters zero for the next call.
+
 The wrappers take CUDA tensors only and launch the kernel or raise.
-`LAUNCHES` counts calls that launched: softmax_sum one kernel a call,
-prefix_sum one, or two when a row is longer than one tile of SCAN_TILE.
+`LAUNCHES` counts calls that launched, one kernel a call.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 LAUNCHES = {"softmax_sum": 0, "prefix_sum": 0}
 SUM_THREADS = 1024      # softmax_sum: threads a row, 4-value chunks each
+SUM_BLOCKS = SUM_THREADS // 32   # softmax_sum: its one-warp blocks a row
 SCAN_THREADS = 256      # prefix_sum: threads a tile
 SCAN_PER = 8            # consecutive values a thread
 SCAN_TILE = SCAN_THREADS * SCAN_PER
@@ -123,6 +131,7 @@ def cumsum_ordered(x: torch.Tensor) -> torch.Tensor:
 
 def _launch(kind: str, x: torch.Tensor) -> torch.Tensor:
     from qwen3_tpu_torch.ops.cuda.build import load_library
+    from qwen3_tpu_torch.ops.cuda.flash_decode import decode_counters
 
     if x.device.type != "cuda":
         raise ValueError(f"the {kind} kernel takes CUDA tensors, got "
@@ -133,19 +142,20 @@ def _launch(kind: str, x: torch.Tensor) -> torch.Tensor:
     lib = load_library()
     if kind == "softmax_sum":
         out = torch.empty(b, dtype=torch.float32, device=x.device)
+        partial = torch.empty(b, SUM_BLOCKS, dtype=torch.float32,
+                              device=x.device)
         vec = n % 4 == 0 and x.data_ptr() % 16 == 0
-        err = lib.softmax_sum(x.data_ptr(), out.data_ptr(), b, n, int(vec),
-                              stream)
+        err = lib.softmax_sum(x.data_ptr(), partial.data_ptr(),
+                              decode_counters(x.device, b).data_ptr(),
+                              out.data_ptr(), b, n, int(vec), stream)
     else:
         out = torch.empty_like(x)
-        nt = -(-n // SCAN_TILE)
-        totals = (torch.empty(b, nt, dtype=torch.float32, device=x.device)
-                  if nt > 1 else None)
+        # 2 + tiles 64-bit words a row, as int32 pairs
+        state = decode_counters(x.device, 2 * b * (2 + -(-n // SCAN_TILE)))
         vec = (n % 4 == 0 and x.data_ptr() % 16 == 0
                and out.data_ptr() % 16 == 0)
-        err = lib.prefix_sum(x.data_ptr(),
-                             None if totals is None else totals.data_ptr(),
-                             out.data_ptr(), b, n, int(vec), stream)
+        err = lib.prefix_sum(x.data_ptr(), state.data_ptr(), out.data_ptr(),
+                             b, n, int(vec), stream)
     if err != 0:
         raise RuntimeError(f"{kind} kernel launch failed: CUDA error {err}")
     LAUNCHES[kind] += 1

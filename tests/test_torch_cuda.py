@@ -1178,7 +1178,8 @@ def test_norm_kernel_rows_on_card(dev, n, dtype):
     inv_all = tq_norms.rms_inv(x_all)
     out_all = tq_norms.rmsnorm(x_all, w)
     torch.cuda.synchronize()
-    assert cn.LAUNCHES == {"rmsnorm": 1, "rms_inv": 1}
+    assert cn.LAUNCHES == dict(dict.fromkeys(cn.LAUNCHES, 0), rmsnorm=1,
+                               rms_inv=1)
     assert inv_all.shape == (512, 1) and out_all.dtype == dtype
     assert torch.equal(inv_all, cn.rms_inv_ordered(x_all))
     plain = tq_norms.rms_inv_plain(x_all)
@@ -1216,7 +1217,8 @@ def test_norm_kernel_on_qk_views_on_card(dev, dtype):
         got = tq_norms.rmsnorm(view, wd)
         inv = tq_norms.rms_inv(view)
         torch.cuda.synchronize()
-        assert cn.LAUNCHES == {"rmsnorm": 1, "rms_inv": 1}
+        assert cn.LAUNCHES == dict(dict.fromkeys(cn.LAUNCHES, 0), rmsnorm=1,
+                                   rms_inv=1)
         assert got.is_contiguous() and got.shape == view.shape
         assert torch.equal(got, tq_norms.rmsnorm(view.contiguous(), wd))
         assert torch.equal(inv, tq_norms.rms_inv(view.contiguous()))
@@ -1234,6 +1236,162 @@ def test_norm_refuses_on_card(dev):
         tq_norms.rms_inv(x[::2, :, :4])
     with pytest.raises(ValueError):
         tq_norms.rms_inv(torch.zeros(16, 4, device=dev).T)
+
+
+# -- the norm folds -----------------------------------------------------------
+
+# widths of the add folds: NORM_WIDTHS and one past the 4096 values a row's
+# threads hold in registers (its later chunks read again)
+FOLD_WIDTHS = NORM_WIDTHS + (6000,)
+# head widths of qk_norm_rope: qwen3's 128, a narrower and a ragged one, and
+# heads of 128 threads (past 1024) up to the widest
+QK_WIDTHS = (128, 64, 130, 2560, 4096)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", FOLD_WIDTHS)
+def test_fold_add_kernels_on_card(dev, n, dtype):
+    """add_rmsnorm and add_rms_inv on the card, one launch a call, bit-equal
+    to their chain in plain ops on the card (x + y, then rmsnorm_ordered /
+    rms_inv_ordered, the norm kernel's order) at b = 512, 8 and 1; a row's
+    bits the same at every b."""
+    from qwen3_tpu_torch.ops.cuda import norms as cn
+
+    x_all, w = _norm_rows(n, 512, n, dtype, dev)
+    y_all = _norm_rows(n + 1, 512, n, dtype, dev)[0]
+    wide = None
+    for b in (512, 8, 1):
+        x, y = x_all[:b].contiguous(), y_all[:b].contiguous()
+        cn.reset_launches()
+        s, h = tq_norms.add_rmsnorm(x, y, w)
+        s2, inv = tq_norms.add_rms_inv(x, y)
+        torch.cuda.synchronize()
+        assert cn.LAUNCHES == dict(dict.fromkeys(cn.LAUNCHES, 0),
+                                   add_rmsnorm=1, add_rms_inv=1)
+        assert s.dtype == h.dtype == dtype and inv.shape == (b, 1)
+        chain = x + y
+        assert torch.equal(s, chain) and torch.equal(s2, chain)
+        assert torch.equal(h, cn.rmsnorm_ordered(chain, w))
+        assert torch.equal(inv, cn.rms_inv_ordered(chain))
+        if wide is None:
+            wide = (h, inv)
+        assert torch.equal(h, wide[0][:b]) and torch.equal(inv, wide[1][:b])
+
+
+def _qk_on_card(seed, B, T, H, KV, D, dtype, layout, dev):
+    """q and k as views of a qkv output, and the rope tables as the model
+    gathers them: [T, 1, half] for a block at position 3, [B, 1, 1, half]
+    for a decode step at per-slot positions (T = 1)."""
+    from qwen3_tpu_torch.ops.rope import rope_tables
+
+    flat, _ = _norm_rows(seed, B * T, (H + 2 * KV) * D, dtype, dev)
+    qkv = flat.reshape(B, T, -1)
+    q = qkv[..., :H * D].reshape(B, T, H, D)
+    k = qkv[..., H * D:(H + KV) * D].reshape(B, T, KV, D)
+    cos, sin = rope_tables(D, 1024, device=dev)
+    if layout == "prefill":
+        pos = torch.arange(3, 3 + T, device=dev)
+        return q, k, cos[pos][:, None, :], sin[pos][:, None, :]
+    pos = torch.arange(B, device=dev) * 7 % 1000
+    return q, k, cos[pos][:, None, None, :], sin[pos][:, None, None, :]
+
+
+@pytest.mark.parametrize("layout", ["prefill", "decode"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", QK_WIDTHS)
+def test_fold_qk_norm_rope_on_card(dev, d, dtype, layout):
+    """qk_norm_rope on the card, one launch for q and k, f32 out, bit-equal
+    to its chain in plain ops on the card (rmsnorm_ordered, then
+    apply_rope) on q/k views of a qkv output and on contiguous heads, at b = 512, 8
+    and 1 tokens (decode: slots; prefill: one sequence of b tokens and
+    two of 4); a head's bits the same at every b."""
+    from qwen3_tpu_torch.ops.cuda import norms as cn
+    from qwen3_tpu_torch.ops.rope import apply_rope
+
+    H, KV = (16, 8) if d <= 1024 else (2, 1)
+    wq, wk = (_norm_rows(d + i, 1, d, torch.float32, dev)[1]
+              for i in (1, 2))
+    shapes = ((512, 1), (8, 1), (1, 1)) if layout == "decode" else (
+        (1, 512), (1, 8), (1, 1), (2, 4))
+    q0, k0, cos0, sin0 = _qk_on_card(d, *shapes[0], H, KV, d, dtype, layout,
+                                     dev)
+    wide = None
+    for B, T in shapes:
+        if layout == "decode":
+            q, k, cos, sin = q0[:B], k0[:B], cos0[:B], sin0[:B]
+        else:
+            q = q0[:, :B * T].reshape(B, T, H, d)
+            k = k0[:, :B * T].reshape(B, T, KV, d)
+            cos, sin = cos0[:T], sin0[:T]
+        for qq, kk in ((q, k), (q.contiguous(), k.contiguous())):
+            cn.reset_launches()
+            gq, gk = tq_norms.qk_norm_rope(qq, kk, wq, wk, cos, sin)
+            torch.cuda.synchronize()
+            assert cn.LAUNCHES == dict(dict.fromkeys(cn.LAUNCHES, 0),
+                                       qk_norm_rope=1)
+            assert gq.dtype == gk.dtype == torch.float32
+            assert torch.equal(gq, apply_rope(cn.rmsnorm_ordered(qq, wq),
+                                              cos, sin))
+            assert torch.equal(gk, apply_rope(cn.rmsnorm_ordered(kk, wk),
+                                              cos, sin))
+        if wide is None:
+            wide = (gq, gk)
+        elif layout == "decode":          # the first B slots
+            assert torch.equal(gq, wide[0][:B])
+            assert torch.equal(gk, wide[1][:B])
+        elif B == 1:                      # the first T tokens
+            assert torch.equal(gq, wide[0][:, :T])
+            assert torch.equal(gk, wide[1][:, :T])
+
+
+def test_fold_refuses_on_card(dev):
+    """Weights or tables on the CPU beside CUDA rows, and a head the kernel
+    does not take, raise before a launch."""
+    x = torch.zeros(4, 16, device=dev)
+    with pytest.raises(ValueError):
+        tq_norms.add_rmsnorm(x, x, torch.ones(16))
+    with pytest.raises(ValueError):
+        tq_norms.add_rms_inv(x, x[:, :8])
+    q = torch.zeros(1, 2, 4, 16, device=dev)
+    w = torch.ones(16, device=dev)
+    cos = torch.zeros(2, 1, 8, device=dev)
+    with pytest.raises(ValueError):
+        tq_norms.qk_norm_rope(q, q, w, w, cos.cpu(), cos.cpu())
+    with pytest.raises(ValueError):
+        tq_norms.qk_norm_rope(q[..., :15], q[..., :15], w[:15], w[:15],
+                              cos, cos)
+
+
+@pytest.mark.parametrize("n", [512, 151936])
+def test_sampler_order_counters_reset_on_card(dev, n):
+    """The one-pass sampler kernels leave their counters, tickets and tile
+    words zero (the current stream's decode_counters): two back-to-back calls on a stream, and calls on a second
+    stream (its own counters), give the same bits as the first call, at B
+    1 and 64."""
+    from qwen3_tpu_torch.ops.cuda import sampler as cs
+
+    rng = np.random.default_rng(n + 1)
+    p = rng.random((64, n)).astype(np.float32) ** 4
+    x = torch.from_numpy(p / p.sum(axis=-1, keepdims=True)).to(dev)
+    for b in (1, 64):
+        xb = x[:b].contiguous()
+        first = (cs.softmax_sum(xb), cs.prefix_sum(xb))
+        again = (cs.softmax_sum(xb), cs.prefix_sum(xb))
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            other = (cs.softmax_sum(xb), cs.prefix_sum(xb),
+                     cs.softmax_sum(xb), cs.prefix_sum(xb))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize()
+        want = (cs.softmax_sum_ordered(xb), cs.cumsum_ordered(xb))
+        for got in (first, again, other[:2], other[2:]):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+    from qwen3_tpu_torch.ops.cuda.flash_decode import decode_counters
+
+    torch.cuda.synchronize()
+    assert not decode_counters(dev, 1).any()
 
 
 @pytest.mark.parametrize("attn", ["dense", "flash"])

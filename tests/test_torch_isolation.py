@@ -1,7 +1,7 @@
 """The port stands alone: no module of `qwen3_tpu_torch/` (its `parallel/`
-included), nor the root `chip_smoke.py`, nor the rank bodies the
-tensor-parallel tests spawn (`tests/torch_tp_ranks.py`) imports JAX,
-ml_dtypes or the JAX package; importing every port module, or running as a
+included), nor the root `chip_smoke.py` and `ab_trees.py`, nor the rank
+bodies the tensor-parallel tests spawn (`tests/torch_tp_ranks.py`) imports
+JAX, ml_dtypes or the JAX package; importing every port module, or running as a
 spawned rank, leaves JAX unloaded; and asking for the card where there is
 none raises instead of running on the CPU."""
 
@@ -23,7 +23,8 @@ RANKS = REPO / "tests" / "torch_tp_ranks.py"
 
 
 def _port_sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", RANKS]
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                        REPO / "ab_trees.py", RANKS]
 
 
 def _module_names():

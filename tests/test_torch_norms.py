@@ -49,7 +49,7 @@ def test_cpu_dispatch_is_todays_plain_code(n, dtype):
     assert torch.equal(tnorms.rms_inv(x), _today(x))
     assert torch.equal(tnorms.rmsnorm(x, w), tnorms.rmsnorm_plain(x, w))
     assert torch.equal(tnorms.rms_inv(x), tnorms.rms_inv_plain(x))
-    assert cn.LAUNCHES == {"rmsnorm": 0, "rms_inv": 0}
+    assert not any(cn.LAUNCHES.values()), cn.LAUNCHES
 
 
 @pytest.mark.parametrize("n", WIDTHS)
