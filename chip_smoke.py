@@ -3715,8 +3715,7 @@ def rank_fused_4b_tp(rank, out, workdir):
             steps=steps, seconds=dt, tok_s=emitted / dt,
             launches_per_step={k_: c / steps for k_, c in got.items()},
             collectives_per_step=coll["calls"] / steps,
-            collective_bytes_per_step=coll["bytes"] / steps,
-            collective_share=coll["seconds"] / dt, profile=prof,
+            collective_bytes_per_step=coll["bytes"] / steps, profile=prof,
             first_ids=ids[:16])))
     return 0
 

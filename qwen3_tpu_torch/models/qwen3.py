@@ -116,11 +116,12 @@ ATTN = ("dense", "flash", "fused")
 # checking launch counts against them; and every pass once under the route
 # its matmuls took: "mm_" + mode, or "mm_fused" for the fused-prologue kernel
 # "forward_step" counts forward's one-token passes at a device position (the
-# B = 1 decode chunk), apart from its blocks ("forward")
+# B = 1 decode chunk), apart from its blocks ("forward"); nothing reads its
+# pallas-fast share, so it has no "_fast" key
 CALLS = {"forward": 0, "decode_forward": 0, "forward_step": 0,
          "forward_flash": 0, "decode_forward_flash": 0,
          "forward_step_flash": 0, "forward_fast": 0,
-         "decode_forward_fast": 0, "forward_step_fast": 0,
+         "decode_forward_fast": 0,
          "decode_forward_two_segment": 0, "decode_forward_fused": 0,
          "mm_pallas": 0, "mm_pallas-fast": 0, "mm_pallas-int8": 0,
          "mm_exact": 0, "mm_bf16": 0, "mm_fused": 0}
@@ -368,7 +369,8 @@ def _count_pass(kind: str, mode: str, fuse: bool) -> bool:
     matmuls take the fused-prologue kernel (fuse in a mode that has it)."""
     fuse = fuse and mode in FUSE_MODES
     CALLS[kind] += 1
-    CALLS[kind + "_fast"] += mode == "pallas-fast"
+    if kind != "forward_step":
+        CALLS[kind + "_fast"] += mode == "pallas-fast"
     CALLS["mm_fused" if fuse else "mm_" + mode] += 1
     return fuse
 

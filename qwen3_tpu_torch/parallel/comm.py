@@ -20,18 +20,20 @@ collective raises.
 
 from __future__ import annotations
 
-import time
-
 import torch
 import torch.distributed as dist
 
-# collectives launched through a Group (every rank counts its own), the
-# bytes this rank contributed, and the host seconds spent inside them
-COUNTS = {"calls": 0, "bytes": 0, "seconds": 0.0}
+from qwen3_tpu_torch.utils.profiling import SPANS
+
+# collectives launched through a Group (every rank counts its own) and the
+# bytes this rank contributed; each is also a `collective` span
+# (utils/profiling.py::SPANS), the host's time in the call: under NCCL its
+# enqueue, not the transfer
+COUNTS = {"calls": 0, "bytes": 0}
 
 
 def reset_counts() -> None:
-    COUNTS.update(calls=0, bytes=0, seconds=0.0)
+    COUNTS.update(calls=0, bytes=0)
 
 
 class Group:
@@ -50,7 +52,7 @@ class Group:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """[size, *x.shape]: every rank's x, in rank order."""
-        t0 = time.perf_counter()
+        sid = SPANS.begin("collective")
         x = x.contiguous()
         COUNTS["calls"] += 1
         COUNTS["bytes"] += x.numel() * x.element_size()
@@ -63,7 +65,7 @@ class Group:
             parts = [torch.empty_like(h) for _ in range(self.size)]
             dist.all_gather(parts, h, group=self.pg)
             out = torch.stack(parts).to(x.device)
-        COUNTS["seconds"] += time.perf_counter() - t0
+        SPANS.end(sid)
         return out
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -82,7 +84,7 @@ class Group:
 
     def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
         """x of the rank at index `src` of this axis, on every rank."""
-        t0 = time.perf_counter()
+        sid = SPANS.begin("collective")
         COUNTS["calls"] += 1
         COUNTS["bytes"] += x.numel() * x.element_size()
         x = x.contiguous()
@@ -94,5 +96,5 @@ class Group:
             h = x.cpu()
             dist.broadcast(h, root, group=self.pg)
             out = h.to(x.device)
-        COUNTS["seconds"] += time.perf_counter() - t0
+        SPANS.end(sid)
         return out

@@ -68,6 +68,7 @@ from qwen3_tpu_torch.runtime.sampler import (
 )
 from qwen3_tpu_torch.runtime.xorshift import xorshift_float
 from qwen3_tpu_torch.tokenizer import Tokenizer
+from qwen3_tpu_torch.utils.profiling import SPANS
 
 _M64 = (1 << 64) - 1
 # batched admission's caps: rows (N x block width) per [N, C] forward, whose
@@ -76,6 +77,17 @@ _M64 = (1 << 64) - 1
 # them are not ported)
 ADMIT_ROWS = 1024
 ADMIT_KV_BYTES = 1536 << 20
+
+# the engine's work as the host counts it, always on (host integer adds):
+# prefill forwards, the rows they compute (block widths, padding and the
+# mesh's padding rows included) and the prompt tokens among them; admission
+# groups (a batched group or a serial admission each) and the requests
+# admitted; and every decode step's slots: live (running a request),
+# frozen (running a request that finished earlier in the chunk) or empty.
+# The slot counts add up to decode steps x max_batch.
+COUNTS = {"prefill_forwards": 0, "prefill_rows": 0, "prefill_valid_rows": 0,
+          "admit_groups": 0, "admitted": 0, "slot_steps_live": 0,
+          "slot_steps_frozen": 0, "slot_steps_empty": 0}
 
 
 def bucket_sizes(s: int, smallest: int = 256) -> list[int]:
@@ -278,7 +290,8 @@ class Request:
     generate_ms: float = 0.0    # tg: admit-to-finish decode wall ms
     end_pos: int = 0            # slot position after the turn (chat)
     end_rng: Optional[int] = None     # xorshift state after the turn (chat)
-    _t_admit: float = 0.0
+    _t_admit: int = 0           # perf_counter_ns at admission
+    _t_submit: int = 0          # perf_counter_ns at submit, while spans record
 
     @property
     def ms_per_token(self) -> float:
@@ -402,6 +415,8 @@ class BatchedEngine:
     def submit(self, req: Request) -> Request:
         req.rid = self._next_rid
         self._next_rid += 1
+        if SPANS.on:
+            req._t_submit = SPANS.clock()
         self._queue.append(req)
         return req
 
@@ -447,7 +462,26 @@ class BatchedEngine:
         self._rng[b] = rng
         self._slots[b].req = req
 
+    def _admissible(self) -> bool:
+        """Whether _admit would admit anything: a chat turn whose pinned
+        slot is free, or a fresh request and a free unpinned slot."""
+        if any(r.slot is not None and self._slots[r.slot].req is None
+               for r in self._queue):
+            return True
+        return (any(r.slot is None for r in self._queue)
+                and any(s.req is None and b not in self._pinned
+                        for b, s in enumerate(self._slots)))
+
     def _admit(self) -> None:
+        if not self._admissible():
+            return
+        sid = SPANS.begin("admit")
+        try:
+            self._admit_queued()
+        finally:
+            SPANS.end(sid)
+
+    def _admit_queued(self) -> None:
         # chat turns go to their pinned slot; fresh requests fill free,
         # unpinned slots in FIFO order
         for req in [r for r in self._queue if r.slot is not None]:
@@ -469,8 +503,11 @@ class BatchedEngine:
         # rng, burn) take the serial path
         C = self.prefill_bucket
         groups: dict[tuple, list[tuple[int, Request, list]]] = {}
-        for b, req in assigned:
-            ids = self.tokenizer.encode(req.prompt)[: self.cfg.seq_len]
+        sid = SPANS.begin("admit.encode")
+        encoded = [(b, req, self.tokenizer.encode(req.prompt)
+                    [: self.cfg.seq_len]) for b, req in assigned]
+        SPANS.end(sid)
+        for b, req, ids in encoded:
             if (not req.burn_prompt
                     and req.rng is None and req.start_pos == 0 and ids):
                 plan = prefill_plan(len(ids), 0, C, self.cfg.seq_len)
@@ -497,8 +534,20 @@ class BatchedEngine:
             if items:
                 self._admit_into(items[0][0], items[0][1])
 
+    def _queued(self, req: Request, t: int) -> None:
+        """The `queue` span of `req`: from its submit to `t` (ns), the start
+        of its own admission."""
+        if req._t_submit:
+            SPANS.add("queue", req._t_submit, t, rid=req.rid)
+
     def _admit_batch(self, items: list, plan: tuple) -> None:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        rids = None
+        if SPANS.on:
+            rids = tuple(req.rid for _, req, _ in items)
+            for _, req, _ in items:
+                self._queued(req, t0)
+        group = SPANS.begin("admit.group", rid=rids, start=t0)
         temps, topps = [], []
         for b, req, ids in items:
             r_temp, r_topp = self._sampler_of(b, req)
@@ -516,19 +565,29 @@ class BatchedEngine:
                 blk = [] if ids is None else ids[off:off + size]
                 lasts.append(max(len(blk) - 1, 0))
                 blocks.append(blk + [0] * (size - len(blk)))
+                COUNTS["prefill_valid_rows"] += len(blk)
+            sid = SPANS.begin("prefill.block", rid=rids)
             logits, k, v = mesh_prefill_slots_chunk(
                 self._mesh, self.params, self._loc, k, v, blocks, slots,
                 valid, off, lasts, mode=self.mode, fuse=self.fuse,
                 out_vocab=self.cfg.vocab_size)
+            SPANS.end(sid)
+            COUNTS["prefill_forwards"] += 1
+            COUNTS["prefill_rows"] += len(rows) * size
         self._kv = (k, v)
         if item_row is not None:
             logits = logits[torch.tensor(item_row, device=logits.device)]
         seeds = [req.seed & _M64 for _, req, _ in items]
+        sid = SPANS.begin("first_tokens", rid=rids)
         toks, rngs = first_tokens_batch(logits, seeds, temps, topps,
                                         top_k=self.top_k)
-        now = time.perf_counter()
+        SPANS.end(sid)
+        now = time.perf_counter_ns()
+        SPANS.end(group, now)
+        COUNTS["admit_groups"] += 1
+        COUNTS["admitted"] += len(items)
         for (b, req, ids), tok, rng in zip(items, toks, rngs):
-            req.prompt_ms = (now - t0) * 1e3
+            req.prompt_ms = (now - t0) / 1e6
             req._t_admit = now
             self._start(b, req, tok, len(ids), rng)
 
@@ -561,12 +620,15 @@ class BatchedEngine:
         return rows, item_row
 
     def _admit_into(self, b: int, req: Request) -> None:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        self._queued(req, t0)
+        group = SPANS.begin("admit.group", rid=req.rid, start=t0)
         ids = self.tokenizer.encode(req.prompt)
         # never run past the context (reference chat clips the same way)
         ids = ids[: self.cfg.seq_len - req.start_pos]
         if not ids:
             req.finished = True
+            SPANS.end(group)
             return
         r_temp, r_topp = self._sampler_of(b, req)
         req.prompt_ids = ids
@@ -576,19 +638,30 @@ class BatchedEngine:
         logits = None
         for off, block, n_valid in prefill_blocks(
                 ids, req.start_pos, self.prefill_bucket, self.cfg.seq_len):
+            sid = SPANS.begin("prefill.block", rid=req.rid)
             logits, k, v = mesh_prefill_slot_chunk(
                 self._mesh, self.params, self._loc, k, v, block, b,
                 req.start_pos + off, n_valid - 1, mode=self.mode,
                 fuse=self.fuse, out_vocab=self.cfg.vocab_size)
+            SPANS.end(sid)
+            COUNTS["prefill_forwards"] += 1
+            COUNTS["prefill_rows"] += len(block)
+            COUNTS["prefill_valid_rows"] += n_valid
         self._kv = (k, v)
 
         rng = req.seed & _M64 if req.rng is None else req.rng
         n_burn = len(ids) - 1 if req.burn_prompt else 0
+        sid = SPANS.begin("first_tokens", rid=req.rid)
         tok, rng = burn_and_sample(logits, rng, n_burn, r_temp, r_topp,
                                    greedy=r_temp <= GREEDY_EPS,
                                    top_k=self.top_k)
-        req.prompt_ms = (time.perf_counter() - t0) * 1e3
-        req._t_admit = time.perf_counter()
+        SPANS.end(sid)
+        now = time.perf_counter_ns()
+        SPANS.end(group, now)
+        COUNTS["admit_groups"] += 1
+        COUNTS["admitted"] += 1
+        req.prompt_ms = (now - t0) / 1e6
+        req._t_admit = now
         self._start(b, req, tok, req.start_pos + len(ids), rng)
 
     def _bucket(self) -> Optional[int]:
@@ -605,6 +678,13 @@ class BatchedEngine:
         """One batched decode chunk; returns requests finished this chunk."""
         if not any(s.req for s in self._slots):
             return []
+        sid = SPANS.begin("chunk", counts=COUNTS)
+        try:
+            return self._chunk()
+        finally:
+            SPANS.end(sid)
+
+    def _chunk(self) -> list[Request]:
         all_greedy = bool((self._temp <= GREEDY_EPS).all())
         k, v = self._kv
         packed, k, v, tok, pos, done, rng = batched_decode_chunk(
@@ -615,10 +695,11 @@ class BatchedEngine:
             top_k=self.top_k, attn=self.attn, mode=self.mode,
             use_side=self.side_buffer, bucket=self._bucket(), fuse=self.fuse,
             group=self._mesh.tp_group, dp_group=self._mesh.dp_group,
-            out_vocab=self.cfg.vocab_size)
+            out_vocab=self.cfg.vocab_size, counts=COUNTS)
         self._kv = (k, v)
         self._token, self._pos, self._done, self._rng = tok, pos, done, rng
         finished = []
+        sid = SPANS.begin("chunk.deliver")
         for b, slot in enumerate(self._slots):
             req = slot.req
             if req is None:
@@ -630,7 +711,8 @@ class BatchedEngine:
                     req.stream_cb(self.tokenizer.decode(toks))
             if bool(packed[b, -1]):
                 req.finished = True
-                req.generate_ms = (time.perf_counter() - req._t_admit) * 1e3
+                req.generate_ms = (time.perf_counter_ns()
+                                   - req._t_admit) / 1e6
                 if req.slot is not None:
                     # conversation bookkeeping for the next turn
                     req.end_pos = int(packed[b, -2])
@@ -642,6 +724,7 @@ class BatchedEngine:
                 self._temp[b] = self.temperature
                 self._topp[b] = self.top_p
                 self._emit[b] = False
+        SPANS.end(sid)
         return finished
 
     # -- conversation slot pinning (used by BatchedChat) -------------------

@@ -33,6 +33,7 @@ from qwen3_tpu_torch.runtime.xorshift import (
     xorshift_coin_device,
     xorshift_float,
 )
+from qwen3_tpu_torch.utils.profiling import SPANS
 
 GREEDY_EPS = 1e-6
 
@@ -209,7 +210,8 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
                          attn: str = "dense", mode: str = "pallas",
                          use_side: bool = False, bucket: int | None = None,
                          fuse: bool = False, group=None,
-                         out_vocab: int | None = None, dp_group=None):
+                         out_vocab: int | None = None, dp_group=None,
+                         counts: dict | None = None):
     """Up to `chunk` decode steps over all live slots.
 
     token/pos/limit/done/rng/temp/topp/emit_lim: per-slot [B] host arrays
@@ -232,6 +234,14 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
     b rows, and each step's sampled ids are all-gathered over the group
     before the host reads them, so every rank steps the same state.
 
+    `counts` (the serving engine's, runtime/batched.py::COUNTS): each step
+    adds its slots to "slot_steps_live" (not done when the step starts),
+    "slot_steps_frozen" (done since earlier in the chunk) and
+    "slot_steps_empty" (done when the chunk started: a slot with no
+    request). Spans (utils/profiling.py::SPANS): `step` a step, inside it
+    `step.enqueue` (until the sampler's launch returns) and `step.read` (the
+    host read of the sampled ids); `chunk.merge` the side buffers' merge.
+
     Returns (packed int32 [B, chunk + 2] = (tokens.., pos, done) with -1
     padding, k, v, token, pos, done, rng)."""
     token = np.array(token, dtype=np.int64)
@@ -253,8 +263,16 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
         base_pos = pos.copy()        # frozen for the chunk
         base_t = torch.from_numpy(base_pos[mine]).to(dev)
         side_k, side_v = make_side(k_cache, chunk), make_side(v_cache, chunk)
+    empty = int(np.count_nonzero(done))
     step = 0
     while step < chunk and not done.all():
+        if counts is not None:
+            n_done = int(np.count_nonzero(done))
+            counts["slot_steps_live"] += B - n_done
+            counts["slot_steps_frozen"] += n_done - empty
+            counts["slot_steps_empty"] += empty
+        sid = SPANS.begin("step")
+        enqueue = SPANS.begin("step.enqueue")
         is_stop = (token == bos) | (token == eos)
         at_limit = pos >= limit
         newly_done = done | is_stop | at_limit
@@ -284,24 +302,30 @@ def batched_decode_chunk(params, cfg, k_cache, v_cache, token, pos, limit,
                 group=group, out_vocab=out_vocab)
         nxt = sample_tokens(logits, coin, temp_t, topp_t, greedy=g,
                             top_k_hint=top_k)
+        SPANS.end(enqueue)
         if dp_group is not None:
             nxt = dp_group.cat(nxt, 0)
+        read = SPANS.begin("step.read")
         nxt = nxt.cpu().numpy()
+        SPANS.end(read)
         live = ~newly_done
         token = np.where(live, nxt, token)
         pos = np.where(live, pos + 1, pos)
         rng = [st if ok else old for (st, _), old, ok in zip(draws, rng, live)]
         done = newly_done
         step += 1
+        SPANS.end(sid)
     if use_side:
         # each slot's chunk window into the main cache at its chunk-start
         # position, once per chunk; rows past its final position carry
         # garbage that nothing reads before it is rewritten
+        sid = SPANS.begin("chunk.merge")
         for main, buf in ((k_cache, side_k), (v_cache, side_v)):
             for m, sb in zip(tensors(main), tensors(buf)):
                 for j in range(bl):
                     at = base_pos[lo + j]
                     m[:, j, at:at + chunk] = sb[:, j]
+        SPANS.end(sid)
     packed = np.concatenate(
         [out, pos[:, None].astype(np.int32), done[:, None].astype(np.int32)],
         axis=1)
