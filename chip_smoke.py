@@ -622,6 +622,10 @@ def phase_flash_kernels(torch):
 
 FAST_BATCHES = (1, 8, 64, 128, 512)  # decode at B = 1 and 8, B = 64, the
                                      # 128-row admission block, a wide one
+# qwen3-4b's layer matrices (n, d) at two of the benchmark's prefill blocks
+MATRICES_4B = {"wqkv": (2560, 6144), "wo": (4096, 2560),
+               "w13": (2560, 19456), "w2": (9728, 2560)}
+FAST_BATCHES_4B = (128, 512)
 # batched decode partials: (slots, bucket), the serving engine's cache rows
 # for -c 1024 and -c 512 (+ 32 side rows, padded to 128)
 BATCHED_CASES = ((8, 1152), (64, 640))
@@ -756,12 +760,62 @@ def phase_fast_kernels(torch):
         torch.cuda.empty_cache()
     step_lines("fast", rows, ("kernel_ms", "library_ms", "bound_ms",
                               "fma_floor_ms"))
+    fast_4b_kernels(torch, gen)
     log(f"fast matmuls: every row bit-equal at b in {list(FAST_BATCHES)}; "
         "library_ms = torch.nn.functional.linear on bf16 with the weights "
         "dequantized once to bf16; fma_floor_ms = the fp32 FMAs over the "
         "67 TFLOP/s outside the tensor cores, the floor under the bit rule "
         "(the kernel sums each group in k order, which an MMA does not)")
     return rows
+
+
+def fast_4b_kernels(torch, gen):
+    """The fast matmul at qwen3-4b's layer matrices, b in FAST_BATCHES_4B,
+    on plan_fast's route: bit-equal to the plain version and to the same
+    rows at the widest b, timed beside F.linear and the fp32 FMAs' floor
+    (one plain call a row, not timed: 1.7 s of the phase on an H100)."""
+    import torch.nn.functional as F
+
+    from qwen3_tpu_torch.ops.cuda import q8_matmul as qm
+    from qwen3_tpu_torch.tools.fast_routes import route_name
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, (n, d) in MATRICES_4B.items():
+        w_q = torch.randint(-127, 128, (d, n), dtype=torch.int8, device=dev,
+                            generator=gen)
+        w_s = 0.02 / 127 * (0.5 + torch.rand(d, n // G, device=dev,
+                                             generator=gen))
+        w_bf = (w_q.float().reshape(d, n // G, G) * w_s[..., None]).reshape(
+            d, n).to(torch.bfloat16)
+        x_all = torch.randn(max(FAST_BATCHES_4B), n, device=dev,
+                            generator=gen).to(torch.bfloat16)
+        widest = qm.q8_matmul_tiled_fast(x_all, w_q, w_s, G)
+        for b in FAST_BATCHES_4B:
+            x = x_all[:b].contiguous()
+            got = qm.q8_matmul_tiled_fast(x, w_q, w_s, G)
+            if not torch.equal(got, qm.q8_fast_matmul_plain(x, w_q, w_s, G)):
+                fail(f"fast qwen3-4b {name} b={b}: kernel != plain")
+            if not torch.equal(got, widest[:b]):
+                fail(f"fast qwen3-4b {name} b={b}: rows differ from the "
+                     f"same rows at b={max(FAST_BATCHES_4B)}")
+            route = qm.plan_fast(b, n, d, G, sms)
+            ms = device_ms(torch,
+                           lambda i, x=x: qm.q8_matmul_tiled_fast(x, w_q,
+                                                                  w_s, G))
+            floor = 1e3 * 2 * b * n * d / FP32_OPS_PER_S
+            row = dict(matrix=name, model="qwen3-4b", b=b, n=n, d=d,
+                       route=route_name(route),
+                       kernel_ms=ms, fma_floor_ms=floor,
+                       over_floor=ms / floor,
+                       library_ms=device_ms(torch,
+                                            lambda i, x=x: F.linear(x, w_bf)),
+                       bound_ms=fast_bound_ms(b, n, d)[0])
+            log("fast 4b " + json.dumps(row))
+        del w_q, w_s, w_bf, x_all, widest
+        torch.cuda.empty_cache()
+    log(f"fast qwen3-4b matrices: {time.perf_counter() - t0:.1f} s")
 
 
 def serving_cache(torch, layers, slots, rows, gen):
@@ -2233,8 +2287,13 @@ def checked(torch, label, fn, layers=L):
     if steps == 0 or blocks == 0:
         fail(f"{label}: no prefill block or no decode step ran")
     want = want_launches(calls, layers)
-    if launches != want:
-        fail(f"{label}: launches {launches} for passes {calls}; want {want}")
+    # the fast matmul's route counts: one a stacked_fast or tiled_fast call
+    from qwen3_tpu_torch.ops.cuda.q8_matmul import ROUTE_KEYS
+
+    routes = sum(launches.pop(k) for k in ROUTE_KEYS)
+    if launches != want or routes != want["stacked_fast"] + want["tiled_fast"]:
+        fail(f"{label}: launches {launches} and {routes} fast routes for "
+             f"passes {calls}; want {want}")
     return result, dict(blocks=blocks, steps=steps, launches=launches,
                         calls=calls, wall=wall)
 

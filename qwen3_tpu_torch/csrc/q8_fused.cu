@@ -115,7 +115,8 @@ int q8q8_matmul(const void* xq, const void* xs, const void* wq,
                 const void* ws, void* out, void* part, int b, int n, int d,
                 int group_size, int gpt, int shape, int splits, void* stream);
 int q8_fast_matmul(const void* x, const void* wq, const void* ws, void* out,
-                   int b, int n, int d, int group_size, void* stream);
+                   int b, int n, int d, int group_size, int route,
+                   void* stream);
 
 // out = fused(x, inv, nw, wq, ws): prologue 0 none, 1 norm, 2 swiglu; exact
 // 1 (Q8_0 x Q8_0, gpt groups per k-tile) or 0 (bf16). x f32 [b, n] (swiglu:
@@ -125,7 +126,8 @@ int q8_fast_matmul(const void* x, const void* wq, const void* ws, void* out,
 // f32 [b, n / G], fast bf16 [b, n] (act_s unused); then in the exact path
 // `shape` (0-2) and `splits` set the tile path's grid as for q8q8_matmul,
 // with `part` f32 [n / (G gpt), b, d] the k-split's scratch (null at splits
-// 1); the fast path ignores them. Launches on `stream` and returns
+// 1); the fast path takes `shape` as q8_fast_matmul's route (plan_fast) and
+// ignores `splits`. Launches on `stream` and returns
 // cudaGetLastError() (0 = launched; cudaErrorInvalidValue for an unknown
 // prologue or shape).
 int q8_fused_matmul(const void* x, const void* inv, const void* nw,
@@ -166,7 +168,7 @@ int q8_fused_matmul(const void* x, const void* inv, const void* nw,
                             kPrologueThreads, 0, s>>>(act, xb, b, n);
   const int e = (int)cudaGetLastError();
   if (e) return e;
-  return q8_fast_matmul(xb, wq, ws, out, b, n, d, G, stream);
+  return q8_fast_matmul(xb, wq, ws, out, b, n, d, G, shape, stream);
 }
 
 }  // extern "C"

@@ -1125,14 +1125,18 @@ int launch_mma(const int8_t* xq, const float* xs, const int8_t* wq,
 //
 // bf16 activations times the Q8_0 weights dequantized to bf16, summed in
 // fp32 (csrc/q8_matmul.cu's notes give the function and the design):
-//  - q8_fast_split_kernel (b <= 8, and b > 8 while the tile kernel would
-//    have fewer than 128 blocks): the group split, a thread a (column,
-//    group) chain for the block's rows, the activations staged as padded
-//    f32 in shared memory;
-//  - q8_fast_tile_kernel (b > 8 with >= 128 of its blocks): a 64 x 64 tile.
-// Both stage the activations through Act::raw8, which reads bf16 values or
-// (the fused call at b = 1) makes bf16(prologue(x)) once per (block, k).
+//  - q8_fast_split_kernel (b <= 8, and b > 8 where the host's planner,
+//    ops/cuda/q8_matmul.py::plan_fast, picks it): the group split, a thread
+//    a (column, group) chain for the block's rows, the activations staged
+//    as padded f32 in shared memory, through Act::raw8, which reads bf16
+//    values or (the fused call at b = 1) makes bf16(prologue(x)) once per
+//    (block, k);
+//  - q8_fast_tile_kernel (b > 8 on plan_fast's tile shapes): a
+//    register-blocked, cp.async-pipelined tile on bf16 activations made by
+//    an earlier op (below).
 constexpr int kFastMinBlocks = 256;       // about two blocks an SM
+// above this many columns the split kernel gives a thread two of them
+constexpr int kFastWideCols = 4224;
 constexpr int kFastSmemBudget = 112 * 1024;
 
 template <int R, int TN, class Act>
@@ -1296,107 +1300,294 @@ int launch_fast_split(Act act, const int8_t* wq, const float* ws, float* out,
   return (int)cudaGetLastError();
 }
 
-// The tile kernel: a block owns 64 rows x 64 columns with 256 threads; per
-// chunk of kc = min(G, 64) k it stages the activations [64][kc] and the
-// dequantized weights [64][kc] as f32 in shared memory (rows padded to 65
-// words), and each thread runs 4 x 4 outputs as sequential fmaf chains,
-// rows ty + 16 i and columns tx + 16 j.
-constexpr int kFastCols = 64, kFastThreads = 256, kMaxChunk = 64;
-// the tile kernel takes b > 8 once it has this many blocks
-constexpr int kFastTileBlocks = 128;
-// above this many columns the split kernel gives a thread two of them
-constexpr int kFastWideCols = 4224;
+// ---------------------------------------------------- the fast tile ----
+//
+// q8_fast_tile_kernel: a register-blocked tile of the fast function on CUDA
+// cores (csrc/q8_matmul.cu's notes give the design and its times). A block
+// owns BM rows x BN columns and runs W slices of kFastThreads threads; slice
+// j computes groups j, j + W, ... of the block's outputs, so that a call of
+// few rows and columns still has warps enough (a group's chain s_g starts
+// at 0 and needs no other group). In a slice, thread (ty, tx) owns a TM x
+// TN piece: rows q * BM / RQ + 4 ty + i and columns q * BN / CQ + 4 tx + j
+// (i, j < 4), so that each k costs it RQ + CQ 16-byte shared loads for TM
+// TN FMAs; a warp holds 8 ty x 4 tx, so that each of its loads is one
+// shared-memory wavefront. A slice's k goes in stages of kFastK rows
+// through two shared buffers of its own: the activations widened to f32 and
+// transposed ([kFastK][BM]) and the weights dequantized once while staging
+// ([kFastK][BN] f32, bf16_rn(f32(wq) * ws)), each staged weight serving BM
+// rows. The raw copies of the next kFastRing - 1 stages (16-byte pieces of
+// the bf16 rows, 8- or 16-byte pieces of the int8 columns, a scale a
+// thread) fly by cp.async into a ring that only the copying thread reads
+// back, so that no register holds them; halfway through a stage's FMAs each
+// thread turns its landed copies of the next stage into the other buffer;
+// one barrier a stage for the whole block. A thread keeps its chains s_g in
+// registers. At the end of a round of W groups, slices 1 .. W - 1 park
+// theirs in shared memory (two buffers by round), and after the barrier
+// slice 0 adds the round's chains to its running sums, kept in shared
+// memory (its own slots), in group order: o = ((o + s_g) + s_g+1) + ...
+// from o = 0, the plain version's order, so every shape, W and b gives the
+// same bits.
+constexpr int kFastK = 16, kFastRing = 3, kFastThreads = 128;
 
-template <class Act>
-__global__ void __launch_bounds__(kFastThreads)
-q8_fast_tile_kernel(Act act, const int8_t* __restrict__ wq,
+// One raw stage of a slice: its bf16 activations, its int8 weights, one
+// scale a thread
+template <int BM, int BN>
+__host__ __device__ constexpr int fast_raw_bytes() {
+  return BM * kFastK * 2 + BN * kFastK + kFastThreads * 4;
+}
+// A slice's shared memory: x [2][kFastK][BM] f32, the weights
+// [2][kFastK][BN] f32, its raw ring
+template <int BM, int BN>
+__host__ __device__ constexpr int fast_slice_bytes() {
+  return 2 * kFastK * (BM + BN) * 4 + kFastRing * fast_raw_bytes<BM, BN>();
+}
+// The block's dynamic shared memory: W slices, the running sums (BM x BN
+// f32), then the parked chains of slices 1 .. W - 1, two rounds' worth
+template <int BM, int BN, int W>
+__host__ __device__ constexpr int fast_tile_smem() {
+  return W * fast_slice_bytes<BM, BN>() + BM * BN * 4 +
+         2 * (W - 1) * BM * BN * 4;
+}
+
+__device__ __forceinline__ void cp_async8_s(unsigned dst, const void* src,
+                                            bool on) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(on ? 8 : 0));
+}
+
+// byte j of w as f32, exactly: its sign-extended value added to 1.5 * 2^23
+// in the float's bits, then 1.5 * 2^23 taken off
+__device__ __forceinline__ float i8_to_f32(unsigned w, int j) {
+  const int q = (int)(w << (24 - 8 * j)) >> 24;
+  return __fadd_rn(__int_as_float(0x4B400000 + q), -12582912.f);
+}
+
+// requires n % G == 0, G a power of two in [16, 512], x, wq, ws, out
+// 16-byte aligned
+template <int BM, int BN, int TM, int TN, int W, int MINB>
+__global__ void __launch_bounds__(kFastThreads * W, MINB)
+q8_fast_tile_kernel(const unsigned short* __restrict__ x,
+                    const int8_t* __restrict__ wq,
                     const float* __restrict__ ws, float* __restrict__ out,
                     int b, int n, int d, int G) {
-  constexpr int BM = 64, TM = 4, TN = 4;
-  constexpr int TY = BM / TM, TX = kFastThreads / TY;
-  static_assert(TX * TN == kFastCols, "a block owns 64 columns");
-  __shared__ float x_sm[BM][kMaxChunk + 1];
-  __shared__ float w_sm[kFastCols][kMaxChunk + 1];
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * kFastCols;
-  const int kc = min(G, kMaxChunk);
-  const int chunks = G / kc;   // chunks per group
-  const int xv = kc / 8;       // 8-value loads per activation row per chunk
-  const int wv = kc / 16;      // int4 loads per weight row per chunk
+  constexpr int NT = kFastThreads, TX = BN / TN, RQ = TM / 4, CQ = TN / 4;
+  static_assert(TX * (BM / TM) == NT && TX % 4 == 0 && BM / TM == 8,
+                "a slice's warps tile the block, 8 x 4 threads each");
+  constexpr int XC = BM * kFastK * 2 / 16;   // 16-byte x pieces a stage
+  static_assert(XC == NT, "one x piece a thread");
+  constexpr int WP = NT / BN;                // pieces of a weight column
+  constexpr int WB = kFastK / WP;            // bytes a piece: 16 or 8
+  static_assert(WP * BN == NT && (WB == 16 || WB == 8), "a piece a thread");
+  constexpr int RB = fast_raw_bytes<BM, BN>();
+  constexpr int SQ = TM * CQ;                // float4 slots a thread's piece
+  extern __shared__ int4 fast_tile_smem_[];
+  char* sm = reinterpret_cast<char*>(fast_tile_smem_);
+  const int slice = threadIdx.x / NT, t = threadIdx.x % NT;
+  char* own = sm + slice * fast_slice_bytes<BM, BN>();
+  auto xs = reinterpret_cast<float (*)[kFastK][BM]>(own);
+  auto wsm = reinterpret_cast<float (*)[kFastK][BN]>(own + 2 * kFastK * BM * 4);
+  char* raw = own + 2 * kFastK * (BM + BN) * 4;
+  float4* osm = reinterpret_cast<float4*>(sm + W * fast_slice_bytes<BM, BN>());
+  float4* park = osm + SQ * NT;   // [2][W - 1][SQ][NT]
+  // a warp takes 8 ty x 4 tx: its x loads read 8 float4s, its weight
+  // loads 4, one wavefront each
+  const int lane = t & 31, wp = t >> 5;
+  const int tx = (wp % (TX / 4)) * 4 + (lane & 3);
+  const int ty = (wp / (TX / 4)) * 8 + (lane >> 2);
+  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
   const int ng = n / G;
-  float o[TM][TN];
+  const int spg = G / kFastK, lsg = 31 - __clz(spg);   // stages a group
+  const int rounds = (ng + W - 1) / W, niter = rounds * spg;
+  // this thread's weight piece: bytes pw * WB .. of column cw's stage
+  const int cw = t % BN, pw = t / BN;
+  const bool won = c0 + cw < d;
+  const int8_t* wsrc = wq + (size_t)(won ? c0 + cw : 0) * n + pw * WB;
+  const float* ssrc = ws + (size_t)(won ? c0 + cw : 0) * ng;
+  const unsigned raw_s = (unsigned)__cvta_generic_to_shared(raw);
+  // the group of the slice's iteration it (>= ng: idle)
+  auto group = [&](int it) { return (it >> lsg) * W + slice; };
+
+  // iteration it's copies into raw stage it % kFastRing, one commit group
+  // (empty when idle). x piece t: row t % BM, k-half t / BM, so that a
+  // warp's pieces land in one row of the transposed buffer
+  auto fetch = [&](int it) {
+    const int g = group(it);
+    if (it < niter && g < ng) {
+      const int k0 = g * G + (it & (spg - 1)) * kFastK;
+      const unsigned st = raw_s + (it % kFastRing) * RB;
+      const int r = t % BM, h = t / BM;
+      const bool on = r0 + r < b;
+      cp_async16_s(st + 16 * t,
+                   on ? (const void*)(x + (size_t)(r0 + r) * n + k0 + 8 * h)
+                      : (const void*)x,
+                   on);
+      const unsigned sw = st + XC * 16;
+      if constexpr (WB == 16)
+        cp_async16_s(sw + 16 * t, wsrc + k0, won);
+      else
+        cp_async8_s(sw + 8 * t, wsrc + k0, won);
+      cp_async4_s(sw + NT * WB + 4 * t, ssrc + g, won);
+    }
+    cp_async_commit();
+  };
+
+  // iteration it's copies, landed (this thread's own), into shared buffer
+  // it & 1: x widened and transposed, the weights dequantized to bf16
+  // values. Without a branch, so that it interleaves with the FMAs: an idle
+  // iteration stashes stale bytes that no sum takes
+  auto stash = [&](int it) {
+    cp_async_wait<kFastRing - 2>();
+    const int buf = it & 1;
+    const char* st = raw + (it % kFastRing) * RB;
+    {
+      const int r = t % BM, h = t / BM;
+      const int4 q = reinterpret_cast<const int4*>(st)[t];
+      const unsigned u[4] = {(unsigned)q.x, (unsigned)q.y, (unsigned)q.z,
+                             (unsigned)q.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        xs[buf][8 * h + 2 * j][r] = __uint_as_float(u[j] << 16);
+        xs[buf][8 * h + 2 * j + 1][r] = __uint_as_float(u[j] & 0xffff0000u);
+      }
+    }
+    const char* sw = st + XC * 16;
+    const float sc = reinterpret_cast<const float*>(sw + NT * WB)[t];
+    unsigned u[WB / 4];
+    if constexpr (WB == 16) {
+      const int4 q = reinterpret_cast<const int4*>(sw)[t];
+      u[0] = q.x; u[1] = q.y; u[2] = q.z; u[3] = q.w;
+    } else {
+      const int2 q = reinterpret_cast<const int2*>(sw)[t];
+      u[0] = q.x; u[1] = q.y;
+    }
+#pragma unroll
+    for (int j = 0; j < WB / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        wsm[buf][pw * WB + 4 * j + e][cw] =
+            round_bf16(__fmul_rn(i8_to_f32(u[j], e), sc));
+  };
+
+  float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) o[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  if (slice == 0) {
+#pragma unroll
+    for (int q = 0; q < SQ; ++q)
+      osm[q * NT + t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 
-  for (int g = 0; g < ng; ++g) {
-    float s[TM][TN];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+  for (int q = 0; q < kFastRing - 1; ++q) fetch(q);
+  stash(0);
+  __syncthreads();
+  for (int it = 0; it < niter; ++it) {
+    fetch(it + kFastRing - 1);
+    const int buf = it & 1, round = it >> lsg;
 #pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-    for (int ch = 0; ch < chunks; ++ch) {
-      const int k0 = g * G + ch * kc;
-      for (int e = tid; e < BM * xv; e += kFastThreads) {
-        const int r = e / xv, v = e % xv;
-        const int4 raw = act.raw8(r0 + r, k0 + 8 * v, n, r0 + r < b);
-        const unsigned short* h = reinterpret_cast<const unsigned short*>(&raw);
+    for (int kk = 0; kk < kFastK; ++kk) {
+      // the next stage into the other buffer (last read before the previous
+      // barrier), halfway, so that its latency hides behind the FMAs (past
+      // the last stage it stashes stale bytes, never read)
+      if (kk == kFastK / 2) stash(it + 1);
+      float xv[TM], wv[TN];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) x_sm[r][8 * v + i] = bf16_bits_to_f32(h[i]);
+      for (int q = 0; q < RQ; ++q) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            &xs[buf][kk][q * (BM / RQ) + 4 * ty]);
+        xv[4 * q] = a.x; xv[4 * q + 1] = a.y;
+        xv[4 * q + 2] = a.z; xv[4 * q + 3] = a.w;
       }
-      for (int e = tid; e < kFastCols * wv; e += kFastThreads) {
-        const int c = e / wv, v = e % wv;
-        int4 raw = make_int4(0, 0, 0, 0);
-        float sc = 0.f;
-        if (c0 + c < d) {
-          raw = __ldg(reinterpret_cast<const int4*>(wq + (size_t)(c0 + c) * n +
-                                                    k0) + v);
-          sc = ws[(size_t)(c0 + c) * ng + g];
+#pragma unroll
+      for (int q = 0; q < CQ; ++q) {
+        const float4 c = *reinterpret_cast<const float4*>(
+            &wsm[buf][kk][q * (BN / CQ) + 4 * tx]);
+        wv[4 * q] = c.x; wv[4 * q + 1] = c.y;
+        wv[4 * q + 2] = c.z; wv[4 * q + 3] = c.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+    }
+    const bool ends = (it & (spg - 1)) == spg - 1;   // the round's groups end
+    if (W > 1 && ends && slice > 0) {   // idle slices park what none adds
+      float4* mine = park + ((size_t)((round & 1) * (W - 1) + slice - 1) * SQ) *
+                                NT + t;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int q = 0; q < CQ; ++q) {
+          mine[(i * CQ + q) * NT] =
+              make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
+                          acc[i][4 * q + 3]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][4 * q + j] = 0.f;
         }
-        const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          w_sm[c][16 * v + i] = round_bf16(__fmul_rn((float)q[i], sc));
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kc; ++kk) {
-        float xr[TM], wr[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) xr[i] = x_sm[ty + TY * i][kk];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) wr[j] = w_sm[tx + TX * j][kk];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) s[i][j] = fmaf(xr[i], wr[j], s[i][j]);
-      }
-      __syncthreads();
     }
+    __syncthreads();
+    if (!ends || slice > 0) continue;
+    // slice 0: o = o + s_g for the round's groups, in order
+    const int live = min(W, ng - round * W);
+    const bool last = round == rounds - 1;
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < TM; ++i) {
+      const int r = r0 + (i / 4) * (BM / RQ) + 4 * ty + (i & 3);
 #pragma unroll
-      for (int j = 0; j < TN; ++j) o[i][j] = __fadd_rn(o[i][j], s[i][j]);
-  }
+      for (int q = 0; q < CQ; ++q) {
+        const int s = i * CQ + q;
+        float4 o = osm[s * NT + t];
+        o.x = __fadd_rn(o.x, acc[i][4 * q]);
+        o.y = __fadd_rn(o.y, acc[i][4 * q + 1]);
+        o.z = __fadd_rn(o.z, acc[i][4 * q + 2]);
+        o.w = __fadd_rn(o.w, acc[i][4 * q + 3]);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + ty + TY * i;
-    if (r >= b) continue;
+        for (int j = 0; j < 4; ++j) acc[i][4 * q + j] = 0.f;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx + TX * j;
-      if (c < d) out[(size_t)r * d + c] = o[i][j];
+        for (int w = 1; w < W; ++w) {
+          if (w >= live) break;
+          const float4 p = park[((size_t)((round & 1) * (W - 1) + w - 1) * SQ +
+                                 s) * NT + t];
+          o.x = __fadd_rn(o.x, p.x);
+          o.y = __fadd_rn(o.y, p.y);
+          o.z = __fadd_rn(o.z, p.z);
+          o.w = __fadd_rn(o.w, p.w);
+        }
+        if (!last) {
+          osm[s * NT + t] = o;
+          continue;
+        }
+        const int c = c0 + q * (BN / CQ) + 4 * tx;
+        if (r >= b) continue;
+        float* dst = out + (size_t)r * d + c;
+        if ((d & 3) == 0 && c + 3 < d) {
+          *reinterpret_cast<float4*>(dst) = o;
+        } else {
+          const float v[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (c + j < d) dst[j] = v[j];
+        }
+      }
     }
   }
+  cp_async_wait<0>();
 }
 
-template <class Act>
-int launch_fast_tile(Act act, const int8_t* wq, const float* ws, float* out,
-                     int b, int n, int d, int G, cudaStream_t s) {
-  const dim3 blocks((unsigned)((d + kFastCols - 1) / kFastCols),
-                    (unsigned)((b + 63) / 64));
-  q8_fast_tile_kernel<Act><<<blocks, kFastThreads, 0, s>>>(act, wq, ws, out,
-                                                           b, n, d, G);
+// The tile kernel on one shape, one launch
+template <int BM, int BN, int TM, int TN, int W, int MINB>
+int launch_fast_tile_shape(const unsigned short* x, const int8_t* wq,
+                           const float* ws, float* out, int b, int n, int d,
+                           int G, cudaStream_t s) {
+  static size_t set[16] = {};
+  constexpr int smem = fast_tile_smem<BM, BN, W>();
+  auto kernel = q8_fast_tile_kernel<BM, BN, TM, TN, W, MINB>;
+  const int err = allow_smem(kernel, smem, set);
+  if (err) return err;
+  const dim3 grid((unsigned)((d + BN - 1) / BN), (unsigned)((b + BM - 1) / BM));
+  kernel<<<grid, kFastThreads * W, smem, s>>>(x, wq, ws, out, b, n, d, G);
   return (int)cudaGetLastError();
 }
 

@@ -101,28 +101,55 @@
 // 8 rows x 64 columns that walks all groups alone runs 16 blocks for wo and
 // w2 on 132 SMs, multiplies 7 zero rows at b = 1, and dequantizes every
 // weight into shared memory (75.9 us for wo at b = 1 against a 0.67 us
-// bound). Two kernels, picked by the call's shape:
-//  - q8_fast_split_kernel (b <= 8, and b > 8 while the tile kernel would
-//    have fewer than 128 blocks): the group split. A thread owns one group
-//    of TN columns (1, or 2 for d > 4224) and keeps that group's fmaf chains
-//    for the block's R rows in registers (R = b rounded up to a power of
-//    two when b <= 8, else 16 or 32 rows a block, the rows split over
-//    blockIdx.y). It issues its 64-byte weight loads (16 bytes a load)
-//    before the block stages the activations, and dequantizes each weight
-//    once, in registers. Lane l of a warp takes group l / SL and column slot
-//    l % SL (SL = 4 / TN), so a warp spans 8 TN groups of 4 columns; WG
-//    warps side by side span a pass of GP groups, WC warps CB = 4 WC
-//    columns. The block stages the pass's activations as f32 in shared
-//    memory, each group's values padded to G + 4 words, so a quarter-warp
-//    reads its float4s from distinct banks and SL lanes share each one.
-//    The chains land in shared memory, and the thread that owns a (row,
-//    column) adds them to its running sum in group order, pass after pass:
-//    the plain version's order. WC is the widest that still gives >= 256
-//    blocks (qwen3-0.6b at b <= 8: wqkv and wo 256, w13 384, w2 256).
-//  - q8_fast_tile_kernel (b > 8 with >= 128 of its blocks): a 64 x 64
-//    tile, 4 x 4 outputs a thread from shared memory, each group's chain
-//    and then the ordered sum in registers. It is the faster of the two at
-//    b = 512 on every qwen3-0.6b matrix and for the classifier from b = 64.
+// bound). Two kernels; the host picks the route
+// (ops/cuda/q8_matmul.py::plan_fast) and passes it in:
+//  - q8_fast_split_kernel (b <= 8, and b > 8 where plan_fast reckons it
+//    faster): the group split. A thread owns one group of TN columns (1,
+//    or 2 for d > 4224) and keeps that group's fmaf chains for the block's
+//    R rows in registers (R = b rounded up to a power of two when b <= 8,
+//    else 16 or 32 rows a block, the rows split over blockIdx.y). It
+//    issues its 64-byte weight loads (16 bytes a load) before the block
+//    stages the activations, and dequantizes each weight once, in
+//    registers. Lane l of a warp takes group l / SL and column slot l % SL
+//    (SL = 4 / TN), so a warp spans 8 TN groups of 4 columns; WG warps side
+//    by side span a pass of GP groups, WC warps CB = 4 WC columns. The
+//    block stages the pass's activations as f32 in shared memory, each
+//    group's values padded to G + 4 words, so a quarter-warp reads its
+//    float4s from distinct banks and SL lanes share each one. The chains
+//    land in shared memory, and the thread that owns a (row, column) adds
+//    them to its running sum in group order, pass after pass: the plain
+//    version's order. WC is the widest that still gives >= 256 blocks
+//    (qwen3-0.6b at b <= 8: wqkv and wo 256, w13 384, w2 256).
+//  - q8_fast_tile_kernel (b > 8, the prefill blocks and the serving step's
+//    wide matrices): a register-blocked, cp.async-pipelined tile on CUDA
+//    cores (q8_kernels.cuh has the details). Its first design (a 64 x 64
+//    tile of 256 threads, 4 x 4 outputs a thread, so 8 scalar shared loads
+//    for every 16 FMAs; activations and weights staged by scalar stores,
+//    two barriers a chunk, no load in flight; 40 blocks for qwen3-4b's wo
+//    and w2 at b = 128, which went to the split kernel) ran qwen3-4b's four
+//    layer matrices at b = 512 in 4.51 ms, 2.6-3.4x their fp32-FMA floor
+//    (1.54 ms), and took 57-68% of the card's busy time in the benchmark's
+//    4B serving cell. Now a block owns 64 rows x 64 or 128 columns and runs
+//    1, 2 or 4 slices of 128 threads, each slice a group in turn, so that a
+//    call of few rows and columns still has warps; a thread holds 8 x 8 (or
+//    8 x 4) outputs fed by 16-byte shared loads (16 FMAs a load); k goes in
+//    16-row stages through two shared buffers, the activations widened to
+//    f32 and transposed, the weights dequantized once a stage for the
+//    block's 64 rows, while cp.async keeps the next two stages' bf16 rows,
+//    int8 columns and scales in flight; one barrier a stage. The group
+//    chains stay in registers, the running sums in shared memory (added
+//    once a group, in order); the next stage's staging sits in the FMA
+//    stream with no branch around it (a branch there cost 5-10%). plan_fast
+//    reckons each of four shapes' time (the busiest SM's blocks at a rate
+//    measured for that many blocks an SM) and the split's, and takes the
+//    least. On an NVIDIA H100 80GB HBM3 at 700 W (the parent's kernel and
+//    this one in one call, us): qwen3-4b at b = 512, wqkv 661 -> 435, wo
+//    547 -> 472, w13 2018 -> 1431, w2 1318 -> 1028 (1.81-2.95x the floor;
+//    1.35x in all, 2.18x the floor); the four at b = 128 1440 -> 1188, at
+//    b = 1024 8200 -> 5854 (1.90x the floor). The kernel issues about 1.2
+//    instructions a FMA and reaches about 57% of the fp32 pipe at three
+//    blocks an SM; calls of one block an SM (qwen3-4b's wo and w2 at b =
+//    128: 80 blocks of 64 x 64 / 4) reach 38-40% on 80 SMs.
 // Both compute each row alone in the same order, so the choice by shape
 // changes no bit.
 
@@ -150,29 +177,52 @@ inline int q8q8_tiles(const int8_t* xq, const float* xs, const int8_t* wq,
                                shape, splits, s);
 }
 
-// The fast matmul at any b: the kernel and its rows a block by the call's
-// shape.
-inline int fast_dispatch(BfGlobal act, const int8_t* wq, const float* ws,
-                         float* out, int b, int n, int d, int G,
-                         cudaStream_t s) {
+// The tile shapes by `shape` (ops/cuda/q8_matmul.py::FAST_TILE_SHAPES, from
+// plan_fast): rows x columns a block / slices, outputs a thread; MINB, the
+// blocks an SM should hold, caps the registers.
+inline int launch_fast_tile(const unsigned short* x, const int8_t* wq,
+                            const float* ws, float* out, int b, int n, int d,
+                            int G, int shape, cudaStream_t s) {
+  switch (shape) {
+    case 0:   // 64 x 128 / 1, 8 x 8: three blocks an SM
+      return launch_fast_tile_shape<64, 128, 8, 8, 1, 3>(x, wq, ws, out, b, n,
+                                                           d, G, s);
+    case 1:   // 64 x 128 / 2, 8 x 8: one block an SM, 8 warps
+      return launch_fast_tile_shape<64, 128, 8, 8, 2, 1>(x, wq, ws, out, b, n,
+                                                           d, G, s);
+    case 2:   // 64 x 64 / 1, 8 x 4: five blocks an SM
+      return launch_fast_tile_shape<64, 64, 8, 4, 1, 4>(x, wq, ws, out, b, n,
+                                                          d, G, s);
+    case 3:   // 64 x 64 / 4, 8 x 4: one block an SM, 16 warps
+      return launch_fast_tile_shape<64, 64, 8, 4, 4, 1>(x, wq, ws, out, b, n,
+                                                          d, G, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fast matmul at any b on the host's route (plan_fast): `route` >= 0 a
+// shape of the tile kernel, else the group split, its rows a block by the
+// call's shape.
+inline int fast_dispatch(const unsigned short* x, const int8_t* wq,
+                         const float* ws, float* out, int b, int n, int d,
+                         int G, int route, cudaStream_t s) {
+  if (route >= 0)
+    return launch_fast_tile(x, wq, ws, out, b, n, d, G, route, s);
+  const BfGlobal act{x};
   const int ng = n / G;
   // two columns a thread where more than about two waves of column blocks
   // share each activation load (measured on qwen3-0.6b's matrices)
   const bool wide = d > kFastWideCols;
   if (b <= 1) return launch_fast_split<1, 1>(act, wq, ws, out, b, n, d, G, s);
-  if (b <= 8) {
-    if (b <= 2)
-      return wide ? launch_fast_split<2, 2>(act, wq, ws, out, b, n, d, G, s)
-                  : launch_fast_split<2, 1>(act, wq, ws, out, b, n, d, G, s);
-    if (b <= 4)
-      return wide ? launch_fast_split<4, 2>(act, wq, ws, out, b, n, d, G, s)
-                  : launch_fast_split<4, 1>(act, wq, ws, out, b, n, d, G, s);
+  if (b <= 2)
+    return wide ? launch_fast_split<2, 2>(act, wq, ws, out, b, n, d, G, s)
+                : launch_fast_split<2, 1>(act, wq, ws, out, b, n, d, G, s);
+  if (b <= 4)
+    return wide ? launch_fast_split<4, 2>(act, wq, ws, out, b, n, d, G, s)
+                : launch_fast_split<4, 1>(act, wq, ws, out, b, n, d, G, s);
+  if (b <= 8)
     return wide ? launch_fast_split<8, 2>(act, wq, ws, out, b, n, d, G, s)
                 : launch_fast_split<8, 1>(act, wq, ws, out, b, n, d, G, s);
-  }
-  if ((size_t)((d + kFastCols - 1) / kFastCols) * ((b + 63) / 64) >=
-      kFastTileBlocks)
-    return launch_fast_tile(act, wq, ws, out, b, n, d, G, s);
   if (G > 64) return launch_fast_split<8, 2>(act, wq, ws, out, b, n, d, G, s);
   if (ng <= 16 && b > 16)
     return launch_fast_split<32, 2>(act, wq, ws, out, b, n, d, G, s);
@@ -184,23 +234,26 @@ inline int fast_dispatch(BfGlobal act, const int8_t* wq, const float* ws,
 extern "C" {
 
 // out = q8_fast(x, wq, ws): x bf16 [b, n], wq int8 [d, n], ws f32 [d, n/G],
-// out f32 [b, d]. Launches on `stream` and returns cudaGetLastError().
+// out f32 [b, d], on `route` (plan_fast's: a tile shape, or -1 the group
+// split). Launches on `stream` and returns cudaGetLastError().
 int q8_fast_matmul(const void* x, const void* wq, const void* ws, void* out,
-                   int b, int n, int d, int group_size, void* stream) {
-  return fast_dispatch(BfGlobal{static_cast<const unsigned short*>(x)},
+                   int b, int n, int d, int group_size, int route,
+                   void* stream) {
+  return fast_dispatch(static_cast<const unsigned short*>(x),
                        static_cast<const int8_t*>(wq),
                        static_cast<const float*>(ws), static_cast<float*>(out),
-                       b, n, d, group_size, static_cast<cudaStream_t>(stream));
+                       b, n, d, group_size, route,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // The same against layer `layer` of stacked weights [L, d, n] / [L, d, n/G].
 int q8_fast_matmul_stacked(const void* x, const void* wq, const void* ws,
                            int layer, void* out, int b, int n, int d,
-                           int group_size, void* stream) {
+                           int group_size, int route, void* stream) {
   const size_t off = (size_t)layer * (size_t)d * (size_t)n;
   const int8_t* wl = static_cast<const int8_t*>(wq) + off;
   const float* sl = static_cast<const float*>(ws) + off / group_size;
-  return q8_fast_matmul(x, wl, sl, out, b, n, d, group_size, stream);
+  return q8_fast_matmul(x, wl, sl, out, b, n, d, group_size, route, stream);
 }
 
 // out = q8q8(xq, xs, wq, ws); gpt = groups per k-tile. At b > 1 `shape`

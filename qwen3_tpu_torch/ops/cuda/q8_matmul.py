@@ -21,7 +21,8 @@ functions keep their JAX layout, w_q int8 [n, d] and w_s f32 [n/G, d].
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `LAUNCHES` counts kernel launches,
-one per call that reaches the kernel.
+one per call that reaches the kernel; its ROUTE_KEYS count the route
+plan_fast gave each pallas-fast call (the tile kernel or the group split).
 """
 
 from __future__ import annotations
@@ -34,7 +35,11 @@ from qwen3_tpu_torch.ops.q8 import quantize_act, round_bf16
 
 LAUNCHES = {"stacked": 0, "tiled": 0, "stacked_fast": 0,
             "tiled_fast": 0, "stacked_int8": 0, "tiled_int8": 0,
-            "fused": 0, "q8q8_pallas": 0, "pallas": 0}
+            "fused": 0, "q8q8_pallas": 0, "pallas": 0,
+            "fast_tile": 0, "fast_split": 0}
+# keys of LAUNCHES that count a route, not a launch: the route plan_fast
+# gave each q8_matmul_*_fast call (one of them a call)
+ROUTE_KEYS = ("fast_tile", "fast_split")
 
 
 def reset_launches() -> None:
@@ -261,31 +266,91 @@ def q8_fast_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
     return out.reshape(*lead, d)
 
 
-def _launch_fast(kind: str, x, w_q, w_s, layer, group_size):
+# the pallas-fast matmul's routes: the group split (q8_fast_split_kernel),
+# which every b <= FAST_SPLIT_ROWS takes, or a shape of q8_fast_tile_kernel,
+# (rows, columns, slices) a block: slices of 128 threads, each a group in
+# turn, 8 x 8 outputs a thread at 128 columns, 8 x 4 at 64
+FAST_SPLIT = -1
+FAST_SPLIT_ROWS = 8
+FAST_TILE_SHAPES = ((64, 128, 1), (64, 128, 2), (64, 64, 1), (64, 64, 4))
+# A shape's FMAs an SM runs a microsecond (1e3 per microsecond is 1e9 per
+# second), by how many of its blocks the busiest SM runs (1, 2, ...; past
+# what an SM holds at once, 3, 1, 4 and 1, they run in waves; the last
+# entry stands for more),
+# and the group split's with a full card: tools.fast_routes on an NVIDIA
+# H100 80GB HBM3 at 700 W, qwen3-4b's and qwen3-0.6b's layer matrices at b
+# = 64-1024 (the fp32 pipe's peak is 253 a microsecond an SM)
+FAST_TILE_RATES = ((110e3, 129e3, 148e3), (121e3,),
+                   (82e3, 98e3, 112e3, 115e3, 120e3), (99e3,))
+FAST_SPLIT_RATE = 55e3
+
+
+def fast_tile_us(shape: int, b: int, n: int, d: int, sms: int = 132) -> float:
+    """The tile kernel's time on `shape` as plan_fast reckons it: the
+    busiest SM's blocks (the grid over `sms`, rounded up) times a block's
+    rows x columns x n FMAs, at the rate of that many blocks an SM."""
+    rows, cols, _ = FAST_TILE_SHAPES[shape]
+    rates = FAST_TILE_RATES[shape]
+    per_sm = -(-(-(-d // cols) * -(-b // rows)) // sms)
+    return per_sm * rows * cols * n / rates[min(per_sm, len(rates)) - 1]
+
+
+def plan_fast(b: int, n: int, d: int, group_size: int,
+              sms: int = 132) -> int:
+    """The fast matmul's route: FAST_SPLIT up to FAST_SPLIT_ROWS rows; above,
+    the shape of FAST_TILE_SHAPES with the least fast_tile_us (on a tie the
+    first), or FAST_SPLIT where the group split's b n d FMAs at
+    FAST_SPLIT_RATE an SM take less. Every route computes each row alone in
+    the same order, so the plan changes no bit."""
+    del group_size
+    if b <= FAST_SPLIT_ROWS:
+        return FAST_SPLIT
+    times = [fast_tile_us(s, b, n, d, sms)
+             for s in range(len(FAST_TILE_SHAPES))]
+    best = min(range(len(times)), key=times.__getitem__)
+    split = b * n * d / (FAST_SPLIT_RATE * sms)
+    return best if times[best] < split else FAST_SPLIT
+
+
+def q8_fast_launch(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                   group_size: int, route: int | None = None,
+                   layer: int | None = None) -> torch.Tensor:
+    """The fast kernel on CUDA tensors against w_q [d, n] or layer `layer`
+    of stacked weights [L, d, n], on plan_fast's route (`route` None, as
+    the wrappers call it) or a given one: FAST_SPLIT or a shape of
+    FAST_TILE_SHAPES, which chip_smoke.py, the card tests and
+    tools.fast_routes force to hold and time them. Raises on a refused
+    launch."""
     from qwen3_tpu_torch.ops.cuda.build import load_library
 
     x = x.to(torch.bfloat16).contiguous()
     _check(x, None, w_q, w_s, group_size, stacked=layer is not None)
-    lib = load_library()
     *lead, n = x.shape
     d = w_q.shape[-2]
     b = x.numel() // n
+    if route is None:
+        route = plan_fast(b, n, d, group_size, _sm_count(x.device))
+    if route != FAST_SPLIT and route not in range(len(FAST_TILE_SHAPES)):
+        raise ValueError(f"route must be FAST_SPLIT or a shape of "
+                         f"FAST_TILE_SHAPES, got {route}")
+    lib = load_library()
     out = torch.empty(b, d, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if layer is None:
         err = lib.q8_fast_matmul(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
-                                 out.data_ptr(), b, n, d, group_size, stream)
+                                 out.data_ptr(), b, n, d, group_size, route,
+                                 stream)
     else:
         if not 0 <= layer < w_q.shape[0]:
             raise IndexError(f"layer {layer} outside [0, {w_q.shape[0]})")
         err = lib.q8_fast_matmul_stacked(x.data_ptr(), w_q.data_ptr(),
                                          w_s.data_ptr(), layer,
                                          out.data_ptr(), b, n, d, group_size,
-                                         stream)
+                                         route, stream)
     if err != 0:
-        raise RuntimeError(f"q8 fast {kind} kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES[kind] += 1
+        raise RuntimeError(f"q8 fast kernel launch failed: CUDA error {err}")
+    LAUNCHES["tiled_fast" if layer is None else "stacked_fast"] += 1
+    LAUNCHES["fast_split" if route == FAST_SPLIT else "fast_tile"] += 1
     return out.reshape(*lead, d)
 
 
@@ -295,7 +360,7 @@ def q8_matmul_tiled_fast(x: torch.Tensor, w_q: torch.Tensor,
     dequantized to bf16 (the classifier of mode pallas-fast)."""
     if x.device.type == "cpu":
         return q8_fast_matmul_plain(x, w_q, w_s, group_size)
-    return _launch_fast("tiled_fast", x, w_q, w_s, None, group_size)
+    return q8_fast_launch(x, w_q, w_s, group_size)
 
 
 def q8_matmul_stacked_fast(x: torch.Tensor, w_q: torch.Tensor,
@@ -305,7 +370,7 @@ def q8_matmul_stacked_fast(x: torch.Tensor, w_q: torch.Tensor,
     weights [L, d, n] dequantized to bf16."""
     if x.device.type == "cpu":
         return q8_fast_matmul_plain(x, w_q[layer], w_s[layer], group_size)
-    return _launch_fast("stacked_fast", x, w_q, w_s, int(layer), group_size)
+    return q8_fast_launch(x, w_q, w_s, group_size, layer=int(layer))
 
 
 # -- pallas-int8 -----------------------------------------------------------
@@ -510,6 +575,7 @@ def q8_matmul_fused(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
         else:
             act = [torch.empty(b, n, dtype=torch.bfloat16, device=x.device),
                    None]
+            shape = plan_fast(b, n, d, group_size, _sm_count(x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [None if t is None else t.data_ptr() for t in (part, *act)]
     err = lib.q8_fused_matmul(xf.data_ptr(), *args, w_q.data_ptr(),

@@ -65,29 +65,52 @@ def test_kernel_matches_plain_on_card(dev, b, n, g):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("b", [1, 2, 8, 9, 64, 130])
-@pytest.mark.parametrize("n,g", [(128, 32), (1024, 64), (3072, 64)])
-def test_fast_kernel_matches_plain_on_card(dev, b, n, g):
-    """The pallas-fast kernels (the group split at 1, 2, 4 or 8 rows a
-    block for b <= 8, at 16 or 32 rows a block above), bit for bit, with one
-    launch counted per call."""
-    rng = np.random.default_rng(b * 7 + n)
-    x = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
+# qwen3-4b's layer matrices (n, d): wqkv, wo, w13, w2
+QWEN3_4B_MATRICES = ((2560, 6144), (4096, 2560), (2560, 19456), (9728, 2560))
+FAST_CASES = ([(b, n, g, 200) for n, g in ((128, 32), (1024, 64), (3072, 64))
+               for b in (1, 2, 8, 9, 64, 130)]
+              + [(b, n, 64, d) for n, d in QWEN3_4B_MATRICES
+                 for b in (64, 128, 384, 1024)])
+
+
+def _assert_one_route(b, n, d, g, kind):
+    """One launch of `kind` and one route count, the route plan_fast's."""
+    route = tq.plan_fast(b, n, d, g, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert tq.LAUNCHES[kind] == 1
+    assert tq.LAUNCHES["fast_split" if route == tq.FAST_SPLIT
+                       else "fast_tile"] == 1
+    assert sum(tq.LAUNCHES[k] for k in tq.ROUTE_KEYS) == 1
+    return route
+
+
+@pytest.mark.parametrize("b,n,g,d", FAST_CASES)
+def test_fast_kernel_matches_plain_on_card(dev, b, n, g, d):
+    """The pallas-fast kernels on plan_fast's route (the group split at 1,
+    2, 4 or 8 rows a block for b <= 8, the tile kernel's shapes or the
+    split above), bit for bit against the plain version and against the
+    same rows of the b = 1024 call, with one launch and one route counted
+    per call; qwen3-4b's layer matrices at b >= 128 take the tile."""
+    rng = np.random.default_rng(b * 7 + n + d)
+    x = torch.from_numpy(rng.standard_normal((1024, n)).astype(np.float32))
     x = x.to(dev).to(torch.bfloat16)
-    wq = torch.from_numpy(rng.integers(-127, 128, size=(2, 200, n)).astype(
-        np.int8)).to(dev)
-    ws = torch.from_numpy((0.02 / 127 * (0.5 + rng.random(
-        (2, 200, n // g)))).astype(np.float32)).to(dev)
+    wq, ws = _weights(rng, 2, d, n, g, dev)
+    widest = tq.q8_matmul_stacked_fast(x, wq, ws, 1, g)
+    xb = x[:b].contiguous()
     tq.reset_launches()
-    got = tq.q8_matmul_stacked_fast(x, wq, ws, 1, g)
-    want = tq.q8_fast_matmul_plain(x, wq[1], ws[1], g)
+    got = tq.q8_matmul_stacked_fast(xb, wq, ws, 1, g)
+    want = tq.q8_fast_matmul_plain(xb, wq[1], ws[1], g)
     torch.cuda.synchronize()
-    assert tq.LAUNCHES["stacked_fast"] == 1
+    route = _assert_one_route(b, n, d, g, "stacked_fast")
+    if (n, d) in QWEN3_4B_MATRICES and b >= 128:
+        assert route != tq.FAST_SPLIT
     assert torch.equal(got, want)
-    got = tq.q8_matmul_tiled_fast(x, wq[0], ws[0], g)
+    assert torch.equal(got, widest[:b])
+    tq.reset_launches()
+    got = tq.q8_matmul_tiled_fast(xb, wq[0], ws[0], g)
     torch.cuda.synchronize()
-    assert tq.LAUNCHES["tiled_fast"] == 1
-    assert torch.equal(got, tq.q8_fast_matmul_plain(x, wq[0], ws[0], g))
+    _assert_one_route(b, n, d, g, "tiled_fast")
+    assert torch.equal(got, tq.q8_fast_matmul_plain(xb, wq[0], ws[0], g))
 
 
 def test_fast_kernel_rows_do_not_depend_on_the_batch(dev):
@@ -116,23 +139,37 @@ RAGGED_SHAPES = ((1024, 64, 200), (3072, 64, 1000), (1024, 32, 200),
                  (1536, 64, 72))
 
 
-@pytest.mark.parametrize("n,g,d", RAGGED_SHAPES)
-@pytest.mark.parametrize("b", RAGGED_B)
+# the fast kernel's own: d off every tile's columns and off 4 (scalar
+# stores), G 16 and 256, and a qwen3-4b-wide contraction at 2600 columns
+FAST_RAGGED_SHAPES = ((1024, 16, 198), (2048, 256, 136), (2560, 64, 2600))
+
+
+@pytest.mark.parametrize("n,g,d", RAGGED_SHAPES + FAST_RAGGED_SHAPES)
+@pytest.mark.parametrize("b", RAGGED_B + (200, 511))
 def test_fast_kernel_ragged_rows_on_card(dev, b, n, g, d):
-    """The group-split fast kernel at ragged b and d: bit-equal to its plain
+    """The fast kernel at ragged b and d, on plan_fast's route and forced on
+    every other (the group split, each tile shape): bit-equal to its plain
     version, each row equal to the same row of the b = 512 call, one launch
-    a call."""
+    and one route a call."""
     rng = np.random.default_rng(b + n + d + g)
     x = torch.from_numpy(rng.standard_normal((512, n)).astype(
         np.float32)).to(dev).to(torch.bfloat16)
     wq, ws = _weights(rng, 2, d, n, g, dev)
     widest = tq.q8_matmul_stacked_fast(x, wq, ws, 1, g)
+    xb = x[:b].contiguous()
     tq.reset_launches()
-    got = tq.q8_matmul_stacked_fast(x[:b].contiguous(), wq, ws, 1, g)
+    got = tq.q8_matmul_stacked_fast(xb, wq, ws, 1, g)
     torch.cuda.synchronize()
-    assert tq.LAUNCHES["stacked_fast"] == 1
-    assert torch.equal(got, tq.q8_fast_matmul_plain(x[:b], wq[1], ws[1], g))
+    _assert_one_route(b, n, d, g, "stacked_fast")
+    want = tq.q8_fast_matmul_plain(xb, wq[1], ws[1], g)
+    assert torch.equal(got, want)
     assert torch.equal(got, widest[:b])
+    for route in (tq.FAST_SPLIT, *range(len(tq.FAST_TILE_SHAPES))):
+        tq.reset_launches()
+        forced = tq.q8_fast_launch(xb, wq, ws, g, route, layer=1)
+        torch.cuda.synchronize()
+        assert tq.LAUNCHES["stacked_fast"] == 1
+        assert torch.equal(forced, want), route
 
 
 @pytest.mark.parametrize("n,g,d", RAGGED_SHAPES + ((768, 64, 200),))

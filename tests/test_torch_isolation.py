@@ -54,7 +54,7 @@ def test_no_jax_import_in_source(path):
 # the port's modules (packages included, __main__ excluded): a module that
 # disappears, or fails to be found, lowers the count and fails the check;
 # a new module raises it here
-N_MODULES = 59
+N_MODULES = 60
 
 
 def test_importing_every_port_module_leaves_jax_unloaded():

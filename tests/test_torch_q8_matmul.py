@@ -178,7 +178,7 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
     assert tq.LAUNCHES == {"stacked": 0, "tiled": 0, "stacked_fast": 0,
                            "tiled_fast": 0, "stacked_int8": 0,
                            "tiled_int8": 0, "fused": 0, "q8q8_pallas": 0,
-                           "pallas": 0}
+                           "pallas": 0, "fast_tile": 0, "fast_split": 0}
 
 
 def test_non_cpu_tensor_never_takes_plain_version():
