@@ -38,30 +38,29 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def control_tokens(eng, picked, ref, mode: str = "pallas-int8") -> list:
+def control_tokens(eng, model, picked, ref, dev,
+                   mode: str = "pallas-int8") -> list:
     """At each position of each sampled sequence, the token that the
-    program's forward in `mode` leads to (the same parameters, an int8 KV
-    cache of its own, prefill blocks of 512 rows): its argmax for a greedy
-    request, the reference's sampler over its logits with the request's
-    coin for a sampled one."""
+    program's forward in `mode` leads to (the model module's port_forward:
+    the same parameters, an int8 KV cache of its own, prefill blocks of
+    512 rows): its argmax for a greedy request, the reference's sampler
+    over its logits with the request's coin for a sampled one."""
     import torch
 
     from cudabench.core import check
-    from qwen3_tpu_torch.models.qwen3 import forward, init_kv_cache
 
-    dev = eng.params["emb_q"].device
     seqs, first, served, draws = check.inputs(picked)
     out = []
     for seq, f, sv, d in zip(seqs, first, served, draws):
         rows = -(-len(seq) // 128) * 128
-        k, v = init_kv_cache(eng.cfg, 1, rows, "int8", dev)
+        k, v = model.port_cache(eng.cfg, rows, dev)
         coin = None if d is None else torch.tensor(ref.coins(d[2], len(sv)),
                                                    device=dev)
         got = []
         for off in range(0, len(seq), 512):
             blk = torch.tensor([seq[off:off + 512]], device=dev)
-            logits, k, v = forward(eng.params, eng.cfg, blk, k, v, off,
-                                   mode=mode, all_logits=True)
+            logits, k, v = model.port_forward(eng.params, eng.cfg, blk, k, v,
+                                              off, mode)
             lo, hi = max(f, off), min(f + len(sv), off + blk.shape[1])
             if lo < hi:
                 got.extend(ref.pick_rows(
@@ -74,13 +73,13 @@ def control_tokens(eng, picked, ref, mode: str = "pallas-int8") -> list:
 
 def reference_tokens(cell, run, seed: int, dev) -> list:
     """The reference's own picks with float8 activations."""
-    from cudabench.core import bench, check, weights
+    from cudabench.core import bench, check
 
     seqs, first, served, draws = check.inputs(bench.picked(cell, run, seed))
     if not seqs:
         return []
     ref = bench.reference_of(cell)
-    w = weights.make(run.sizes, seed, cell.config["weights"], dev)
+    w = run.model.make(run.sizes, seed, cell.config["weights"], dev)
     return ref.picks(w, run.sizes, seqs, first, [len(s) for s in served],
                      draws, dev, act=ref.fp8_rows)
 
@@ -97,7 +96,8 @@ def readings(cell, seed: int, seconds: float, dev, modes=()) -> tuple:
         for mode in modes:
             if mode.startswith("pallas"):
                 got[mode] = control_tokens(
-                    eng, bench.picked(cell, run, seed), ref, mode)
+                    eng, run.model, bench.picked(cell, run, seed), ref, dev,
+                    mode)
 
     t0 = time.perf_counter()
     run, _ = bench.serve(cell, seed, seconds, False, dev, t0,

@@ -23,8 +23,9 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import ModuleType
 
-from cudabench.core import check, spec, stats, tokfile, weights
+from cudabench.core import check, spec, stats, tokfile
 from cudabench.core.loop import ClosedLoop
 from cudabench.core.traffic import RequestStream
 
@@ -40,9 +41,11 @@ def forbidden_modules(modules=None) -> list[str]:
 
 @dataclasses.dataclass
 class Run:
-    """What a metric's reader reads: the cell, the model's sizes, the
-    closed loop's records and window, and the traced sub-window."""
+    """What a metric's reader reads: the cell, its model module
+    (models/<model>.py) and the model's sizes, the closed loop's records
+    and window, and the traced sub-window."""
     cell: spec.Cell
+    model: ModuleType
     sizes: dict
     engine: dict
     setup_s: float
@@ -111,19 +114,20 @@ def serve(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     `after_window(engine, run)` runs before the engine is freed."""
     import torch
 
-    from qwen3_tpu_torch.models import qwen3
     from qwen3_tpu_torch.runtime.batched import BatchedEngine, Request
 
     cfg, mix, eng_set = cell.config, cell.traffic, cell.config["engine"]
-    sizes = weights.sizes_of(cfg)
+    model = model_of(cell)
+    calls = model.counters()
+    sizes = model.sizes_of(cfg)
     clock = time.perf_counter
     phases = {"imports": clock() - t_start}
-    w = weights.make(sizes, seed, cfg["weights"], device)
+    w = model.make(sizes, seed, cfg["weights"], device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     phases["weights"] = clock() - t_start
-    mcfg, params = weights.to_port(w, sizes, eng_set["seq_len"],
-                                   eng_set["mode"], device)
+    mcfg, params = model.to_port(w, sizes, eng_set["seq_len"],
+                                 eng_set["mode"], device)
     phases["init_params"] = clock() - t_start
     with tempfile.TemporaryDirectory(prefix="cudabench-") as tmp:
         tok = Path(tmp) / "bytes"
@@ -140,19 +144,19 @@ def serve(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     del params
     phases["engine"] = clock() - t_start
     loop = ClosedLoop(eng, RequestStream(mix, seed), int(mix["clients"]),
-                      steps=lambda: qwen3.CALLS["decode_forward"],
+                      steps=lambda: calls["decode_forward"],
                       request_type=Request)
     tracer = None
     if trace:
         from cudabench.core.trace import Tracer
         tracer = Tracer(loop, chunks=int(cell.settings["trace"]["chunks"]),
-                        counters=lambda: qwen3.CALLS,
+                        counters=lambda: calls,
                         cuda=device.type == "cuda")
     loop.run(seconds)
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     phases["window"] = loop.t0 - t_start
-    run = Run(cell=cell, sizes=sizes, engine=eng_set,
+    run = Run(cell=cell, model=model, sizes=sizes, engine=eng_set,
               setup_s=loop.t0 - t_start, loop=loop, phases=phases)
     if after_window is not None:
         after_window(eng, run)
@@ -167,10 +171,21 @@ def serve(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     return run, peak
 
 
-def reference_of(cell: spec.Cell):
-    return spec.load_module(
-        cell.bench_dir / "reference" / f"{cell.config['reference']}.py",
-        f"cudabench_reference_{cell.config['reference']}")
+def _module_of(cell: spec.Cell, key: str, folder: str) -> ModuleType:
+    name = cell.config[key]
+    return spec.load_module(cell.bench_dir / folder / f"{name}.py",
+                            f"cudabench_{folder}_{name}")
+
+
+def model_of(cell: spec.Cell) -> ModuleType:
+    """The configuration's model module: its sizes, tensors, hand-over
+    to the port and work counts (models/<model>.py)."""
+    return _module_of(cell, "model", "models")
+
+
+def reference_of(cell: spec.Cell) -> ModuleType:
+    """The configuration's plain reference (reference/<reference>.py)."""
+    return _module_of(cell, "reference", "reference")
 
 
 def picked(cell: spec.Cell, run: Run, seed: int) -> list:
@@ -187,7 +202,7 @@ def judge(cell: spec.Cell, run: Run, seed: int, device,
           extra_picks=None):
     """The reference's judgement of the run's served tokens (and of
     further token lists over the same sample, `extra_picks`)."""
-    w = weights.make(run.sizes, seed, cell.config["weights"], device)
+    w = run.model.make(run.sizes, seed, cell.config["weights"], device)
     return check.judge(reference_of(cell), w, run.sizes,
                        picked(cell, run, seed), cell.settings["check"],
                        device, extra_picks)

@@ -7,7 +7,7 @@ runs each prompt (the benchmark's own ids) with its served tokens once.
 At a greedy token it reads how far the token's logit lies below its best:
 a sound program's greedy token is the reference's argmax up to the
 program's rounding. At a sampled token it replays the request's sampler
-with the request's own coin (reference/qwen3.py: temperature, nucleus,
+with the request's own coin (reference/<reference>.py: temperature, nucleus,
 the coin's place among the prefix sums) and reads how far, in probability
 mass, the coin lies from the span the reference gives the served token: a
 sound program's coin lies in it up to the rounding of the sums before it.

@@ -8,15 +8,15 @@ worker pool. Only the engine's public API is used: `submit`, `run`,
 
 The engine hands a slot's tokens to its client once a decode chunk, all
 slots one after another: a *burst* of deliveries. A burst is named by the
-program's count of decode steps at the time (models/qwen3.py::CALLS,
-"decode_forward"), which does not change inside a burst. The first burst
-ends set-up (the first wave prefilled, one chunk decoded) and opens the
-window; the window closes at the first burst that comes `seconds` after
-it. Tokens are counted by burst, so the window holds whole chunks. After
-the close the loop serves on until the closing burst is complete, every
-request submitted in the window has its first token and every hold (a
-traced sub-window) is released, at most `grace` seconds, then stops the
-engine from inside a callback.
+program's count of decode steps at the time (the model module's
+`counters()["decode_forward"]`), which does not change inside a burst.
+The first burst ends set-up (the first wave prefilled, one chunk decoded)
+and opens the window; the window closes at the first burst that comes
+`seconds` after it. Tokens are counted by burst, so the window holds whole
+chunks. After the close the loop serves on until the closing burst is
+complete, every request submitted in the window has its first token and
+every hold (a traced sub-window) is released, at most `grace` seconds,
+then stops the engine from inside a callback.
 """
 
 from __future__ import annotations

@@ -3,10 +3,12 @@
 A workload entry names a configuration and a traffic mix; each lives in a
 file of its own (`configs/<config>.json`, `traffic/<traffic>.json`), and
 the cell's own settings (its correctness limit, its traced chunks) in
-`cells/<workload>.json`. A metric is read by `e2e/<name>.py` (end to end)
-or `metrics/<name>.py` (per layer), each a module with `read(run)`. So a
-cell, a model, a mix or a metric is added as files and entries, and no
-file of the harness names one.
+`cells/<workload>.json`. A configuration names its model module
+(`models/<model>.py`: its sizes, tensors, hand-over to the port and work
+counts) and its plain reference (`reference/<reference>.py`). A metric is
+read by `e2e/<name>.py` (end to end) or `metrics/<name>.py` (per layer),
+each a module with `read(run)`. So a cell, a model, a mix or a metric is
+added as files and entries, and no file of the harness names one.
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ def _json(path: Path) -> dict:
 
 
 def load_module(path: Path, name: str) -> ModuleType:
-    """A reader or reference module from its file (not from sys.path, so
-    that a checkout's own copy is the one that runs)."""
+    """A reader, model or reference module from its file (not from
+    sys.path, so that a checkout's own copy is the one that runs)."""
     spec = importlib.util.spec_from_file_location(name, path)
     if spec is None or spec.loader is None:
         raise FileNotFoundError(path)

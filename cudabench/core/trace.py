@@ -31,9 +31,8 @@ TOP = 10
 
 def short_name(name: str) -> str:
     """A kernel's name without `void`, an anonymous namespace, its
-    template arguments and its parameters: `(anonymous namespace)::
-    q8_fast_tile_kernel<(anonymous namespace)::BfGlobal>(...)` ->
-    `q8_fast_tile_kernel`."""
+    template arguments and its parameters: `void (anonymous namespace)::
+    k<(anonymous namespace)::T>(int)` -> `k`."""
     name = re.sub(r"^void ", "", name).replace("(anonymous namespace)::", "")
     depth, out = 0, []
     for ch in name:
@@ -56,7 +55,7 @@ class Trace:
     ops: list            # (short name, start s, seconds, category)
     device_ops: list     # [[name, seconds]], most time first
     idle_gaps: list      # [[host op, seconds]], most idle time first
-    steps: int           # decode steps (models/qwen3.py CALLS)
+    steps: int           # decode steps (the model module's counters())
     forwards: int        # prefill block forwards
     bursts: tuple        # (first, last) burst of the sub-window
 

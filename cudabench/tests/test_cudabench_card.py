@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import tiny
-from cudabench.core import bench, weights
+from cudabench.core import bench
 
 
 @pytest.fixture
@@ -24,9 +24,10 @@ def card():
 
 @pytest.mark.cuda
 def test_weights_on_the_card_follow_the_seed(card):
-    s = weights.sizes_of(tiny.CONFIG)
-    a = weights.make(s, 2**31 + 9, tiny.CONFIG["weights"], card)
-    b = weights.make(s, 2**31 + 9, tiny.CONFIG["weights"], card)
+    model = tiny.model()
+    s = model.sizes_of(tiny.CONFIG)
+    a = model.make(s, 2**31 + 9, tiny.CONFIG["weights"], card)
+    b = model.make(s, 2**31 + 9, tiny.CONFIG["weights"], card)
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert a["wq_q"].device.type == "cuda"
 

@@ -9,9 +9,12 @@ import pytest
 import torch
 
 import tiny
-from cudabench.core import spec, weights
+from cudabench.core import spec
 
 BENCH = Path(__file__).resolve().parents[1]
+
+
+MODEL = tiny.model()
 
 
 def reference():
@@ -33,14 +36,14 @@ def test_reference_logits_match_the_port(mode):
     from qwen3_tpu_torch.models.qwen3 import forward, init_kv_cache
 
     ref = reference()
-    s = weights.sizes_of(tiny.CONFIG)
+    s = MODEL.sizes_of(tiny.CONFIG)
     cpu = torch.device("cpu")
     seq = [(7 * i + 40) % 250 for i in range(60)]
-    w = weights.make(s, 5, tiny.CONFIG["weights"], cpu)
+    w = MODEL.make(s, 5, tiny.CONFIG["weights"], cpu)
     cls = ref.dequant(w["cls_q"], w["cls_s"], s["group_size"])
     want = ref.rmsnorm(ref.hidden(w, s, [seq], cpu)[0], w["out_norm"],
                        s["rms_eps"]) @ cls.T
-    cfg, params = weights.to_port(w, s, 128, mode, cpu)
+    cfg, params = MODEL.to_port(w, s, 128, mode, cpu)
     k, v = init_kv_cache(cfg, 1, 128, "float32", cpu)
     got = forward(params, cfg, torch.tensor([seq]), k, v, 0, mode=mode,
                   all_logits=True)[0][0]
@@ -53,9 +56,9 @@ def test_reference_logits_match_the_port(mode):
 
 def test_gaps_are_zero_for_the_references_own_picks():
     ref = reference()
-    s = weights.sizes_of(tiny.CONFIG)
+    s = MODEL.sizes_of(tiny.CONFIG)
     cpu = torch.device("cpu")
-    w = weights.make(s, 6, tiny.CONFIG["weights"], cpu)
+    w = MODEL.make(s, 6, tiny.CONFIG["weights"], cpu)
     seqs = [[65, 66, 67, 68], [70, 71], [72, 73, 74]]
     first = [1, 0, 2]
     draws = [None, None, (0.7, 0.9, 2**63 + 5)]

@@ -17,7 +17,7 @@ import torch
 
 import tiny
 from cudabench import faults
-from cudabench.core import bench, check
+from cudabench.core import bench, check, spec
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -48,11 +48,19 @@ def root(tmp_path_factory):
 
 def test_harness_names_no_cell_model_mix_or_metric():
     bench_json = json.loads((ROOT / "BENCHMARK.json").read_text())
+    configs = [json.loads((ROOT / c["file"]).read_text())
+               for c in bench_json["configs"]]
+    models = [tiny.model(c["model"]) for c in configs]
     names = ({w["name"] for w in bench_json["workloads"]}
              | {w["config"] for w in bench_json["workloads"]}
              | {w["traffic"] for w in bench_json["workloads"]}
-             | {m["name"] for m in bench_json["per_layer"]})
-    code = [BENCH / "run.py"] + sorted((BENCH / "core").glob("*.py"))
+             | {m["name"] for m in bench_json["per_layer"]}
+             | {c[key] for c in configs for key in ("model", "reference")}
+             | {k for m in models for f in m.FAMILIES.values()
+                for k in f.kernels})
+    code = ([BENCH / "run.py", BENCH / "control.py"]
+            + sorted((BENCH / "core").glob("*.py"))
+            + sorted((BENCH / "metrics").glob("_*.py")))
     for path in code:
         text = path.read_text()
         for name in names:
@@ -81,6 +89,21 @@ def test_a_throwaway_metric_is_read_in_the_traced_run(root):
     # the CPU has no device trace: its readers return nothing, never 0
     assert "matmul_roofline" not in res["metrics"]
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+def test_a_throwaway_model_runs_from_its_files(tmp_path):
+    """A model with another tensor set (w1 and w3 as one family), added
+    as a model module, a reference and entries alone."""
+    root = tiny.make_root(tmp_path, config=tiny.W13_CONFIG,
+                          files=tiny.W13_FILES)
+    rc, res = run_cell(root, seed=2**31 + 77)
+    assert rc == 0
+    assert res["correct"] is True, res["checks"]
+    assert res["checks"]["tokens"]["value"] >= 8
+    model = bench.model_of(spec.load_cell(root, "tiny"))
+    w = model.make(model.sizes_of(tiny.W13_CONFIG), 1,
+                   tiny.W13_CONFIG["weights"], torch.device("cpu"))
+    assert "w13_q" in w and "w1_q" not in w and "w3_q" not in w
 
 
 def test_an_unknown_workload_is_refused(root):

@@ -1,13 +1,15 @@
 """The traffic, the weights and the prompts come from the seed alone."""
 
 import collections
+import hashlib
 import json
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from cudabench.core import tokfile, weights
+import tiny
+from cudabench.core import tokfile
 from cudabench.core.traffic import RequestStream, quantiles
 
 BENCH = Path(__file__).resolve().parents[1]
@@ -85,7 +87,8 @@ def test_prompts_are_their_own_ids(tmp_path):
 
 
 def test_same_seed_same_weights_other_seed_others():
-    s = weights.sizes_of({
+    model = tiny.model()
+    s = model.sizes_of({
         "hidden_size": 64, "intermediate_size": 128,
         "num_hidden_layers": 2, "num_attention_heads": 4,
         "num_key_value_heads": 2, "head_dim": 16, "vocab_size": 300,
@@ -93,9 +96,9 @@ def test_same_seed_same_weights_other_seed_others():
         "rope_theta": 1e6, "quantization": {"group_size": 32}})
     spec = {"scale": 0.02}
     cpu = torch.device("cpu")
-    a = weights.make(s, 2**31 + 3, spec, cpu)
-    b = weights.make(s, 2**31 + 3, spec, cpu)
-    c = weights.make(s, 2**31 + 4, spec, cpu)
+    a = model.make(s, 2**31 + 3, spec, cpu)
+    b = model.make(s, 2**31 + 3, spec, cpu)
+    c = model.make(s, 2**31 + 4, spec, cpu)
     assert a.keys() == b.keys()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["wq_q"], c["wq_q"])
@@ -104,3 +107,21 @@ def test_same_seed_same_weights_other_seed_others():
     assert int(a["wq_q"].min()) >= -127
     counts = collections.Counter(np.sign(a["w1_q"].numpy().ravel()))
     assert counts[1] > 0 and counts[-1] > 0
+
+
+def checksum(w: dict) -> str:
+    h = hashlib.sha256()
+    for k in sorted(w):
+        h.update(k.encode())
+        h.update(w[k].contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def test_the_tiny_tensors_keep_their_bytes():
+    """The dense block's tensors at one seed, byte for byte as the harness
+    made them before the model module held their families and order."""
+    model = tiny.model()
+    w = model.make(model.sizes_of(tiny.CONFIG), 2**31 + 12345,
+                   tiny.CONFIG["weights"], torch.device("cpu"))
+    assert checksum(w) == ("e84be4b51c4d37201125c9bba3a6969d"
+                           "6f156526fc6ce228cfb161e9d1ce2b28")

@@ -1,6 +1,8 @@
 """A throwaway cell at a size the CPU runs in seconds, written as files
 into a copy of the benchmark: BENCHMARK.json names it, and its config,
-mix and cell settings are files of their own, found by name."""
+mix and cell settings are files of their own, found by name; so can be
+its model module and its reference (`tiny_w13`, a model with another
+tensor set than the dense block's)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,10 @@ import json
 import shutil
 from pathlib import Path
 
+from cudabench.core.spec import load_module
+
 ROOT = Path(__file__).resolve().parents[2]
+HERE = Path(__file__).resolve().parent
 
 CONFIG = {
     "name": "tiny-test", "source": "test-only",
@@ -23,8 +28,14 @@ CONFIG = {
     "engine": {"mode": "pallas-fast", "kv_dtype": "int8", "attn": "auto",
                "decode_chunk": 8, "prefill_bucket": 32, "top_k": 64,
                "max_batch": 4, "seq_len": 256},
-    "reference": "qwen3",
+    "model": "qwen3", "reference": "qwen3",
 }
+
+# the test-only model whose w1 and w3 are one stacked family: its module
+# and its reference, as files of their own (models/, reference/)
+W13_FILES = {"models/tiny_w13.py": HERE / "tiny_w13_model.py",
+             "reference/tiny_w13.py": HERE / "tiny_w13_reference.py"}
+W13_CONFIG = {**CONFIG, "model": "tiny_w13", "reference": "tiny_w13"}
 
 MIX = {
     "why": "test-only", "clients": 4, "block": 4,
@@ -41,11 +52,20 @@ CELL = {"check": {"served_tokens": 64, "sampled_tokens": 64, "min_tokens": 8,
         "trace": {"chunks": 1}}
 
 
+def model(name: str = "qwen3"):
+    """The benchmark's model module `name` (models/<name>.py)."""
+    return load_module(ROOT / "cudabench" / "models" / f"{name}.py",
+                       f"tiny_model_{name}")
+
+
 def make_root(tmp: Path, *, config=None, mix=None, cell=None,
-              metrics: dict | None = None) -> Path:
+              metrics: dict | None = None,
+              files: dict | None = None) -> Path:
     """A copy of the benchmark under `tmp` whose BENCHMARK.json also
     lists the cell `tiny` (config `tiny-test`, mix `tiny-mix`);
-    `metrics` maps further per-layer metric names to reader sources."""
+    `metrics` maps further per-layer metric names to reader sources,
+    `files` further new files of the benchmark (a path under it) to the
+    files they copy. No file of the copy is changed: each is new."""
     root = tmp / "checkout"
     shutil.copytree(ROOT / "cudabench", root / "cudabench",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -67,4 +87,8 @@ def make_root(tmp: Path, *, config=None, mix=None, cell=None,
     (b / "configs" / "tiny-test.json").write_text(json.dumps(config or CONFIG))
     (b / "traffic" / "tiny-mix.json").write_text(json.dumps(mix or MIX))
     (b / "cells" / "tiny.json").write_text(json.dumps(cell or CELL))
+    for rel, src in (files or {}).items():
+        if (b / rel).exists():
+            raise FileExistsError(b / rel)
+        shutil.copyfile(src, b / rel)
     return root
