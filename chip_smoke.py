@@ -44,7 +44,12 @@ final line:
    kv heads a rank (see phase_shard_kernels); every matmul kernel the 8B's
    paths can run at deepseek-r1-qwen3-8b's widths, b = 1 and 512, bit for
    bit, the layer matrices read at the last of 36 layers (see
-   phase_8b_kernels); the sampler's fixed-order sums (softmax sum, prefix
+   phase_8b_kernels); the sparse expert layer's five kernels (router,
+   index, grouped w13 with its swiglu, grouped w2, combine) at
+   Qwen3-30B-A3B's widths, 64 and 1024 rows, bit for bit against their
+   plain twins and timed beside their bounds, a row's layer bits the same
+   alone, and five launches a layer in a 2-layer 30B-width decode step
+   (see phase_moe_kernels); the sampler's fixed-order sums (softmax sum, prefix
    sum) at V 512 and 151936 and B 1, 4, 8, 64, bit-equal to their ordered
    plain versions and a row's bits the same at every B, again on a second
    stream and back to back (their counters reset), then a row's token
@@ -102,12 +107,14 @@ final line:
    block, 16 decode steps) in mode pallas, unfused and with the fused
    matmuls, and in mode pallas-int8, over one warm fused chunk of 32 steps
    at qwen3-0.6b and at qwen3-4b (ctx 1024, bf16 KV, greedy), and over one
-   16-step serving chunk at B = 8 (-c 1024) and at B = 64 (-c 512): device
+   16-step serving chunk at B = 8 (-c 1024) (the B = 64 serving profile
+   went: the benchmark's traced cells read what it read): device
    time by kernel (the matmul kernels' sum apart), kernels per step and the
    device's idle share.
 
 The last two lines are a JSON object of per-kernel numbers and
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. With --moe-only the script runs phases 1-2
+and the expert layer's phase alone, and prints its kernels line.
 """
 
 from __future__ import annotations
@@ -174,7 +181,7 @@ PROFILE_BEFORE = {
     "cli pallas-int8": (2140.9, 5.07),
     "qwen3-0.6b fused chunk, ctx 1024": (2888.7, 5.21),
     "qwen3-4b fused chunk, ctx 1024": (3689.4, 9.52),
-    "serving B=8": (2563.1, 6.13), "serving B=64": (2568.6, 12.44)}
+    "serving B=8": (2563.1, 6.13)}
 # the Q8_0 x Q8_0 tile path's first design (b > 1), us a launch, as PERF.md
 # records it (b = 64 / 256 / 512), logged beside this run's tile times
 TILE_BEFORE_US = {
@@ -3522,6 +3529,201 @@ MATRICES_8B = {        # name: (n = in, d = out)
 BATCHES_8B = (1, 512)  # decode, a prefill block
 
 
+# Qwen3-30B-A3B's expert layer (HF config.json): 128 SwiGLU experts of 768
+# over dim 2048, top 8, Q8_0 groups of 64; 64 rows (a decode step at 64
+# slots) and 1024 (a prefill block)
+MOE_E, MOE_D, MOE_F, MOE_K, MOE_G = 128, 2048, 768, 8, 64
+MOE_ROWS = (64, 1024)
+
+
+def moe_bounds_ms(N, reached):
+    """Each expert-layer kernel's bound at N rows with `reached` experts
+    routed to, ms: route, index and combine their bytes over the memory
+    rate; the grouped w13 and w2 the larger of the reached experts' weight
+    bytes over the memory rate and the pairs' fp32 FMAs over the fp32 pipe
+    (PERF.md rows E1-E5)."""
+    E, D, F, K, G = MOE_E, MOE_D, MOE_F, MOE_K, MOE_G
+    wbytes = lambda rows, cols: rows * cols + 4 * rows * (cols // G)  # noqa
+    mem = lambda b: 1e3 * b / HBM_BYTES_PER_S                         # noqa
+    fma = lambda f: 1e3 * f / FP32_PIPE_OPS_PER_S                     # noqa
+    return {
+        "route": mem(wbytes(E, D) + N * (4 * D + 2 * D + 8 * K)),
+        "index": mem(4 * N * K * 2 + 4 * E),
+        "w13": max(mem(reached * wbytes(2 * F, D)), fma(N * K * 2 * F * D)),
+        "w2": max(mem(reached * wbytes(D, F)), fma(N * K * D * F)),
+        "combine": mem(4 * N * K * D + 4 * N * K + 4 * N * D)}
+
+
+def moe_report(moe_rows):
+    """The kernels line's entries of the expert layer (no TPU kernel: the
+    JAX package has none): ms at 64 rows (a 64-slot decode step's layer)
+    and at 1024, each beside its bound and library time."""
+    out = []
+    for name in ("route", "index", "w13", "w2", "combine"):
+        by = {r["rows"]: r for r in moe_rows if r["kernel"] == name}
+        out.append({
+            "name": f"moe_{name}", "replaces": None, "max_abs_err": 0,
+            "ms": by[64]["kernel_ms"], "bound_ms": by[64]["bound_ms"],
+            "library_ms": by[64]["library_ms"],
+            "ms_1024": by[1024]["kernel_ms"],
+            "bound_ms_1024": by[1024]["bound_ms"],
+            "library_ms_1024": by[1024]["library_ms"]})
+    return out
+
+
+def phase_moe_kernels(torch):
+    """The sparse expert layer's five kernels (ops/cuda/moe.py) at
+    Qwen3-30B-A3B's widths, 64 and 1024 rows: each bit for bit against
+    its plain twin (route, index, the grouped w13 with its swiglu, the
+    grouped w2, combine), and timed (CUDA events behind a spin) beside its
+    bound and a library yardstick (the bf16-dequantized experts through
+    torch._grouped_mm, else F.linear an expert). Then the model's own
+    path: a 64-slot decode step of a 2-layer qwen3-30b-a3b at its widths
+    launches five expert-layer kernels a layer (moe.LAUNCHES); and the
+    layer's row bits are the same alone as among 64 or 1024 rows. Returns
+    the rows."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from qwen3_tpu_torch.config import PRESETS
+    from qwen3_tpu_torch.io.synthetic import synthetic_weights
+    from qwen3_tpu_torch.models import qwen3 as model
+    from qwen3_tpu_torch.ops.cuda import moe
+    from qwen3_tpu_torch.ops.quant_matmul import dequant_weights_bf16
+    from qwen3_tpu_torch.runtime.kvcache import make_side
+
+    t0 = time.perf_counter()
+    E, D, Fw, K, G = MOE_E, MOE_D, MOE_F, MOE_K, MOE_G
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+
+    def q8(shape, scale=0.02):
+        q = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda",
+                          generator=gen)
+        s = scale / 127 * (0.5 + torch.rand(shape[:-1] + (shape[-1] // G,),
+                                            device="cuda", generator=gen))
+        return q, s
+
+    wr_q, wr_s = q8((E, D), 0.2)
+    w13_q, w13_s = q8((E, 2 * Fw, D))
+    w2_q, w2_s = q8((E, D, Fw))
+    w13_b = dequant_weights_bf16(w13_q, w13_s, G)     # [E, D, 2 F]
+    w2_b = dequant_weights_bf16(w2_q, w2_s, G)        # [E, F, D]
+    rows = []
+    for N in MOE_ROWS:
+        h = torch.randn(N, D, device="cuda", generator=gen)
+        ids, w, hb = moe.route(h, wr_q, wr_s, K, G)
+        lst, cnt = moe.index(ids, E)
+        act = moe.experts(hb, lst, cnt, w13_q, w13_s, G, K, True, N * K)
+        y = moe.experts(act, lst, cnt, w2_q, w2_s, G, 1, False, N * K)
+        out = moe.combine(y, w)
+        torch.cuda.synchronize()
+        want = moe.route_plain(h, wr_q, wr_s, K, G)
+        pl, pc = moe.index_plain(ids, E)
+        got_plain = (
+            ("route", (ids, w, hb), want),
+            ("index", (cnt,) + tuple(lst[e, :c] for e, c in
+                                     enumerate(cnt.tolist())),
+             (pc,) + tuple(pl[e, :c] for e, c in enumerate(pc.tolist()))),
+            ("w13", (act,), (moe.experts_plain(hb, lst, cnt, w13_q, w13_s, G,
+                                               K, True),)),
+            ("w2", (y,), (moe.experts_plain(act, lst, cnt, w2_q, w2_s, G, 1,
+                                            False),)),
+            ("combine", (out,), (moe.combine_plain(y, w),)))
+        for name, got, plain in got_plain:
+            if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+                fail(f"moe {name} at {N} rows: kernel != plain")
+        for r in (0, 37, N - 1):   # a row's bits alone as among the N
+            one = moe.expert_layer(h[r:r + 1].contiguous(), wr_q, wr_s, w13_q,
+                                   w13_s, w2_q, w2_s, K, G)
+            if not torch.equal(one, out[r:r + 1]):
+                fail(f"moe layer row {r} alone != among {N} rows")
+        counts = cnt.tolist()
+        reached = sum(c > 0 for c in counts)
+        offs = torch.tensor(counts, device="cuda").cumsum(0).to(torch.int32)
+        order = torch.cat([lst[e, :c] for e, c in enumerate(counts)]).long()
+        xg, ag = hb[order // K].contiguous(), act[order].contiguous()
+
+        def grouped(a, b):
+            try:
+                torch._grouped_mm(a, b, offs=offs)
+                return lambda i: torch._grouped_mm(a, b, offs=offs), \
+                    "torch._grouped_mm"
+            except (AttributeError, RuntimeError, TypeError):
+                ends = offs.tolist()
+                return (lambda i: [F.linear(a[o - c:o], b[e].T) for e, (c, o)
+                                   in enumerate(zip(counts, ends)) if c],
+                        "F.linear an expert")
+
+        lib13, name13 = grouped(xg, w13_b)
+        lib2, name2 = grouped(ag, w2_b)
+        wf = (wr_q.float().reshape(E, -1, G) * wr_s[..., None]).reshape(E, D)
+        libs = {
+            "route": (lambda i: torch.topk(torch.softmax(h @ wf.T, -1), K, -1),
+                      "f32 matmul, softmax, topk"),
+            "index": (lambda i: torch.sort(ids.flatten(), stable=True),
+                      "torch.sort"),
+            "w13": (lib13, name13), "w2": (lib2, name2),
+            "combine": (lambda i: (w[..., None] * y.view(N, K, D)).sum(1),
+                        "(w y).sum")}
+        kernels = {
+            "route": lambda i: moe.route(h, wr_q, wr_s, K, G),
+            "index": lambda i: moe.index(ids, E),
+            "w13": lambda i: moe.experts(hb, lst, cnt, w13_q, w13_s, G, K,
+                                         True, N * K),
+            "w2": lambda i: moe.experts(act, lst, cnt, w2_q, w2_s, G, 1,
+                                        False, N * K),
+            "combine": lambda i: moe.combine(y, w)}
+        bounds = moe_bounds_ms(N, reached)
+        for name, fn in kernels.items():
+            lib, lib_name = libs[name]
+            row = dict(kernel=name, rows=N, experts_reached=reached,
+                       kernel_ms=device_ms(torch, fn, reps=10),
+                       bound_ms=bounds[name],
+                       library_ms=device_ms(torch, lib, reps=10),
+                       library=lib_name)
+            rows.append(row)
+            log(f"moe {name} rows={N}: {row['kernel_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ({row['kernel_ms'] / row['bound_ms']:.2f}x), "
+                f"{lib_name} {row['library_ms']:.4f} ms; bit-equal to plain")
+        del h, ids, w, hb, lst, cnt, act, y, out, xg, ag
+    del w13_b, w2_b
+    layer = {r["kernel"]: r for r in rows if r["rows"] == 64}
+    log(f"moe layer at 64 rows: {sum(r['kernel_ms'] for r in layer.values()):.4f}"
+        f" ms against {sum(r['bound_ms'] for r in layer.values()):.4f} bound")
+
+    # the model's path: a 64-slot serving decode step, 2 layers at the
+    # 30B's widths, a small vocabulary
+    cfg = dataclasses.replace(PRESETS["qwen3-30b-a3b"], n_layers=2,
+                              vocab_size=4096, seq_len=256)
+    params = model.init_params(synthetic_weights(cfg, seed=5, scale=0.1),
+                               mode="pallas-fast", max_seq_len=256,
+                               device="cuda")
+    B, pos0 = 64, 40
+    k, v = model.init_kv_cache(cfg, B, 256, "int8", "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (B,), device="cuda",
+                         generator=gen)
+    base = torch.full((B,), pos0, dtype=torch.int64, device="cuda")
+    sk, sv = make_side(k, 8), make_side(v, 8)
+    step = lambda t, kk, vv, s: model.decode_forward(  # noqa: E731
+        params, cfg, t, kk, vv, base, mode="pallas-fast", attn="fused",
+        side=s, live=pos0, attn_bucket=256)
+    step(toks, k, v, (sk, sv, base, 0))
+    torch.cuda.synchronize()
+    moe.reset_launches()
+    logits = step(toks, k, v, (sk, sv, base, 0))
+    torch.cuda.synchronize()
+    if moe.LAUNCHES != {key: cfg.n_layers for key in moe.LAUNCHES}:
+        fail(f"moe launches of a 2-layer decode step: {moe.LAUNCHES}, not "
+             f"5 a layer")
+    log(f"moe decode step (2 layers, 64 slots): launches {moe.LAUNCHES}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, k, v, sk, sv, logits
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_8b_kernels(torch):
     """Every matmul kernel the 8B's paths can run, at its widths, b in
     BATCHES_8B, bit for bit against its plain version: the Q8_0 x Q8_0 GEMV
@@ -5034,6 +5236,11 @@ def main() -> int:
     except ImportError as e:
         fail(f"the port's package is not next to this script: {e}")
     timed("build", phase_build)
+    if "--moe-only" in sys.argv[1:]:   # the expert layer's phase alone
+        moe_rows = timed("moe_kernels", phase_moe_kernels, torch)
+        log(f"phase seconds {json.dumps(seconds)}")
+        print(json.dumps({"kernels": moe_report(moe_rows)}), flush=True)
+        return 0
     rows = timed("kernels", phase_kernels, torch)
     flash_rows, flash_err = timed("flash", phase_flash_kernels, torch)
     fast_rows = timed("fast", phase_fast_kernels, torch)
@@ -5047,6 +5254,7 @@ def main() -> int:
     untiled_rows = timed("untiled", phase_untiled_kernels, torch)
     shard_rows = timed("shard", phase_shard_kernels, torch)
     rows_8b = timed("8b_kernels", phase_8b_kernels, torch)
+    moe_rows = timed("moe_kernels", phase_moe_kernels, torch)
     sampler_rows, _ = timed("sampler", phase_sampler_kernel, torch)
     timed("sampler", check_sampler, torch)
     workdir = HERE / "build" / "chip_smoke"
@@ -5104,7 +5312,6 @@ def main() -> int:
         timed("profile", phase_profile, torch, path, mode="pallas-int8")
         timed("profile", phase_chunk_profile, torch, path, workdir)
         timed("profile", phase_serving_profile, torch, path, 8, 1024)
-        timed("profile", phase_serving_profile, torch, path, 64, 512)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         log(f"phase seconds {json.dumps(seconds)}")
@@ -5112,7 +5319,8 @@ def main() -> int:
     report = kernel_report(
         rows, flash_rows, flash_err, fast_rows, serve_rows, serve_err,
         int8_rows, fused_rows, kv_rows, untiled_rows, probe, counts,
-        norm_rows, shard_rows, sampler_rows, rows_8b, fold_rows)
+        norm_rows, shard_rows, sampler_rows, rows_8b, fold_rows) + \
+        moe_report(moe_rows)
     log("tp results " + json.dumps(tp_res))
     for e in report:
         if e["name"] in BEFORE_MS:

@@ -49,6 +49,13 @@ def quiet_from_env(environ=None) -> bool:
     return env.get("QWEN3_TPU_QUIET", "0") == "1"
 
 
+def has_experts(cfg) -> bool:
+    """Whether a config's MLPs are sparse expert layers; any object with
+    the header's fields (the JAX package's ModelConfig has no expert
+    fields: dense)."""
+    return getattr(cfg, "n_experts", 0) > 0
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Static architecture hyperparameters (checkpoint header contents)."""
@@ -63,6 +70,14 @@ class ModelConfig:
     head_dim: int
     shared_classifier: bool
     group_size: int       # Q8_0 quantization group size (a.k.a. block_size)
+    # sparse experts (HF qwen3_moe's num_experts, num_experts_per_tok and
+    # moe_intermediate_size): every layer's MLP is then a softmax router
+    # over n_experts SwiGLU experts of width expert_dim, each token taking
+    # the top n_experts_per_tok with their weights renormalised, and
+    # hidden_dim is 0 (no dense MLP tensor). 0: a dense model
+    n_experts: int = 0
+    n_experts_per_tok: int = 0
+    expert_dim: int = 0
 
     @property
     def proj_dim(self) -> int:
@@ -82,6 +97,15 @@ class ModelConfig:
         assert self.proj_dim % self.group_size == 0
         assert self.n_heads % self.n_kv_heads == 0
         assert self.head_dim % 2 == 0
+        if has_experts(self):
+            assert self.expert_dim > 0 and \
+                self.expert_dim % self.group_size == 0, \
+                "expert_dim must be a positive multiple of group_size"
+            assert 0 < self.n_experts_per_tok <= self.n_experts, \
+                "n_experts_per_tok must lie in [1, n_experts]"
+            assert self.hidden_dim == 0, "an expert model has no dense MLP"
+        else:
+            assert self.n_experts_per_tok == 0 and self.expert_dim == 0
 
     def with_seq_len(self, seq_len: int) -> "ModelConfig":
         """Override context length, clamped to the checkpoint max
@@ -122,6 +146,21 @@ PRESETS: dict[str, ModelConfig] = {
         dim=2560, hidden_dim=9728, n_layers=36, n_heads=32, n_kv_heads=8,
         vocab_size=151936, seq_len=40960, head_dim=128, shared_classifier=False,
         group_size=64,
+    ),
+    # Qwen3-30B-A3B (HF qwen3_moe, Qwen/Qwen3-30B-A3B config.json): 128
+    # experts of width 768, top 8, on every layer; its intermediate_size
+    # (6144) belongs to no tensor
+    "qwen3-30b-a3b": ModelConfig(
+        dim=2048, hidden_dim=0, n_layers=48, n_heads=32, n_kv_heads=4,
+        vocab_size=151936, seq_len=40960, head_dim=128, shared_classifier=False,
+        group_size=64, n_experts=128, n_experts_per_tok=8, expert_dim=768,
+    ),
+    # a miniature expert model for tests: a query group of 8 (8 heads over
+    # one kv head), as qwen3-30b-a3b's 32 over 4
+    "tiny-moe": ModelConfig(
+        dim=128, hidden_dim=0, n_layers=2, n_heads=8, n_kv_heads=1,
+        vocab_size=512, seq_len=128, head_dim=32, shared_classifier=True,
+        group_size=32, n_experts=8, n_experts_per_tok=2, expert_dim=64,
     ),
     "deepseek-r1-qwen3-8b": ModelConfig(
         dim=4096, hidden_dim=12288, n_layers=36, n_heads=32, n_kv_heads=8,

@@ -1362,17 +1362,57 @@ __device__ __forceinline__ float i8_to_f32(unsigned w, int j) {
   return __fadd_rn(__int_as_float(0x4B400000 + q), -12582912.f);
 }
 
-// requires n % G == 0, G a power of two in [16, 512], x, wq, ws, out
-// 16-byte aligned
-template <int BM, int BN, int TM, int TN, int W, int MINB>
-__global__ void __launch_bounds__(kFastThreads * W, MINB)
-q8_fast_tile_kernel(const unsigned short* __restrict__ x,
-                    const int8_t* __restrict__ wq,
-                    const float* __restrict__ ws, float* __restrict__ out,
-                    int b, int n, int d, int G) {
+// The rows a tile reads and writes, by a policy class:
+//  - x_row(r): the bf16 row behind the tile's row column r (the column of
+//    the transposed x buffer), null where the column holds no row;
+//  - w_row(cw): the weight row behind tile column cw, -1 past the matrix;
+//  - store(rc, tx, o): the outputs of tile row column rc, tile columns
+//    q * BN / CQ + 4 tx + j (q < CQ, j < 4), from o[q] (f32 sums).
+// DenseRows is the matmul's: rows r0 .. r0 + BM - 1 of x and out in order.
+struct DenseRows {
+  const unsigned short* x;
+  float* out;
+  int b, n, d, r0, c0;
+  __device__ __forceinline__ const unsigned short* x_row(int r) const {
+    return r0 + r < b ? x + (size_t)(r0 + r) * n : nullptr;
+  }
+  __device__ __forceinline__ int w_row(int cw) const {
+    return c0 + cw < d ? c0 + cw : -1;
+  }
+  template <int BN, int CQ>
+  __device__ __forceinline__ void store(int rc, int tx,
+                                        const float4 (&o)[CQ]) const {
+    const int r = r0 + rc;
+    if (r >= b) return;
+#pragma unroll
+    for (int q = 0; q < CQ; ++q) {
+      const int c = c0 + q * (BN / CQ) + 4 * tx;
+      float* dst = out + (size_t)r * d + c;
+      if ((d & 3) == 0 && c + 3 < d) {
+        *reinterpret_cast<float4*>(dst) = o[q];
+      } else {
+        const float v[4] = {o[q].x, o[q].y, o[q].z, o[q].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < d) dst[j] = v[j];
+      }
+    }
+  }
+};
+
+// requires n % G == 0, G a power of two in [16, 512], the rows' x, wq, ws
+// and out 16-byte aligned. The FMAs run for the thread's rows i < NR only
+// (NR = TM but for a tile whose rows past 8 NR hold no row, see ExpertRows)
+template <int BM, int BN, int TM, int TN, int W, int NR, class Rows>
+__device__ __forceinline__ void fast_tile(const Rows& rows,
+                                          const int8_t* __restrict__ wq,
+                                          const float* __restrict__ ws, int n,
+                                          int G) {
   constexpr int NT = kFastThreads, TX = BN / TN, RQ = TM / 4, CQ = TN / 4;
   static_assert(TX * (BM / TM) == NT && TX % 4 == 0 && BM / TM == 8,
                 "a slice's warps tile the block, 8 x 4 threads each");
+  static_assert(NR >= 1 && NR <= TM, "live rows a thread");
+  constexpr int RL = (NR + 3) / 4;           // x loads a k: the live quads
   constexpr int XC = BM * kFastK * 2 / 16;   // 16-byte x pieces a stage
   static_assert(XC == NT, "one x piece a thread");
   constexpr int WP = NT / BN;                // pieces of a weight column
@@ -1394,33 +1434,34 @@ q8_fast_tile_kernel(const unsigned short* __restrict__ x,
   const int lane = t & 31, wp = t >> 5;
   const int tx = (wp % (TX / 4)) * 4 + (lane & 3);
   const int ty = (wp / (TX / 4)) * 8 + (lane >> 2);
-  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
   const int ng = n / G;
   const int spg = G / kFastK, lsg = 31 - __clz(spg);   // stages a group
   const int rounds = (ng + W - 1) / W, niter = rounds * spg;
   // this thread's weight piece: bytes pw * WB .. of column cw's stage
   const int cw = t % BN, pw = t / BN;
-  const bool won = c0 + cw < d;
-  const int8_t* wsrc = wq + (size_t)(won ? c0 + cw : 0) * n + pw * WB;
-  const float* ssrc = ws + (size_t)(won ? c0 + cw : 0) * ng;
+  const int wr = rows.w_row(cw);
+  const bool won = wr >= 0;
+  const int8_t* wsrc = wq + (size_t)(won ? wr : 0) * n + pw * WB;
+  const float* ssrc = ws + (size_t)(won ? wr : 0) * ng;
+  // this thread's x piece: row column t % BM, k-half t / BM, so that a
+  // warp's pieces land in one row of the transposed buffer
+  const unsigned short* xrow = rows.x_row(t % BM);
+  const bool xon = xrow != nullptr;
   const unsigned raw_s = (unsigned)__cvta_generic_to_shared(raw);
   // the group of the slice's iteration it (>= ng: idle)
   auto group = [&](int it) { return (it >> lsg) * W + slice; };
 
   // iteration it's copies into raw stage it % kFastRing, one commit group
-  // (empty when idle). x piece t: row t % BM, k-half t / BM, so that a
-  // warp's pieces land in one row of the transposed buffer
+  // (empty when idle)
   auto fetch = [&](int it) {
     const int g = group(it);
     if (it < niter && g < ng) {
       const int k0 = g * G + (it & (spg - 1)) * kFastK;
       const unsigned st = raw_s + (it % kFastRing) * RB;
-      const int r = t % BM, h = t / BM;
-      const bool on = r0 + r < b;
+      const int h = t / BM;
       cp_async16_s(st + 16 * t,
-                   on ? (const void*)(x + (size_t)(r0 + r) * n + k0 + 8 * h)
-                      : (const void*)x,
-                   on);
+                   xon ? (const void*)(xrow + k0 + 8 * h) : (const void*)wq,
+                   xon);
       const unsigned sw = st + XC * 16;
       if constexpr (WB == 16)
         cp_async16_s(sw + 16 * t, wsrc + k0, won);
@@ -1468,9 +1509,9 @@ q8_fast_tile_kernel(const unsigned short* __restrict__ x,
             round_bf16(__fmul_rn(i8_to_f32(u[j], e), sc));
   };
 
-  float acc[TM][TN];
+  float acc[NR][TN];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < NR; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   if (slice == 0) {
@@ -1492,9 +1533,9 @@ q8_fast_tile_kernel(const unsigned short* __restrict__ x,
       // barrier), halfway, so that its latency hides behind the FMAs (past
       // the last stage it stashes stale bytes, never read)
       if (kk == kFastK / 2) stash(it + 1);
-      float xv[TM], wv[TN];
+      float xv[4 * RL], wv[TN];
 #pragma unroll
-      for (int q = 0; q < RQ; ++q) {
+      for (int q = 0; q < RL; ++q) {
         const float4 a = *reinterpret_cast<const float4*>(
             &xs[buf][kk][q * (BM / RQ) + 4 * ty]);
         xv[4 * q] = a.x; xv[4 * q + 1] = a.y;
@@ -1508,7 +1549,7 @@ q8_fast_tile_kernel(const unsigned short* __restrict__ x,
         wv[4 * q + 2] = c.z; wv[4 * q + 3] = c.w;
       }
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < NR; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
     }
@@ -1517,7 +1558,7 @@ q8_fast_tile_kernel(const unsigned short* __restrict__ x,
       float4* mine = park + ((size_t)((round & 1) * (W - 1) + slice - 1) * SQ) *
                                 NT + t;
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < NR; ++i)
 #pragma unroll
         for (int q = 0; q < CQ; ++q) {
           mine[(i * CQ + q) * NT] =
@@ -1533,16 +1574,16 @@ q8_fast_tile_kernel(const unsigned short* __restrict__ x,
     const int live = min(W, ng - round * W);
     const bool last = round == rounds - 1;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = r0 + (i / 4) * (BM / RQ) + 4 * ty + (i & 3);
+    for (int i = 0; i < NR; ++i) {
+      float4 o[CQ];
 #pragma unroll
       for (int q = 0; q < CQ; ++q) {
         const int s = i * CQ + q;
-        float4 o = osm[s * NT + t];
-        o.x = __fadd_rn(o.x, acc[i][4 * q]);
-        o.y = __fadd_rn(o.y, acc[i][4 * q + 1]);
-        o.z = __fadd_rn(o.z, acc[i][4 * q + 2]);
-        o.w = __fadd_rn(o.w, acc[i][4 * q + 3]);
+        o[q] = osm[s * NT + t];
+        o[q].x = __fadd_rn(o[q].x, acc[i][4 * q]);
+        o[q].y = __fadd_rn(o[q].y, acc[i][4 * q + 1]);
+        o[q].z = __fadd_rn(o[q].z, acc[i][4 * q + 2]);
+        o[q].w = __fadd_rn(o[q].w, acc[i][4 * q + 3]);
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][4 * q + j] = 0.f;
 #pragma unroll
@@ -1550,30 +1591,30 @@ q8_fast_tile_kernel(const unsigned short* __restrict__ x,
           if (w >= live) break;
           const float4 p = park[((size_t)((round & 1) * (W - 1) + w - 1) * SQ +
                                  s) * NT + t];
-          o.x = __fadd_rn(o.x, p.x);
-          o.y = __fadd_rn(o.y, p.y);
-          o.z = __fadd_rn(o.z, p.z);
-          o.w = __fadd_rn(o.w, p.w);
+          o[q].x = __fadd_rn(o[q].x, p.x);
+          o[q].y = __fadd_rn(o[q].y, p.y);
+          o[q].z = __fadd_rn(o[q].z, p.z);
+          o[q].w = __fadd_rn(o[q].w, p.w);
         }
-        if (!last) {
-          osm[s * NT + t] = o;
-          continue;
-        }
-        const int c = c0 + q * (BN / CQ) + 4 * tx;
-        if (r >= b) continue;
-        float* dst = out + (size_t)r * d + c;
-        if ((d & 3) == 0 && c + 3 < d) {
-          *reinterpret_cast<float4*>(dst) = o;
-        } else {
-          const float v[4] = {o.x, o.y, o.z, o.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (c + j < d) dst[j] = v[j];
-        }
+        if (!last) osm[s * NT + t] = o[q];
       }
+      if (last)
+        rows.template store<BN, CQ>((i / 4) * (BM / RQ) + 4 * ty + (i & 3),
+                                    tx, o);
     }
   }
   cp_async_wait<0>();
+}
+
+template <int BM, int BN, int TM, int TN, int W, int MINB>
+__global__ void __launch_bounds__(kFastThreads * W, MINB)
+q8_fast_tile_kernel(const unsigned short* __restrict__ x,
+                    const int8_t* __restrict__ wq,
+                    const float* __restrict__ ws, float* __restrict__ out,
+                    int b, int n, int d, int G) {
+  const DenseRows rows{x, out, b, n, d, (int)blockIdx.y * BM,
+                       (int)blockIdx.x * BN};
+  fast_tile<BM, BN, TM, TN, W, TM>(rows, wq, ws, n, G);
 }
 
 // The tile kernel on one shape, one launch
@@ -1588,6 +1629,147 @@ int launch_fast_tile_shape(const unsigned short* x, const int8_t* wq,
   if (err) return err;
   const dim3 grid((unsigned)((d + BN - 1) / BN), (unsigned)((b + BM - 1) / BM));
   kernel<<<grid, kFastThreads * W, smem, s>>>(x, wq, ws, out, b, n, d, G);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ the grouped fast tile ----
+//
+// q8_fast_group_kernel: the fast tile above for the (row, expert) pairs of a
+// sparse expert layer, one launch for all the layer's experts (ops/cuda/
+// moe.py, csrc/moe_experts.cu), with the dense tile's body: the same
+// staging, register blocking and sum order, so a pair's bits are the fast
+// function's (the plain version's) at any count of pairs an expert. Expert
+// e's pairs are the entries list[e * cap + i], i < count[e], both on the
+// card (the routing's index kernel wrote them): an entry is row * K + slot,
+// its activations bf16 row entry / xdiv of x (the layer's input rounded to
+// bf16 by the router, xdiv = K, or an earlier grouped call's output, xdiv =
+// 1), its output row entry. Expert e's weights are wq [e] ([dw, n] int8,
+// dw = 2 d for GLU: w1 rows then w3 rows) with their scales. So no permuted
+// copy of the activations is written and nothing is read back to the host:
+// a block reads its expert's count itself.
+//
+// Grid: column tiles x row tiles x experts; a block takes its expert's row
+// tiles y, y + gridDim.y, ... (none past the count: an idle block leaves at
+// once). In a tile, pair slot s (of BM) sits in row column rc(s) so that
+// thread ty holds slots ty, ty + 8, ...: its row i is slot 8 i + ty. A
+// tile of `live` pairs then has live pairs in its threads' first
+// NR = ceil(live / 8) rows, and the FMAs run for those only (NR picked a
+// tile: a decode step's few pairs an expert cost NR = 1, an eighth of a
+// full tile, while each staged weight still serves all of them).
+// GLU: the tile's first BN / 2 columns are w1's, the rest w3's same
+// columns, so that a thread holds each output's gate (q = 0) and up
+// (q = 1) chains; its epilogue is the swiglu of the dense chain,
+// (g * sigmoid(g)) * u with sigmoid(g) = 1 / (1 + expf(-g)), rounded to
+// bf16 (what the next matmul's round_bf16 would give it); without GLU the
+// f32 sums are stored.
+constexpr int kGroupBM = 64, kGroupBN = 128;
+
+template <bool GLU>
+struct ExpertRows {
+  const unsigned short* x;
+  const int* ent;   // the tile's pairs: list + e * cap + r0
+  void* out;
+  int live, n, d, c0, xdiv;
+  // tile row column rc's pair slot: row i of thread ty is slot 8 i + ty
+  static __device__ __forceinline__ int slot(int rc) {
+    return 8 * (((rc >> 5) << 2) + (rc & 3)) + ((rc & 31) >> 2);
+  }
+  __device__ __forceinline__ const unsigned short* x_row(int r) const {
+    const int s = slot(r);
+    return s < live ? x + (size_t)(__ldg(ent + s) / xdiv) * n : nullptr;
+  }
+  __device__ __forceinline__ int w_row(int cw) const {
+    constexpr int H = GLU ? kGroupBN / 2 : kGroupBN;
+    const int c = c0 + cw % H;
+    return c < d ? (cw >= H ? d : 0) + c : -1;
+  }
+  template <int BN, int CQ>
+  __device__ __forceinline__ void store(int rc, int tx,
+                                        const float4 (&o)[CQ]) const {
+    const int s = slot(rc);
+    if (s >= live) return;
+    const size_t row = (size_t)__ldg(ent + s);
+    if constexpr (GLU) {
+      static_assert(CQ == 2, "a thread holds a gate and an up quad");
+      const float g4[4] = {o[0].x, o[0].y, o[0].z, o[0].w};
+      const float u4[4] = {o[1].x, o[1].y, o[1].z, o[1].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + 4 * tx + j;
+        if (c >= d) continue;
+        const float g = g4[j];
+        const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
+        static_cast<__nv_bfloat16*>(out)[row * d + c] =
+            __float2bfloat16_rn(__fmul_rn(__fmul_rn(g, sig), u4[j]));
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < CQ; ++q) {
+        const int c = c0 + q * (BN / CQ) + 4 * tx;
+        float* dst = static_cast<float*>(out) + row * d + c;
+        if ((d & 3) == 0 && c + 3 < d) {
+          *reinterpret_cast<float4*>(dst) = o[q];
+        } else {
+          const float v[4] = {o[q].x, o[q].y, o[q].z, o[q].w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (c + j < d) dst[j] = v[j];
+        }
+      }
+    }
+  }
+};
+
+template <bool GLU>
+__global__ void __launch_bounds__(kFastThreads, 3)
+q8_fast_group_kernel(const unsigned short* __restrict__ x,
+                     const int* __restrict__ list,
+                     const int* __restrict__ count,
+                     const int8_t* __restrict__ wq,
+                     const float* __restrict__ ws, void* __restrict__ out,
+                     int cap, int n, int d, int G, int xdiv) {
+  constexpr int BM = kGroupBM, BN = kGroupBN, TM = 8, TN = 8;
+  const int e = blockIdx.z, dw = GLU ? 2 * d : d;
+  const int cnt = __ldg(count + e);
+  const int8_t* we = wq + (size_t)e * dw * n;
+  const float* se = ws + (size_t)e * dw * (n / G);
+  const int c0 = blockIdx.x * (GLU ? BN / 2 : BN);
+  for (int r0 = blockIdx.y * BM; r0 < cnt; r0 += gridDim.y * BM) {
+    if (r0 != (int)blockIdx.y * BM) __syncthreads();   // the last tile's reads
+    const ExpertRows<GLU> rows{x, list + (size_t)e * cap + r0, out,
+                               min(BM, cnt - r0), n, d, c0, xdiv};
+    switch ((rows.live + 7) / 8) {
+      case 1: fast_tile<BM, BN, TM, TN, 1, 1>(rows, we, se, n, G); break;
+      case 2: fast_tile<BM, BN, TM, TN, 1, 2>(rows, we, se, n, G); break;
+      case 3: fast_tile<BM, BN, TM, TN, 1, 3>(rows, we, se, n, G); break;
+      case 4: fast_tile<BM, BN, TM, TN, 1, 4>(rows, we, se, n, G); break;
+      case 5: fast_tile<BM, BN, TM, TN, 1, 5>(rows, we, se, n, G); break;
+      case 6: fast_tile<BM, BN, TM, TN, 1, 6>(rows, we, se, n, G); break;
+      case 7: fast_tile<BM, BN, TM, TN, 1, 7>(rows, we, se, n, G); break;
+      default: fast_tile<BM, BN, TM, TN, 1, 8>(rows, we, se, n, G); break;
+    }
+  }
+}
+
+// row_tiles: the grid's row tiles an expert (a block loops past them)
+template <bool GLU>
+int launch_fast_group(const unsigned short* x, const int* list,
+                      const int* count, const int8_t* wq, const float* ws,
+                      void* out, int E, int cap, int n, int d, int G,
+                      int xdiv, int row_tiles, cudaStream_t s) {
+  if (G < 16 || G > 512 || (G & (G - 1)) || n % G || row_tiles < 1 ||
+      E < 1 || E > 65535)
+    return (int)cudaErrorInvalidValue;
+  static size_t set[16] = {};
+  constexpr int smem = fast_tile_smem<kGroupBM, kGroupBN, 1>();
+  auto kernel = q8_fast_group_kernel<GLU>;
+  const int err = allow_smem(kernel, smem, set);
+  if (err) return err;
+  const int cols = GLU ? kGroupBN / 2 : kGroupBN;
+  const dim3 grid((unsigned)((d + cols - 1) / cols), (unsigned)row_tiles,
+                  (unsigned)E);
+  kernel<<<grid, kFastThreads, smem, s>>>(x, list, count, wq, ws, out, cap, n,
+                                          d, G, xdiv);
   return (int)cudaGetLastError();
 }
 

@@ -15,13 +15,23 @@ Format (produced by the reference exporter, consumed by the reference C engine):
                       [classifier if untied]
                       (ref: qwen3/weights.py:211-238,331-358, src/model.c:196-244)
 
+Version 2 (a model with sparse experts, Qwen3-30B-A3B) adds three i32 header
+fields after group_size: n_experts, n_experts_per_tok, expert_dim
+(hidden_dim is then 0), and its Q8_0 section holds, in place of w1, w2 and
+w3: the router wr*L ([E, dim] each), then we1*L ([E, width, dim]), we2*L
+([E, dim, width]) and we3*L ([E, width, dim]), each layer's tensor whole
+(values, then scales), before the classifier. A version-1 file reads
+exactly as before; a dense model is written as version 1.
+
 All projection tensors are stored row-major as [out_features, in_features] with
 quantization groups of `group_size` consecutive elements along the flattened
 buffer — i.e. along the in_features axis, since in_features is always divisible
 by group_size for this architecture family.
 
 This module reads the file into stacked per-layer numpy arrays ([L, ...] per
-tensor), rather than the reference's per-layer pointer walk.
+tensor), rather than the reference's per-layer pointer walk; the expert
+families stay lists of per-layer views of the mapped file, so that a
+30 GB expert model is never copied whole on the host.
 """
 
 from __future__ import annotations
@@ -31,7 +41,16 @@ import struct
 
 import numpy as np
 
-from qwen3_tpu_torch.config import HEADER_BYTES, QWEN_MAGIC, QWEN_VERSION, ModelConfig
+from qwen3_tpu_torch.config import (
+    HEADER_BYTES,
+    QWEN_MAGIC,
+    QWEN_VERSION,
+    ModelConfig,
+    has_experts,
+)
+
+# the header version of a model with sparse experts
+QWEN_MOE_VERSION = 2
 
 
 @dataclasses.dataclass
@@ -40,6 +59,12 @@ class Q8Weights:
 
     `*_q` arrays are int8; `*_s` are fp32 group scales with the group axis last
     (shape [..., out, in // group_size]).
+
+    A model with sparse experts (config.moe) has no w1/w2/w3 (None) and
+    carries its router wr [L, E, dim] and its experts' we1 [L, E, width,
+    dim], we2 [L, E, dim, width], we3 [L, E, width, dim]; an expert family
+    may be a list of L per-layer arrays or tensors, which init_params packs
+    one layer at a time (tensors already on the device included).
     """
 
     config: ModelConfig
@@ -62,21 +87,31 @@ class Q8Weights:
     wv_s: np.ndarray       # [L, kv_dim, dim // G]
     wo_q: np.ndarray       # [L, dim, proj_dim]
     wo_s: np.ndarray       # [L, dim, proj_dim // G]
-    w1_q: np.ndarray       # [L, hidden, dim]
-    w1_s: np.ndarray       # [L, hidden, dim // G]
-    w2_q: np.ndarray       # [L, dim, hidden]
-    w2_s: np.ndarray       # [L, dim, hidden // G]
-    w3_q: np.ndarray       # [L, hidden, dim]
-    w3_s: np.ndarray       # [L, hidden, dim // G]
     cls_q: np.ndarray      # [V, dim] int8 (aliases emb_q when tied)
     cls_s: np.ndarray      # [V, dim // G]
+    # the dense MLP (None with experts)
+    w1_q: np.ndarray = None       # [L, hidden, dim]
+    w1_s: np.ndarray = None       # [L, hidden, dim // G]
+    w2_q: np.ndarray = None       # [L, dim, hidden]
+    w2_s: np.ndarray = None       # [L, dim, hidden // G]
+    w3_q: np.ndarray = None       # [L, hidden, dim]
+    w3_s: np.ndarray = None       # [L, hidden, dim // G]
+    # the sparse experts (None without)
+    wr_q: np.ndarray = None       # [L, E, dim]
+    wr_s: np.ndarray = None       # [L, E, dim // G]
+    we1_q: np.ndarray = None      # [L, E, width, dim]
+    we1_s: np.ndarray = None      # [L, E, width, dim // G]
+    we2_q: np.ndarray = None      # [L, E, dim, width]
+    we2_s: np.ndarray = None      # [L, E, dim, width // G]
+    we3_q: np.ndarray = None      # [L, E, width, dim]
+    we3_s: np.ndarray = None      # [L, E, width, dim // G]
 
 
 def read_header(path: str) -> ModelConfig:
     with open(path, "rb") as f:
         raw = f.read(HEADER_BYTES)
     magic, version = struct.unpack_from("<Ii", raw, 0)
-    if magic != QWEN_MAGIC or version != QWEN_VERSION:
+    if magic != QWEN_MAGIC or version not in (QWEN_VERSION, QWEN_MOE_VERSION):
         raise ValueError(
             f"bad checkpoint header: magic=0x{magic:x} version={version}"
         )
@@ -84,11 +119,14 @@ def read_header(path: str) -> ModelConfig:
      max_seq_len, head_dim, shared_classifier, group_size) = struct.unpack_from(
         "<10i", raw, 8
     )
+    experts = (struct.unpack_from("<3i", raw, 48)
+               if version == QWEN_MOE_VERSION else (0, 0, 0))
     cfg = ModelConfig(
         dim=dim, hidden_dim=hidden_dim, n_layers=n_layers, n_heads=n_heads,
         n_kv_heads=n_kv_heads, vocab_size=vocab_size, seq_len=max_seq_len,
         head_dim=head_dim, shared_classifier=bool(shared_classifier),
-        group_size=group_size,
+        group_size=group_size, n_experts=experts[0],
+        n_experts_per_tok=experts[1], expert_dim=experts[2],
     )
     cfg.validate()
     return cfg
@@ -136,14 +174,31 @@ def load_checkpoint(path: str) -> Q8Weights:
             return qs[0], ss[0]
         return np.stack(qs), np.stack(ss)
 
+    def layers(*shape):
+        """A family of per-layer tensors [*shape] (views of the file)."""
+        qs, ss = [], []
+        n = int(np.prod(shape))
+        for _ in range(L):
+            qs.append(cur.i8(n, shape))
+            ss.append(cur.f32(n // G, shape[:-1] + (shape[-1] // G,)))
+        return qs, ss
+
     emb_q, emb_s = q8(1, V, D)
     wq_q, wq_s = q8(L, P, D)
     wk_q, wk_s = q8(L, KV, D)
     wv_q, wv_s = q8(L, KV, D)
     wo_q, wo_s = q8(L, D, P)
-    w1_q, w1_s = q8(L, H, D)
-    w2_q, w2_s = q8(L, D, H)
-    w3_q, w3_s = q8(L, H, D)
+    mlp = {}
+    if has_experts(cfg):
+        E, F = cfg.n_experts, cfg.expert_dim
+        wr_q, wr_s = layers(E, D)
+        mlp.update(wr_q=np.stack(wr_q), wr_s=np.stack(wr_s))
+        for name, shape in (("we1", (E, F, D)), ("we2", (E, D, F)),
+                            ("we3", (E, F, D))):
+            mlp[name + "_q"], mlp[name + "_s"] = layers(*shape)
+    else:
+        for name, shape in (("w1", (H, D)), ("w2", (D, H)), ("w3", (H, D))):
+            mlp[name + "_q"], mlp[name + "_s"] = q8(L, *shape)
     if cfg.shared_classifier:
         cls_q, cls_s = emb_q, emb_s
     else:
@@ -156,8 +211,7 @@ def load_checkpoint(path: str) -> Q8Weights:
         emb_q=emb_q, emb_s=emb_s,
         wq_q=wq_q, wq_s=wq_s, wk_q=wk_q, wk_s=wk_s, wv_q=wv_q, wv_s=wv_s,
         wo_q=wo_q, wo_s=wo_s,
-        w1_q=w1_q, w1_s=w1_s, w2_q=w2_q, w2_s=w2_s, w3_q=w3_q, w3_s=w3_s,
-        cls_q=cls_q, cls_s=cls_s,
+        cls_q=cls_q, cls_s=cls_s, **mlp,
     )
 
 
@@ -188,13 +242,17 @@ def dequantize_q8_0(q: np.ndarray, s: np.ndarray, group_size: int) -> np.ndarray
 def write_checkpoint(path: str, w: Q8Weights) -> None:
     """Serialize Q8Weights into the reference `.bin` layout."""
     cfg = w.config
+    moe = has_experts(cfg)
     with open(path, "wb") as f:
         header = struct.pack(
-            "<Ii10i", QWEN_MAGIC, QWEN_VERSION,
+            "<Ii10i", QWEN_MAGIC, QWEN_MOE_VERSION if moe else QWEN_VERSION,
             cfg.dim, cfg.hidden_dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
             cfg.vocab_size, cfg.seq_len, cfg.head_dim,
             int(cfg.shared_classifier), cfg.group_size,
         )
+        if moe:
+            header += struct.pack("<3i", cfg.n_experts, cfg.n_experts_per_tok,
+                                  cfg.expert_dim)
         f.write(header + b"\0" * (HEADER_BYTES - len(header)))
 
         for arr in (w.att_norm, w.ffn_norm, w.out_norm, w.q_norm, w.k_norm):
@@ -214,8 +272,10 @@ def write_checkpoint(path: str, w: Q8Weights) -> None:
         emit(w.wk_q, w.wk_s, stacked=True)
         emit(w.wv_q, w.wv_s, stacked=True)
         emit(w.wo_q, w.wo_s, stacked=True)
-        emit(w.w1_q, w.w1_s, stacked=True)
-        emit(w.w2_q, w.w2_s, stacked=True)
-        emit(w.w3_q, w.w3_s, stacked=True)
+        names = ("wr", "we1", "we2", "we3") if moe else ("w1", "w2", "w3")
+        for name in names:
+            q, s = getattr(w, name + "_q"), getattr(w, name + "_s")
+            for i in range(cfg.n_layers):
+                emit(np.asarray(q[i]), np.asarray(s[i]), stacked=False)
         if not cfg.shared_classifier:
             emit(w.cls_q, w.cls_s, stacked=False)

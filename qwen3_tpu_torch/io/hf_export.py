@@ -3,7 +3,11 @@ qwen3_tpu/io/hf_export.py (the same output bytes).
 
 Converts a Qwen3ForCausalLM checkpoint directory into the engine's two
 artifacts, with the same output bytes as the reference exporter
-(qwen3/weights.py, qwen3/tokenizer.py) on well-formed checkpoints:
+(qwen3/weights.py, qwen3/tokenizer.py) on well-formed checkpoints, and a
+Qwen3MoeForCausalLM one (`model_type` "qwen3_moe", Qwen3-30B-A3B) into the
+version-2 `.bin` (io/checkpoint.py): its router `mlp.gate` and each
+expert's `mlp.experts.{e}.gate_proj/up_proj/down_proj`, quantized as every
+other matrix:
 
 - `<out>.bin`: 256-byte header + fp32 norms + Q8_0 tensors. Quantization
   mirrors the exporter: per-group absmax scale wmax/127, round-half-to-even
@@ -67,7 +71,14 @@ def _quantize(w: np.ndarray, gs: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def export_model(hf_dir: str, out_path: str, group_size: int = 64) -> ModelConfig:
-    cfg_json = read_hf_config(hf_dir)
+    return export_state(_load_state_dict(hf_dir), read_hf_config(hf_dir),
+                        out_path, group_size)
+
+
+def export_state(state: dict, cfg_json: dict, out_path: str,
+                 group_size: int = 64) -> ModelConfig:
+    """export_model's body on a state dict of float arrays (HF names) and
+    its config.json's dict."""
     dim = cfg_json.get("hidden_size", 2048)
     n_layers = cfg_json.get("num_hidden_layers", 28)
     n_heads = cfg_json.get("num_attention_heads", 16)
@@ -77,11 +88,22 @@ def export_model(hf_dir: str, out_path: str, group_size: int = 64) -> ModelConfi
     max_seq = cfg_json.get("max_position_embeddings", 40960)
     head_dim = cfg_json.get("head_dim", dim // n_heads)
 
+    moe = cfg_json.get("model_type") == "qwen3_moe"
+    experts = {}
+    if moe:
+        if cfg_json.get("mlp_only_layers") or cfg_json.get(
+                "decoder_sparse_step", 1) != 1:
+            raise NotImplementedError(
+                "a qwen3_moe model with dense layers is not ported")
+        hidden = 0
+        experts = dict(n_experts=cfg_json["num_experts"],
+                       n_experts_per_tok=cfg_json["num_experts_per_tok"],
+                       expert_dim=cfg_json["moe_intermediate_size"])
+
     while dim % group_size != 0:
         group_size //= 2
         print(f"[export] reducing group size to {group_size} to fit dim")
 
-    state = _load_state_dict(hf_dir)
     L = n_layers
 
     def lay(i, name):
@@ -94,7 +116,7 @@ def export_model(hf_dir: str, out_path: str, group_size: int = 64) -> ModelConfi
     cfg = ModelConfig(dim=dim, hidden_dim=hidden, n_layers=L, n_heads=n_heads,
                       n_kv_heads=n_kv_heads, vocab_size=vocab, seq_len=max_seq,
                       head_dim=head_dim, shared_classifier=bool(shared),
-                      group_size=group_size)
+                      group_size=group_size, **experts)
     cfg.validate()
 
     def stack_q8(names: list[np.ndarray]):
@@ -111,9 +133,32 @@ def export_model(hf_dir: str, out_path: str, group_size: int = 64) -> ModelConfi
     wk = stack_q8([lay(i, "self_attn.k_proj.weight") for i in range(L)])
     wv = stack_q8([lay(i, "self_attn.v_proj.weight") for i in range(L)])
     wo = stack_q8([lay(i, "self_attn.o_proj.weight") for i in range(L)])
-    w1 = stack_q8([lay(i, "mlp.gate_proj.weight") for i in range(L)])
-    w2 = stack_q8([lay(i, "mlp.down_proj.weight") for i in range(L)])
-    w3 = stack_q8([lay(i, "mlp.up_proj.weight") for i in range(L)])
+    mlp = {}
+    if moe:
+        E = cfg.n_experts
+
+        def per_layer(name):
+            """One expert matrix [E, out, in] a layer, as lists."""
+            qs, ss = [], []
+            for i in range(L):
+                q, s = stack_q8([lay(i, f"mlp.experts.{e}.{name}.weight")
+                                 for e in range(E)])
+                qs.append(q)
+                ss.append(s)
+            return qs, ss
+
+        mlp["wr_q"], mlp["wr_s"] = stack_q8(
+            [lay(i, "mlp.gate.weight") for i in range(L)])
+        mlp["wr_s"] = mlp["wr_s"].reshape(L, E, -1)
+        for ours, theirs in (("we1", "gate_proj"), ("we2", "down_proj"),
+                             ("we3", "up_proj")):
+            mlp[ours + "_q"], mlp[ours + "_s"] = per_layer(theirs)
+    else:
+        for ours, theirs in (("w1", "gate_proj"), ("w2", "down_proj"),
+                             ("w3", "up_proj")):
+            q, s = stack_q8([lay(i, f"mlp.{theirs}.weight")
+                             for i in range(L)])
+            mlp[ours + "_q"], mlp[ours + "_s"] = q, s
     if shared:
         cls_q, cls_s = emb_q, emb_s
     else:
@@ -134,9 +179,7 @@ def export_model(hf_dir: str, out_path: str, group_size: int = 64) -> ModelConfi
         emb_q=emb_q, emb_s=emb_s,
         wq_q=wq[0], wq_s=wq[1], wk_q=wk[0], wk_s=wk[1],
         wv_q=wv[0], wv_s=wv[1], wo_q=wo[0], wo_s=wo[1],
-        w1_q=w1[0], w1_s=w1[1], w2_q=w2[0], w2_s=w2[1],
-        w3_q=w3[0], w3_s=w3[1],
-        cls_q=cls_q, cls_s=cls_s,
+        cls_q=cls_q, cls_s=cls_s, **mlp,
     )
     write_checkpoint(out_path, weights)
     print(f"[export] wrote {out_path}")

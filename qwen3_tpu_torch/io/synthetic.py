@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from qwen3_tpu_torch.config import ModelConfig
+from qwen3_tpu_torch.config import ModelConfig, has_experts
 from qwen3_tpu_torch.io.checkpoint import Q8Weights
 from qwen3_tpu_torch.io.tokenizer_bin import SpecialTokens, TokenizerData
 
@@ -41,9 +41,17 @@ def synthetic_weights(cfg: ModelConfig, seed: int = 0,
     wk_q, wk_s = q8((L, KV, D))
     wv_q, wv_s = q8((L, KV, D))
     wo_q, wo_s = q8((L, D, P))
-    w1_q, w1_s = q8((L, H, D))
-    w2_q, w2_s = q8((L, D, H))
-    w3_q, w3_s = q8((L, H, D))
+    mlp = {}
+    if has_experts(cfg):
+        # the router, then each expert family (a model with experts)
+        E, F = cfg.n_experts, cfg.expert_dim
+        for name, shape in (("wr", (L, E, D)), ("we1", (L, E, F, D)),
+                            ("we2", (L, E, D, F)), ("we3", (L, E, F, D))):
+            mlp[name + "_q"], mlp[name + "_s"] = q8(shape)
+    else:
+        for name, shape in (("w1", (L, H, D)), ("w2", (L, D, H)),
+                            ("w3", (L, H, D))):
+            mlp[name + "_q"], mlp[name + "_s"] = q8(shape)
     if cfg.shared_classifier:
         cls_q, cls_s = emb_q, emb_s
     else:
@@ -56,8 +64,7 @@ def synthetic_weights(cfg: ModelConfig, seed: int = 0,
         emb_q=emb_q, emb_s=emb_s,
         wq_q=wq_q, wq_s=wq_s, wk_q=wk_q, wk_s=wk_s, wv_q=wv_q, wv_s=wv_s,
         wo_q=wo_q, wo_s=wo_s,
-        w1_q=w1_q, w1_s=w1_s, w2_q=w2_q, w2_s=w2_s, w3_q=w3_q, w3_s=w3_s,
-        cls_q=cls_q, cls_s=cls_s,
+        cls_q=cls_q, cls_s=cls_s, **mlp,
     )
 
 

@@ -43,6 +43,20 @@ Parameters (a dict of tensors on one device):
   bf16: wq_t .. w3_t [L, in, out] and cls_t [dim, V], bf16 (the JAX
   package's layout)
   rope_cos/rope_sin [max_seq_len, head_dim/2]
+  a model with experts (config.has_experts; modes pallas-fast, exact and
+  bf16) has no w1/w2/w3 (nor w13) tensors; every mode: wr_q/wr_s the
+  router [L, E, dim] (int8, f32 group scales), moe_counts int64 [L, E]
+  (the rows routed to each expert so far, expert_counts); pallas-fast and
+  exact: we13_q/_s and we2_q/_s, lists of L per-layer tensors [E, 2 *
+  width, dim] (each expert's w1 rows, then its w3 rows) and [E, dim,
+  width]; bf16: we13_t [E, dim, 2 * width] and we2_t [E, width, dim] per
+  layer, bf16
+The expert layer (`_moe`): in mode pallas-fast the kernels of
+ops/cuda/moe.py (router, index, grouped w13 with its swiglu, grouped w2,
+combine; five launches, no read back to the host); in modes exact and bf16
+the same routing in plain torch and each expert's products in the mode's
+own arithmetic. Modes pallas and pallas-int8 and tensor parallelism do not
+run it: they raise.
 """
 
 from __future__ import annotations
@@ -52,7 +66,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from qwen3_tpu_torch.config import ModelConfig
+from qwen3_tpu_torch.config import ModelConfig, has_experts
 from qwen3_tpu_torch.io.checkpoint import Q8Weights, load_checkpoint
 from qwen3_tpu_torch.ops.activations import swiglu
 from qwen3_tpu_torch.ops.attention import (
@@ -61,6 +75,7 @@ from qwen3_tpu_torch.ops.attention import (
     gqa_attention_per_slot,
     gqa_attention_two_segment,
 )
+from qwen3_tpu_torch.ops.cuda import moe as moe_ops
 from qwen3_tpu_torch.ops.cuda.flash_decode import (
     flash_decode_gqa,
     flash_decode_gqa_two_segment,
@@ -95,6 +110,7 @@ from qwen3_tpu_torch.parallel.shard_layout import (
     tp_shard_params,
 )
 from qwen3_tpu_torch.runtime import kvcache as kvc
+from qwen3_tpu_torch.utils.profiling import SPANS
 
 Params = dict[str, Any]
 
@@ -105,6 +121,9 @@ FUSE_MODES = ("pallas", "pallas-fast")
 FAST_ATTN_MODES = ("pallas-fast", "pallas-int8")
 _FUSED = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3")}
 _LAYER_MATS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+
+# the modes that run the sparse expert layer
+MOE_MODES = ("exact", "bf16", "pallas-fast")
 
 # "fused" (the batched decode kernel) runs only in decode_forward over the
 # serving side buffer
@@ -117,14 +136,17 @@ ATTN = ("dense", "flash", "fused")
 # its matmuls took: "mm_" + mode, or "mm_fused" for the fused-prologue kernel
 # "forward_step" counts forward's one-token passes at a device position (the
 # B = 1 decode chunk), apart from its blocks ("forward"); nothing reads its
-# pallas-fast share, so it has no "_fast" key
+# pallas-fast share, so it has no "_fast" key. "moe_layers" counts the
+# expert layers run, "moe_rows" the (row, expert) pairs they routed (rows
+# times the experts a token takes, padding rows included)
 CALLS = {"forward": 0, "decode_forward": 0, "forward_step": 0,
          "forward_flash": 0, "decode_forward_flash": 0,
          "forward_step_flash": 0, "forward_fast": 0,
          "decode_forward_fast": 0,
          "decode_forward_two_segment": 0, "decode_forward_fused": 0,
          "mm_pallas": 0, "mm_pallas-fast": 0, "mm_pallas-int8": 0,
-         "mm_exact": 0, "mm_bf16": 0, "mm_fused": 0}
+         "mm_exact": 0, "mm_bf16": 0, "mm_fused": 0,
+         "moe_layers": 0, "moe_rows": 0}
 
 
 def resolve_device(device) -> torch.device:
@@ -146,6 +168,20 @@ def check_mode(mode: str) -> None:
         raise ValueError(f"unknown qmode {mode!r} (the port runs {MODES})")
 
 
+def check_moe(cfg: ModelConfig, mode: str, sharded: bool = False) -> None:
+    """A model with experts runs in MOE_MODES unsharded (tp = 1); anything
+    else is not ported, and raises (nothing falls back)."""
+    if not has_experts(cfg):
+        return
+    if mode not in MOE_MODES:
+        raise NotImplementedError(
+            f"qmode {mode!r} with experts is not ported (the expert layer "
+            f"runs {MOE_MODES})")
+    if sharded:
+        raise NotImplementedError(
+            "tensor parallelism with experts is not ported")
+
+
 def _bf16_host(q: np.ndarray, s: np.ndarray, group_size: int) -> torch.Tensor:
     """Q8_0 weights [..., d, n] to bf16 [..., n, d] on the host, one layer
     at a time (qwen3_tpu's _dequant_bf16_host: bounds the fp32 transient)."""
@@ -160,29 +196,34 @@ def _host_params(w: Q8Weights, mode: str) -> dict:
     """Host parameter dict for `mode` (everything but the rope tables):
     numpy arrays, and bf16 tensors in mode bf16 (numpy has no bf16)."""
     check_mode(mode)
+    check_moe(w.config, mode)
     p = {
         "att_norm": w.att_norm, "ffn_norm": w.ffn_norm,
         "out_norm": w.out_norm, "q_norm": w.q_norm, "k_norm": w.k_norm,
         "emb_q": w.emb_q, "emb_s": w.emb_s,
     }
+    # a model with experts has no dense MLP: attention's matrices alone
+    moe = has_experts(w.config)
+    mats = _LAYER_MATS[:4] if moe else _LAYER_MATS
+    fused = {"wqkv": _FUSED["wqkv"]} if moe else _FUSED
     if mode == "bf16":
         g = w.config.group_size
-        for name in _LAYER_MATS:
+        for name in mats:
             p[name + "_t"] = _bf16_host(getattr(w, name + "_q"),
                                         getattr(w, name + "_s"), g)
         p["cls_t"] = _bf16_host(w.cls_q, w.cls_s, g)
         return p
     if mode == "exact":
-        for name in _LAYER_MATS:
+        for name in mats:
             p[name + "_q"] = getattr(w, name + "_q")
             p[name + "_s"] = getattr(w, name + "_s")
     else:   # every pallas mode packs the same tensors
-        for out_name, parts in _FUSED.items():
+        for out_name, parts in fused.items():
             p[out_name + "_q"] = np.concatenate(
                 [getattr(w, n + "_q") for n in parts], axis=-2)
             p[out_name + "_s"] = np.concatenate(
                 [getattr(w, n + "_s") for n in parts], axis=-2)
-        for name in ("wo", "w2"):
+        for name in ("wo",) if moe else ("wo", "w2"):
             p[name + "_q"] = getattr(w, name + "_q")
             p[name + "_s"] = getattr(w, name + "_s")
     if not w.config.shared_classifier:
@@ -213,13 +254,69 @@ def _to_device(host: dict, cfg: ModelConfig, max_seq_len: int,
     return p
 
 
+def _free(family, l: int) -> None:
+    """Let go of layer l of a family given as a list of layers."""
+    if isinstance(family, list):
+        family[l] = None
+
+
+def _expert_params(w: Q8Weights, mode: str, dev) -> Params:
+    """The expert layer's parameters of `mode` on `dev` (see the module
+    docstring), one layer at a time: each family's layer l (an array or a
+    tensor, host or device, stacked [L, ...] or a list of layers) is copied
+    or packed on `dev`, w1 and w3 into w13, and a family given as a list
+    lets go of each layer once it is packed, so that handing over tensors
+    already on the card holds at most the model and one layer."""
+    cfg = w.config
+    L, E, G = cfg.n_layers, cfg.n_experts, cfg.group_size
+
+    def layer(family, l):
+        return _tensor(family[l]).to(dev)
+
+    p: Params = {"moe_counts": torch.zeros(L, E, dtype=torch.int64,
+                                           device=dev)}
+    for part in ("_q", "_s"):
+        src = getattr(w, "wr" + part)
+        p["wr" + part] = (torch.stack([layer(src, l) for l in range(L)])
+                          if isinstance(src, list) else _tensor(src).to(dev))
+        for l in range(L):
+            _free(src, l)
+    keys = ("we13_t", "we2_t") if mode == "bf16" else (
+        "we13_q", "we13_s", "we2_q", "we2_s")
+    for k in keys:
+        p[k] = []
+    for l in range(L):
+        if mode == "bf16":
+            up = [dequant_weights_bf16(layer(w.we1_q, l), layer(w.we1_s, l), G),
+                  dequant_weights_bf16(layer(w.we3_q, l), layer(w.we3_s, l), G)]
+            p["we13_t"].append(torch.cat(up, dim=-1))
+            p["we2_t"].append(dequant_weights_bf16(layer(w.we2_q, l),
+                                                   layer(w.we2_s, l), G))
+            del up
+        else:
+            for part in ("_q", "_s"):
+                p["we13" + part].append(torch.cat(
+                    [layer(getattr(w, "we1" + part), l),
+                     layer(getattr(w, "we3" + part), l)], dim=-2))
+                p["we2" + part].append(
+                    layer(getattr(w, "we2" + part), l).contiguous())
+        for name in ("we1", "we2", "we3"):
+            _free(getattr(w, name + "_q"), l)
+            _free(getattr(w, name + "_s"), l)
+    return p
+
+
 def init_params(w: Q8Weights, mode: str = "pallas",
                 max_seq_len: int | None = None, device="cuda") -> Params:
-    """Device parameters of `mode` from host Q8 weights."""
+    """Device parameters of `mode` from Q8 weights: host arrays, or (the
+    expert families) tensors already on the device, packed there."""
     dev = resolve_device(device)
     if max_seq_len is None:
         max_seq_len = w.config.seq_len
-    return _to_device(_host_params(w, mode), w.config, max_seq_len, dev)
+    p = _to_device(_host_params(w, mode), w.config, max_seq_len, dev)
+    if has_experts(w.config):
+        p.update(_expert_params(w, mode, dev))
+    return p
 
 
 def load_params(path: str, mode: str = "pallas",
@@ -242,8 +339,11 @@ def load_params(path: str, mode: str = "pallas",
             "parallel.sharding.shard_params instead)")
     dev = resolve_device(device)
     w = load_checkpoint(path)
+    check_moe(w.config, mode, tp > 1)
     if max_seq_len is None:
         max_seq_len = w.config.seq_len
+    if has_experts(w.config):
+        return w.config, init_params(w, mode, max_seq_len, dev)
     host = tp_shard_params(_host_params(w, mode), w.config, tp, rank)
     return w.config, _to_device(host, w.config, max_seq_len, dev)
 
@@ -435,13 +535,17 @@ def _layer(p: Params, cfg: ModelConfig, x: torch.Tensor,
     write_kv(l, k, v)
     att = attend(l, q).reshape(B, T, H * D)
     if fuse:
-        x, inv = _add_norm(
-            x, _reduce(group, _fused(p, cfg, att, "wo", l, mode, "none")),
-            None)
+        wo = _reduce(group, _fused(p, cfg, att, "wo", l, mode, "none"))
+        if has_experts(cfg):
+            x, h = _add_norm(x, wo, p["ffn_norm"][l])
+            return x, _moe(p, cfg, h, l, mode)
+        x, inv = _add_norm(x, wo, None)
         gu = _fused(p, cfg, x, "w13", l, mode, "norm", p["ffn_norm"][l], inv)
         return x, _reduce(group, _fused(p, cfg, gu, "w2", l, mode, "swiglu"))
     x, h = _add_norm(x, _reduce(group, _linear(p, cfg, att, "wo", l, mode)),
                      p["ffn_norm"][l])
+    if has_experts(cfg):
+        return x, _moe(p, cfg, h, l, mode)
     if split:
         gu = _linear(p, cfg, h, "w13", l, mode)
         gate, up = gu[..., :cfg.hidden_dim], gu[..., cfg.hidden_dim:]
@@ -450,6 +554,67 @@ def _layer(p: Params, cfg: ModelConfig, x: torch.Tensor,
         up = _linear(p, cfg, h, "w3", l, mode)
     return x, _reduce(group, _linear(p, cfg, swiglu(gate, up), "w2", l,
                                      mode))
+
+
+def _moe(p: Params, cfg: ModelConfig, h: torch.Tensor, l: int,
+         mode: str) -> torch.Tensor:
+    """Layer l's sparse expert layer on its ffn_norm output h [B, T, dim]:
+    the router in float32 over all experts, the top n_experts_per_tok by
+    softmax probability renormalised, each routed (row, expert) pair
+    through the expert's SwiGLU, the outputs summed with their weights in
+    descending order (ops/cuda/moe.py). Returns its w2 delta [B, T, dim]
+    f32, unadded, as the dense branch does. Span `moe`; counted in CALLS."""
+    sid = SPANS.begin("moe")
+    B, T, D = h.shape
+    k = cfg.n_experts_per_tok
+    CALLS["moe_layers"] += 1
+    CALLS["moe_rows"] += B * T * k
+    h2 = h.reshape(B * T, D)
+    if mode == "pallas-fast":
+        out = moe_ops.expert_layer(
+            h2, p["wr_q"][l], p["wr_s"][l], p["we13_q"][l], p["we13_s"][l],
+            p["we2_q"][l], p["we2_s"][l], k, cfg.group_size,
+            p["moe_counts"][l])
+    else:
+        out = _moe_plain(p, cfg, h2, l, mode)
+    SPANS.end(sid)
+    return out.reshape(B, T, D)
+
+
+def _moe_plain(p: Params, cfg: ModelConfig, h: torch.Tensor, l: int,
+               mode: str) -> torch.Tensor:
+    """The expert layer of modes exact and bf16 on h [N, dim]: the routing
+    and the combine of pallas-fast in plain torch, each expert's products
+    in the mode's own arithmetic (_linear's: activations quantized per
+    group against the Q8_0 weights, or bf16 against the weights dequantized
+    once to bf16)."""
+    G, k, F = cfg.group_size, cfg.n_experts_per_tok, cfg.expert_dim
+    ids, w, _ = moe_ops.route_plain(h, p["wr_q"][l], p["wr_s"][l], k, G)
+    lst, cnt = moe_ops.index_plain(ids, cfg.n_experts, p["moe_counts"][l])
+    if mode == "exact":
+        def mm(a, name, e):
+            aq, as_ = quantize_act(a, G)
+            return q8_matmul_exact(aq, as_, p[name + "_q"][l][e],
+                                   p[name + "_s"][l][e], G)
+    else:
+        def mm(a, name, e):
+            return q8_matmul_bf16(a, p[name + "_t"][l][e])
+    y = torch.zeros(ids.numel(), cfg.dim, dtype=torch.float32,
+                    device=h.device)
+    for e, c in enumerate(cnt.tolist()):
+        if c:
+            ent = lst[e, :c].long()
+            gu = mm(h[ent // k], "we13", e)
+            y[ent] = mm(swiglu(gu[:, :F], gu[:, F:]), "we2", e)
+    return moe_ops.combine_plain(y, w)
+
+
+def expert_counts(p: Params) -> torch.Tensor:
+    """The rows routed to each (layer, expert) since the parameters were
+    made, int64 [L, E] on the host: the routing kernels add to it on the
+    device, and this read synchronizes, so it is taken only when asked,
+    never inside a step."""
+    return p["moe_counts"].cpu()
 
 
 def _layers(p: Params, cfg: ModelConfig, x: torch.Tensor, cos, sin,
@@ -520,6 +685,7 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, k_cache,
 
     Returns (logits [B, T, V] or [B, 1, V], k_cache, v_cache)."""
     check_mode(mode)
+    check_moe(cfg, mode, group is not None)
     _check_attn(attn)
     if attn == "fused":
         raise ValueError("attn='fused' is the serving decode step's attention "
@@ -632,6 +798,7 @@ def decode_forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     and fused attention (the flash kernels stay fp32, as in the JAX
     package). `fuse`, `group` and `out_vocab` as in `forward`."""
     check_mode(mode)
+    check_moe(cfg, mode, group is not None)
     _check_attn(attn)
     if attn == "fused" and side is None:
         raise ValueError("attn='fused' runs over the serving side buffer "

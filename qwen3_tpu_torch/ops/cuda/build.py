@@ -30,9 +30,11 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # -fmad=false: no a*b+c contraction, so fp32 sums round as written. The fused
 # matmul keeps nvcc's default, PyTorch's own build setting, for the expf of
-# its sigmoid; the kernels it shares with q8_matmul.cu (q8_kernels.cuh) spell
-# every product and sum with an intrinsic, so both builds round alike
-NO_CONTRACT_EXCEPT = {"q8_fused.cu"}
+# its sigmoid, and so do the expert layer's kernels for the expf of their
+# softmax and swiglu; the kernels they share with q8_matmul.cu
+# (q8_kernels.cuh) spell every product and sum with an intrinsic, so both
+# builds round alike
+NO_CONTRACT_EXCEPT = {"q8_fused.cu", "moe_route.cu", "moe_experts.cu"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -59,6 +61,10 @@ SIGNATURES = {
                     + [_I] * 3 + [_F, _P],
     "softmax_sum": [_P] * 4 + [_I] * 3 + [_P],
     "prefix_sum": [_P] * 3 + [_I] * 3 + [_P],
+    "moe_route": [_P] * 6 + [_I] * 5 + [_P],
+    "moe_index": [_P] * 4 + [_I] * 3 + [_P],
+    "moe_experts": [_P] * 6 + [_I] * 8 + [_P],
+    "moe_combine": [_P] * 3 + [_I] * 3 + [_P],
     "pure_read_stacked": [_P, _I, _P] + [_I] * 5 + [_P],
     "pure_read_manual": [_P, _I, _P] + [_I] * 6 + [_P],
 }

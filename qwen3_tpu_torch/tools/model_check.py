@@ -20,6 +20,7 @@ def main(argv=None) -> int:
     path = argv[0]
     seq_len = int(argv[1]) if len(argv) > 1 else 0
 
+    from qwen3_tpu_torch.config import has_experts
     from qwen3_tpu_torch.io.checkpoint import load_checkpoint
 
     try:
@@ -34,13 +35,24 @@ def main(argv=None) -> int:
           f"head_dim={cfg.head_dim} vocab={cfg.vocab_size} "
           f"seq_len={cfg.seq_len} group_size={cfg.group_size} "
           f"tied={int(cfg.shared_classifier)}", file=sys.stderr)
+    mlp = ("w1", "w2", "w3")
+    if has_experts(cfg):
+        print(f"[Experts] experts={cfg.n_experts} "
+              f"per_token={cfg.n_experts_per_tok} width={cfg.expert_dim}",
+              file=sys.stderr)
+        mlp = ("wr", "we1", "we2", "we3")
     total = 0
-    for name in ("emb", "wq", "wk", "wv", "wo", "w1", "w2", "w3", "cls"):
+    for name in ("emb", "wq", "wk", "wv", "wo", *mlp, "cls"):
         q = getattr(w, name + "_q")
         s = getattr(w, name + "_s")
-        nbytes = q.nbytes + s.nbytes
+        if isinstance(q, list):     # an expert family, a tensor a layer
+            nbytes = sum(a.nbytes + b.nbytes for a, b in zip(q, s))
+            qs, ss = ((len(q),) + q[0].shape, (len(s),) + s[0].shape)
+        else:
+            nbytes = q.nbytes + s.nbytes
+            qs, ss = q.shape, s.shape
         total += nbytes
-        print(f"[Weights] {name}: int8 {q.shape} + scales {s.shape} "
+        print(f"[Weights] {name}: int8 {qs} + scales {ss} "
               f"= {nbytes / 1e6:.1f} MB", file=sys.stderr)
     print(f"[Weights] total {total / 1e6:.1f} MB", file=sys.stderr)
     return 0

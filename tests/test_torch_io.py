@@ -15,14 +15,30 @@ from qwen3_tpu.io import synthetic as jsyn  # noqa: E402
 from qwen3_tpu.io import tokenizer_bin as jtb  # noqa: E402
 from qwen3_tpu.tokenizer import Tokenizer as JTokenizer  # noqa: E402
 from qwen3_tpu_torch.config import PRESETS as TPRESETS  # noqa: E402
+from qwen3_tpu_torch.config import has_experts  # noqa: E402
 from qwen3_tpu_torch.io import checkpoint as tck  # noqa: E402
 from qwen3_tpu_torch.io import synthetic as tsyn  # noqa: E402
 from qwen3_tpu_torch.io import tokenizer_bin as ttb  # noqa: E402
 from qwen3_tpu_torch.tokenizer import Tokenizer as TTokenizer  # noqa: E402
 
 
+# the port's header fields past the JAX package's: the sparse experts
+# (0 in a dense model), which the JAX package does not run
+EXPERT_FIELDS = ("n_experts", "n_experts_per_tok", "expert_dim")
+
+
+def dense_fields(cfg) -> dict:
+    """The port's config as the JAX package's fields, its expert fields 0."""
+    d = dataclasses.asdict(cfg)
+    assert [d.pop(k) for k in EXPERT_FIELDS] == [0, 0, 0]
+    return d
+
+
 def test_presets_match():
-    assert {k: dataclasses.asdict(v) for k, v in TPRESETS.items()} == {
+    """Every dense preset is the JAX package's; the expert presets are the
+    port's own."""
+    dense = {k: v for k, v in TPRESETS.items() if not has_experts(v)}
+    assert {k: dense_fields(v) for k, v in dense.items()} == {
         k: dataclasses.asdict(v) for k, v in JPRESETS.items()}
 
 
@@ -37,7 +53,7 @@ def test_checkpoint_bytes_and_arrays_match(tmp_path, preset, tied):
     tck.write_checkpoint(str(tp), tw)
     jck.write_checkpoint(str(jp), jw)
     assert tp.read_bytes() == jp.read_bytes()
-    assert dataclasses.asdict(tck.read_header(str(tp))) == dataclasses.asdict(
+    assert dense_fields(tck.read_header(str(tp))) == dataclasses.asdict(
         jck.read_header(str(jp)))
     back = tck.load_checkpoint(str(jp))
     for f in dataclasses.fields(jck.Q8Weights):
